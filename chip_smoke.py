@@ -7,7 +7,7 @@ Needs one CUDA card, ``nvcc`` and the checkout around this file; it
 imports nothing of JAX and nothing of ``openvqe_tpu``.  Phases:
 
 1. the card (nvidia-smi name and power limit), CUDA and nvcc versions;
-   build the eight kernels of ``openvqe_tpu_torch/sim/csrc`` (one nvcc per
+   build the ten kernels of ``openvqe_tpu_torch/sim/csrc`` (one nvcc per
    source, started together, sm_90a);
 2. per-group kernel parity: each of the four grouped kernels against its
    plain PyTorch version on the same card and inputs, at n = 16, on H8's
@@ -24,7 +24,8 @@ imports nothing of JAX and nothing of ``openvqe_tpu``.  Phases:
    ``VQE.algorithm("ucc", "H8", "sUPCCGSD", "JW", False).execute()``
    against the JAX package's CPU run; only the four grouped kernels run;
 4. H10/STO-3G set-up (20 qubits, UCCSD with the MP2 initial guess, as
-   ``benchmarks/bench_large_vqe.py`` builds it; chemistry without FCI);
+   ``benchmarks/bench_large_vqe.py`` builds it; chemistry without FCI; the
+   JW images of the 875 cluster operators are also the ADAPT pool);
 5. streaming kernel parity at n = 20: each of the four bucketed kernels
    against its plain version and against the grouped kernels on the same
    sequence, on H10's own bucket operands and on a synthetic problem
@@ -37,7 +38,25 @@ imports nothing of JAX and nothing of ``openvqe_tpu``.  Phases:
    ``JAX_PLATFORMS=cpu python tests/torch_h10_reference.py``), then 20
    L-BFGS-B iterations from theta0 that must lower the energy and stay
    above FCI; only the four bucketed kernels run.  Then the per-call time
-   of both routes at H10 and the device busy share of the streaming one.
+   of both routes at H10 and the device busy share of the streaming one;
+7. pool-kernel parity at n = 20: the two pool-overlap kernels (E14
+   per-group, E15 bucketed) against their plain versions on H10's own
+   pool operands (875 groups, K = 8) and on a synthetic pool (non-real
+   coefficients, x_hi = 0 and != 0, a full bucket), bit-identical when
+   repeated; timed at H10's shapes;
+8. the slice's main path, fermionic ADAPT-VQE on H10 with the UCCSD pool
+   (``fermionic_adapt_vqe``, BFGS, 3 outer iterations, the default
+   ``fidelity_max_qubits`` so the Lanczos reference runs), counters set to
+   0 just before and read just after: the screen at HF, the chosen
+   indices and the outer energies against the JAX package's float64 run
+   in ``tests/torch_adapt_reference.json`` (made by
+   ``JAX_PLATFORMS=cpu python tests/torch_adapt_reference.py``), energies
+   above FCI and not increasing; only the streaming kernels and E14 run.
+   Then once more with OVQE_STREAM_FUSE=1, where E15 runs instead of E14;
+9. the ADAPT driver on the per-group route:
+   ``VQE.algorithm("fermionic_adapt", "H4", "spin_complement_gsd", "JW",
+   False, {"max_external_iterations": 6}).execute()`` against the JAX
+   package's run on the port's chemistry (same file); E14 launches.
 
 The last three lines of standard output are the card's name and power
 limit, a JSON ``{"kernels": [...]}`` line, and the JSON ``{"ok": true,
@@ -83,6 +102,7 @@ F32_FLOP_PER_S = 67e12
 
 GROUPED = ("rot_sweep", "expectation", "ham_apply", "adjoint_sweep")
 STREAMING = ("rot_fused", "adjoint_fused", "ham_bucketed", "expect_bucketed")
+POOL = ("pool_overlap", "pool_bucketed")
 REPLACES = {
     "rot_sweep": "openvqe_tpu/sim/pallas_kernels.py:158",
     "expectation": "openvqe_tpu/sim/pallas_kernels.py:206",
@@ -92,10 +112,13 @@ REPLACES = {
     "adjoint_fused": "openvqe_tpu/sim/streaming.py:1363",
     "ham_bucketed": "openvqe_tpu/sim/streaming.py:1681",
     "expect_bucketed": "openvqe_tpu/sim/streaming.py:2086",
+    "pool_overlap": "openvqe_tpu/sim/streaming.py:2660",
+    "pool_bucketed": "openvqe_tpu/sim/streaming.py:2873",
 }
 CSRC = "openvqe_tpu_torch/sim/csrc/"
 SOURCE = {**dict.fromkeys(GROUPED, CSRC + "grouped_kernels.cu"),
-          **dict.fromkeys(STREAMING, CSRC + "streaming_kernels.cu")}
+          **dict.fromkeys(STREAMING, CSRC + "streaming_kernels.cu"),
+          **dict.fromkeys(POOL, CSRC + "pool_kernels.cu")}
 N_H10 = 20
 LBFGS_ITERS = 20
 # the JAX package's chunk geometry at 20 qubits: rotation runs at
@@ -103,6 +126,8 @@ LBFGS_ITERS = 20
 JAX_SEQ_CB, JAX_HAM_CB = 16, 17
 # f32 operations per amplitude of cos/sin from the field (grouped.rot_cos_sin)
 CS_FLOPS = {0: 3, 1: 5, 2: 22}
+ADAPT_ITERS = 3          # outer iterations of the H10 ADAPT run (phase 8)
+H4_ADAPT_OPTS = {"max_external_iterations": 6}
 
 
 class PhaseError(AssertionError):
@@ -235,12 +260,14 @@ def h10_problem():
     eps = [e for e in md.orbital_energies for _ in range(2)]
     ops, theta0, hf = get_cluster_ops_and_init_guess(md.n_elec, [0] * n, eps,
                                                      hpqrs)
-    gens = [transform_operator(op, "JW") * 1j for op in ops]
+    pool = [transform_operator(op, "JW") for op in ops]
+    gens = [op * 1j for op in pool]
     print(f"H10 set-up (host): chemistry without FCI {t_chem:.2f} s, "
           f"Hamiltonian and UCCSD generators {time.time() - t0 - t_chem:.2f} "
           f"s; {n} qubits, {len(gens)} generators")
-    return SimpleNamespace(ham=ham, gens=gens, theta0=np.asarray(theta0),
-                           hf=hf, info=md.info, n=n)
+    return SimpleNamespace(ham=ham, pool=pool, gens=gens,
+                           theta0=np.asarray(theta0), hf=hf, info=md.info,
+                           n=n)
 
 
 def stream_synthetic(n, cb, fmode, seed=6):
@@ -328,6 +355,24 @@ def work(name, psi, ops=None, hops=None):
             flops += N * (2 * lv + (per_group // 2 if hc.real else per_group)
                           * G)
         return nbytes, flops
+    if name in ("pool_overlap", "pool_bucketed"):
+        # ops: the pool's (x, z, cre, cim) tensors or one BucketOperands;
+        # 2 operations per live coefficient (re and im fields) and the
+        # complex product and multiply-add with conj(sigma) per group
+        if name == "pool_overlap":
+            x, z, cre, cim = ops
+            G, real = x.numel(), not bool(cim.any())
+            opnd = (x.numel() + z.numel() + cre.numel() + cim.numel()) * 4
+            rows = G * 2 * 4
+        else:
+            x, z, cre, cim = ops.x_hi, ops.z, ops.coef, ops.coef_im
+            G, real = int(ops.act.sum()), ops.real
+            opnd = (x.numel() + 2 * ops.act.numel() + z.numel()
+                    + cre.numel() * (1 if real else 2)) * 4
+            rows = ops.act.numel() * 2 * 4
+        lv = live(cre) + (0 if real else live(cim))
+        return 2 * state + opnd + rows, N * (2 * lv + (10 if real else 14)
+                                             * G)
     if name in ("rot_sweep", "adjoint_sweep"):
         G = ops.x.numel()
         opnd = (ops.x.numel() + ops.z.numel() + ops.s.numel() + G) * 4
@@ -848,6 +893,306 @@ def phase_h10_main(h10, ref, card):
     return launches
 
 
+# ------------------------------------------------------------ ADAPT (PR 4)
+
+def pool_synthetic(n, cb, seed=9):
+    """A pool for the two pool kernels: 20 groups with x_hi = 0 (two of
+    them x = 0), 18 with x_hi = 1 (a full bucket of 16 and two more), 14
+    free; ragged live rows; non-real coefficients (W_im live)."""
+    import numpy as np
+    from openvqe_tpu_torch.sim import grouped as gr
+    rng = np.random.default_rng(seed)
+    hi = np.repeat([0, 1, -1], [20, 18, 14])
+    lo = rng.integers(1, 1 << cb, size=len(hi))
+    lo[:2] = 0
+    free = rng.integers(0, 1 << (n - cb), size=len(hi))
+    x = (np.where(hi < 0, free, hi).astype(np.int64) << cb) | lo
+    G = len(x)
+    a_re = rng.normal(size=(G, 8)) * 0.4
+    a_re[::3, 5:] = 0.0
+    return gr.GroupedPool(
+        n=n, x=x.astype(np.int32),
+        z=rng.integers(0, 1 << n, size=(G, 8)).astype(np.int32), a_re=a_re,
+        a_im=rng.normal(size=(G, 8)) * 0.2,
+        op=(np.arange(G) % 29).astype(np.int32), n_ops=29)
+
+
+def pool_operands(gpool, cb, dev):
+    """E14's (x, z, cre, cim) tensors and E15's bucket operands (with the
+    slot -> group map) of one pool."""
+    import torch
+    from openvqe_tpu_torch.sim import streaming as st
+
+    def t(a, dt):
+        return torch.as_tensor(a, dtype=dt, device=dev).contiguous()
+
+    flat = (t(gpool.x, torch.int32), t(gpool.z, torch.int32),
+            t(gpool.a_re, torch.float32), t(gpool.a_im, torch.float32))
+    sd = st.build_stream_data(gpool.n, gpool.x, gpool.z, gpool.a_re,
+                              op=gpool.op, coef_im=gpool.a_im, chunk_bits=cb)
+    bk, slot_group = st.build_pool_buckets(sd)
+    return flat, st.bucket_operands(bk, dev), slot_group
+
+
+def parity_pool_case(label, sigma, psi, flat, bo, slot_group, errs):
+    import torch
+    from openvqe_tpu_torch.sim import kernels as K
+    from openvqe_tpu_torch.sim import streaming as st
+    rows = K.pool_overlap(sigma, psi, *flat)
+    ref = st.pool_overlap_ref(sigma, psi, *flat)
+    d14 = float((rows - ref).abs().max())
+    same14 = torch.equal(rows, K.pool_overlap(sigma, psi, *flat))
+    brows = K.pool_bucketed(sigma, psi, bo)
+    d15 = float((brows - st.pool_bucketed_ref(sigma, psi, bo)).abs().max())
+    same15 = torch.equal(brows, K.pool_bucketed(sigma, psi, bo))
+    live = torch.from_numpy(slot_group >= 0)
+    d_map = float((brows.cpu()[live]
+                   - ref.cpu()[slot_group[slot_group >= 0]]).abs().max())
+    torch.cuda.synchronize()
+    print(f"parity {label}: {len(flat[0])} groups (K {flat[1].shape[1]}), "
+          f"{bo.B} buckets at 2^{bo.chunk_bits} (real {bo.real}); max "
+          f"|kernel - plain|: pool_overlap {d14:.3e}, pool_bucketed "
+          f"{d15:.3e}, bucket rows vs per-group rows {d_map:.3e}; "
+          f"bit-identical repeat: {same14}, {same15}")
+    check(max(d14, d15, d_map) <= TOL_STATE,
+          f"{label} pool rows off: {d14} {d15} {d_map}")
+    check(same14 and same15, f"{label} pool rows are not reproducible")
+    errs["pool_overlap"] = max(errs.get("pool_overlap", 0.0), d14)
+    errs["pool_bucketed"] = max(errs.get("pool_bucketed", 0.0), d15)
+
+
+def phase_pool_parity(h10, card):
+    import numpy as np
+    import torch
+    from openvqe_tpu_torch.sim import grouped as gr
+    from openvqe_tpu_torch.sim import kernels as K
+    from openvqe_tpu_torch.sim import streaming as st
+    from openvqe_tpu_torch.sim.compile import compile_pool
+    from openvqe_tpu_torch.sim.objective import VQEObjective
+    dev = torch.device(DEVICE)
+    obj = VQEObjective(h10.ham, device=dev, stream=True)
+    gpool = gr.group_pool(compile_pool(h10.pool, h10.n))
+    check(len(gpool.x) == len(h10.pool) and gpool.z.shape[1] == 8
+          and not gpool.a_im.any(),
+          f"H10 pool: {len(gpool.x)} groups, K {gpool.z.shape[1]}")
+    errs = {}
+    psi = rand_state(h10.n, 13, dev)
+    sigma = obj.ham_apply(psi).contiguous()
+    flat, bo, sg = pool_operands(gpool, obj.chunk_bits, dev)
+    parity_pool_case("H10 UCCSD pool", sigma, psi, flat, bo, sg, errs)
+    sp = pool_synthetic(N_H10, st.CHUNK_BITS)
+    sflat, sbo, ssg = pool_operands(sp, st.CHUNK_BITS, dev)
+    check(not sbo.real and (sbo.act_host.sum(1) == st.HAM_BUCKET_CAP).any()
+          and (sbo.x_hi == 0).any() and (sbo.x_hi != 0).any(),
+          "synthetic pool misses W_im, a full bucket, x_hi = 0 or != 0")
+    parity_pool_case(f"synthetic pool n={N_H10}", rand_state(N_H10, 14, dev),
+                     rand_state(N_H10, 15, dev), sflat, sbo, ssg, errs)
+
+    fns = {"pool_overlap": (lambda: K.pool_overlap(sigma, psi, *flat),
+                            lambda: st.pool_overlap_ref(sigma, psi, *flat),
+                            flat),
+           "pool_bucketed": (lambda: K.pool_bucketed(sigma, psi, bo),
+                             lambda: st.pool_bucketed_ref(sigma, psi, bo),
+                             bo)}
+    rows = {}
+    for name, (kern, plain, ops) in fns.items():
+        ms = cuda_ms(kern, reps=20)
+        plain_ms = cuda_ms(plain, reps=2, warmup=1)
+        nbytes, flops = work(name, psi, ops=ops)
+        b_ms, by = bound(nbytes, flops)
+        rows[name] = {"name": name, "route": "cuda", "source": SOURCE[name],
+                      "replaces": REPLACES[name], "launches": 0,
+                      "max_abs_err": errs[name], "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+                      "library_ms": None}
+        print(f"time {name} at H10 pool shapes ({card}): kernel {ms:.4f} "
+              f"ms, plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({by}; "
+              f"{nbytes} B, {flops} f32 ops)")
+    print(f"H10 pool buckets at 2^{bo.chunk_bits}: {bo.B} buckets of "
+          f"{int(bo.act_host.sum())} groups "
+          f"({len(set(bo.x_hi.tolist()))} distinct x_hi), "
+          f"mean {bo.act_host.sum(1).mean():.2f} per bucket")
+    return rows
+
+
+def choices_match(got, want, g_hf):
+    """Chosen indices equal, where two operators whose float64 gradients at
+    HF are exactly equal (spin partners) count as the same choice: float32
+    sums may order such a tie either way."""
+    return len(got) == len(want) and all(
+        a == b or g_hf[a] == g_hf[b] for a, b in zip(got, want))
+
+
+def run_adapt(h10, fci, tmp, tag, **kw):
+    """fermionic_adapt_vqe on H10 with the UCCSD pool; returns (iterations,
+    chosen indices, per-iteration timing records)."""
+    from openvqe_tpu_torch.algorithms.adapt import fermionic_adapt_vqe
+    from openvqe_tpu_torch.utils.checkpoint import load_checkpoint
+    from openvqe_tpu_torch.utils.run_logger import read_jsonl
+    ck, log = str(tmp / f"{tag}.json"), str(tmp / f"{tag}.jsonl")
+    it, _ = fermionic_adapt_vqe(
+        h10.pool, h10.ham, h10.hf, n_max_grads=1, fci=fci,
+        optimizer="BFGS", max_external_iterations=ADAPT_ITERS,
+        checkpoint_path=ck, log_path=log, device=DEVICE, **kw)
+    recs = [r for r in read_jsonl(log) if r.get("kind") == "iteration"]
+    return it, list(load_checkpoint(ck).op_indices), recs
+
+
+def phase_adapt_main(h10, ref, card):
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from openvqe_tpu_torch.algorithms import adapt
+    from openvqe_tpu_torch.sim import eigensolver
+    from openvqe_tpu_torch.sim import grouped as gr
+    from openvqe_tpu_torch.sim import kernels as K
+    from openvqe_tpu_torch.sim import streaming as st
+    from openvqe_tpu_torch.sim.compile import compile_pool
+    r = ref["h10"]
+    fci = r["FCI"]
+    check(h10.hf == r["hf_init"] and abs(h10.info["HF"] - r["HF"]) <= 1e-8
+          and len(h10.pool) == r["pool_size"],
+          "the H10 chemistry differs from the reference file's")
+    g_hf = 2.0 * np.asarray(r["v_hf_re"])
+    lanczos = {}
+    orig = eigensolver.ground_state
+
+    def timed_ground_state(*a, **k):
+        t, h0 = time.time(), K.LAUNCHES["ham_bucketed"]
+        out = orig(*a, **k)
+        torch.cuda.synchronize()
+        lanczos.update(s=time.time() - t, e0=out[0],
+                       ham_launches=K.LAUNCHES["ham_bucketed"] - h0)
+        return out
+
+    K.reset_launches()
+    t0 = time.time()
+    obj, screen = adapt._objective_and_screen(h10.ham, h10.n, h10.pool,
+                                              device=DEVICE)
+    v = screen(obj.psi0(h10.hf))
+    dv = max(float(np.max(np.abs(np.real(v) - np.asarray(r["v_hf_re"])))),
+             float(np.max(np.abs(np.imag(v) - np.asarray(r["v_hf_im"])))))
+    print(f"H10 screen at HF ({len(v)} operators): max |v - JAX f64| "
+          f"{dv:.3e}")
+    check(dv <= TOL_G_REF, "H10 screen at HF off the JAX reference")
+    eigensolver.ground_state = timed_ground_state
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            it, idx, recs = run_adapt(h10, fci, Path(tmp), "default")
+    finally:
+        eigensolver.ground_state = orig
+    torch.cuda.synchronize()
+    t_main = time.time() - t0
+    launches = dict(K.LAUNCHES)
+    e, e_ref = it["energies"], r["energies"]
+    de = float(np.max(np.abs(np.asarray(e) - np.asarray(e_ref))))
+    print(f"H10 fermionic ADAPT ({ADAPT_ITERS} iterations, BFGS -> L-BFGS-B "
+          f"on the float32 streaming route) on {card}: {t_main:.2f} s; "
+          f"indices {idx} (JAX f64 {r['indices']}); energies {e} (JAX f64 "
+          f"{e_ref}); max |dE| {de:.3e}; E - FCI "
+          f"{[x - fci for x in e]}; norms {it['norms']}; fidelity "
+          f"{it['fidelity']}")
+    print(f"H10 Lanczos reference (f32, m 48, 30 restarts at most): "
+          f"{lanczos.get('s', float('nan')):.2f} s, "
+          f"{lanczos.get('ham_launches', 0)} ham_bucketed launches; E0 "
+          f"{lanczos.get('e0')!r}, E0 - FCI "
+          f"{lanczos.get('e0', float('nan')) - fci:+.3e}")
+    for rec in recs:
+        print(f"  iteration {rec['iteration']}: screen {rec['t_screen_s']} "
+              f"s, bind {rec['t_bind_s']} s, optimize {rec['t_optimize_s']} "
+              f"s ({rec['opt_nfev']} evaluations)")
+    print(f"H10 ADAPT main path launches {launches}")
+    check(choices_match(idx, r["indices"], g_hf),
+          "H10 ADAPT chose other operators than the JAX reference")
+    check(de <= TOL_E_REF, "H10 ADAPT energies off the JAX reference")
+    check(min(e) >= fci - TOL_E_REF, "an ADAPT energy is below FCI")
+    check(all(b <= a for a, b in zip(e, e[1:])), "ADAPT energies increase")
+    check("e0" in lanczos and lanczos["e0"] >= fci - 1e-4
+          and lanczos["e0"] - fci <= 1e-2,
+          f"Lanczos E0 {lanczos.get('e0')} against FCI {fci}")
+    for k in STREAMING + ("pool_overlap",):
+        check(launches[k] > 0, f"kernel {k} was not launched on H10 ADAPT")
+    for k in GROUPED + ("pool_bucketed",):
+        check(launches[k] == 0, f"kernel {k} was launched on H10 ADAPT")
+
+    # the same run with the bucketed screen (the Lanczos is left out)
+    old = os.environ.get("OVQE_STREAM_FUSE")
+    os.environ["OVQE_STREAM_FUSE"] = "1"
+    K.reset_launches()
+    try:
+        t1 = time.time()
+        with tempfile.TemporaryDirectory() as tmp:
+            it_f, idx_f, _ = run_adapt(h10, fci, Path(tmp), "fused",
+                                       fidelity_max_qubits=0, verbose=False)
+        torch.cuda.synchronize()
+        t_fused = time.time() - t1
+    finally:
+        if old is None:
+            os.environ.pop("OVQE_STREAM_FUSE")
+        else:
+            os.environ["OVQE_STREAM_FUSE"] = old
+    fused = dict(K.LAUNCHES)
+    de_f = float(np.max(np.abs(np.asarray(it_f["energies"])
+                               - np.asarray(e))))
+    print(f"H10 fermionic ADAPT with OVQE_STREAM_FUSE=1 (no Lanczos): "
+          f"{t_fused:.2f} s; indices {idx_f}; max |dE| to the default run "
+          f"{de_f:.3e}; launches {fused}")
+    check(choices_match(idx_f, idx, g_hf) and de_f <= TOL_E_REF,
+          "the bucketed screen changed the ADAPT run")
+    check(fused["pool_bucketed"] > 0 and fused["pool_overlap"] == 0,
+          "OVQE_STREAM_FUSE=1 did not route the screen through E15")
+
+    # per-call screen times at HF (after the counters were read)
+    gpool = gr.group_pool(compile_pool(h10.pool, h10.n))
+    screens = (("E14, the default", screen),
+               ("E15, OVQE_STREAM_FUSE=1", st.build_streaming_pool_gradient_fn(
+                   gpool, obj.ham_apply, fuse=True, device=DEVICE)))
+    psi_hf = obj.psi0(h10.hf)
+    for label, fn in screens:
+        fn(psi_hf)
+        ts = []
+        for _ in range(10):
+            t = time.perf_counter()
+            fn(psi_hf)                    # returns host numbers: synced
+            ts.append(time.perf_counter() - t)
+        print(f"H10 screen ({label}; sigma = H psi included) on {card}: "
+              f"median {1e3 * sorted(ts)[5]:.3f} ms over 10 calls")
+    return {"pool_overlap": launches["pool_overlap"],
+            "pool_bucketed": fused["pool_bucketed"]}
+
+
+def phase_adapt_driver(ref, card):
+    import numpy as np
+    import torch
+    from openvqe_tpu_torch.sim import kernels as K
+    from openvqe_tpu_torch.vqe import VQE
+    want = ref["h4"]
+    K.reset_launches()
+    t0 = time.time()
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        it, _ = VQE.algorithm("fermionic_adapt", "H4", "spin_complement_gsd",
+                              "JW", False,
+                              dict(H4_ADAPT_OPTS, device=DEVICE)).execute()
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    got = np.asarray(it["energies_substracted_from_FCI"])
+    d = float(np.max(np.abs(got - np.asarray(
+        want["energies_substracted_from_FCI"]))))
+    print(f"H4 fermionic ADAPT execute() (COBYLA, "
+          f"{H4_ADAPT_OPTS['max_external_iterations']} iterations) on "
+          f"{card}: {time.time() - t0:.2f} s; energies_substracted_from_FCI "
+          f"{got.tolist()}; JAX f64 {want['energies_substracted_from_FCI']}"
+          f"; max delta {d:.3e}; launches {launches}")
+    check(len(got) == len(want["energies_substracted_from_FCI"])
+          and d <= TOL_EXECUTE, "H4 ADAPT driver off the JAX run")
+    for k in ("pool_overlap", "ham_apply", "rot_sweep", "expectation"):
+        check(launches[k] > 0, f"kernel {k} was not launched on H4 ADAPT")
+    for k in STREAMING + ("pool_bucketed",):
+        check(launches[k] == 0, f"kernel {k} was launched on H4 ADAPT")
+
+
 def main():
     try:
         import torch
@@ -877,6 +1222,8 @@ def main():
     ref = json.loads((ROOT / "tests" / "torch_h8_reference.json").read_text())
     ref10 = json.loads(
         (ROOT / "tests" / "torch_h10_reference.json").read_text())
+    ref_adapt = json.loads(
+        (ROOT / "tests" / "torch_adapt_reference.json").read_text())
     t0 = time.time()
     h8 = h8_problem()
     print(f"H8 set-up (chemistry, operators; host) {time.time() - t0:.2f} s")
@@ -894,6 +1241,12 @@ def main():
             phase_stream_parity(h10["problem"], ref10, card))),
         ("H10 main path", lambda: launches.update(
             pick(phase_h10_main(h10["problem"], ref10, card), STREAMING))),
+        ("pool parity", lambda: rows.update(
+            phase_pool_parity(h10["problem"], card))),
+        ("H10 fermionic ADAPT", lambda: launches.update(
+            phase_adapt_main(h10["problem"], ref_adapt, card))),
+        ("H4 fermionic ADAPT driver", lambda: phase_adapt_driver(ref_adapt,
+                                                                 card)),
     )
     for phase, fn in phases:
         try:

@@ -29,7 +29,7 @@ class Algorithm:
         None = single device."""
         if self.opts.get("mesh_devices"):
             raise NotImplementedError(
-                "multi-device runs are not ported yet (ROADMAP.md, queue 1)")
+                "multi-device runs are not ported yet (ROADMAP.md, queue 9)")
         return None
 
     def presentation(self, molecule_factory):

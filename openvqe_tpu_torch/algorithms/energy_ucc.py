@@ -23,7 +23,7 @@ from ..utils.gate_count import staircase_gate_counts
 def _objective(hamiltonian_sp: PauliSum, mesh=None, device=None):
     if mesh is not None:
         raise NotImplementedError(
-            "multi-device runs are not ported yet (ROADMAP.md, queue 1)")
+            "multi-device runs are not ported yet (ROADMAP.md, queue 9)")
     return VQEObjective(hamiltonian_sp, device=device)
 
 

@@ -1,4 +1,5 @@
-// Device helpers shared by grouped_kernels.cu and streaming_kernels.cu.
+// Device helpers shared by grouped_kernels.cu, streaming_kernels.cu and
+// pool_kernels.cu.
 //
 // A state is two float32 planes psi[2][N], N = 2^n, qubit 0 = MSB.  A group
 // is (x, z[K], coef[K]): every term of the group maps amplitude j to j ^ x
@@ -55,6 +56,28 @@ __device__ __forceinline__ void wfield(unsigned j, const int* __restrict__ z,
   }
   wre = a;
   wim = b;
+}
+
+// Weight fields of one group at a thread's PER amplitudes of a chunk
+// (amplitude base | (threadIdx.x + q * THREADS)); real skips W_im.
+template <int PER, int THREADS>
+__device__ __forceinline__ void wfields(unsigned base, const int* zg,
+                                        const float* rg, const float* ig,
+                                        int K, bool real, float* wre,
+                                        float* wim) {
+#pragma unroll
+  for (int q = 0; q < PER; ++q) wre[q] = wim[q] = 0.f;
+  for (int k = 0; k < K; ++k) {
+    const float r = rg[k], i = real ? 0.f : ig[k];
+    if (r == 0.f && i == 0.f) continue;
+    const unsigned zk = (unsigned)zg[k];
+#pragma unroll
+    for (int q = 0; q < PER; ++q) {
+      const float sg = sgn(base | (threadIdx.x + q * THREADS), zk);
+      wre[q] += sg * r;
+      wim[q] += sg * i;
+    }
+  }
 }
 
 // (cos(ang F), sin(ang F)) with the formulas of grouped.rot_cos_sin:

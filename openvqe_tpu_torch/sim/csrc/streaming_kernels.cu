@@ -207,28 +207,6 @@ __device__ __forceinline__ void stage_src(float* sm, const float* psi,
   __syncthreads();
 }
 
-// Weight fields of group `slot` at this thread's PER amplitudes of chunk
-// `base >> cb` (amplitude base | (threadIdx.x + q * ST_THREADS)).
-template <int PER>
-__device__ __forceinline__ void wfields(unsigned base, const int* zg,
-                                        const float* rg, const float* ig,
-                                        int K, bool real, float* wre,
-                                        float* wim) {
-#pragma unroll
-  for (int q = 0; q < PER; ++q) wre[q] = wim[q] = 0.f;
-  for (int k = 0; k < K; ++k) {
-    const float r = rg[k], i = real ? 0.f : ig[k];
-    if (r == 0.f && i == 0.f) continue;
-    const unsigned zk = (unsigned)zg[k];
-#pragma unroll
-    for (int q = 0; q < PER; ++q) {
-      const float sg = sgn(base | (threadIdx.x + q * ST_THREADS), zk);
-      wre[q] += sg * r;
-      wim[q] += sg * i;
-    }
-  }
-}
-
 // ---------------------------------------------------------------- kernel 3
 // ham_bucketed: one K class, one launch.  Replaces
 // openvqe_tpu/sim/streaming.py::_ham_bucket_kernel.  Block c owns output
@@ -264,8 +242,8 @@ ham_bucket_kernel(const float* __restrict__ psi,
       if (!act[slot]) continue;
       const unsigned x = (unsigned)xl[slot];
       float wre[PER], wim[PER];
-      wfields<PER>(base, z + slot * K, ar + slot * K, ai + slot * K, K,
-                   real, wre, wim);
+      wfields<PER, ST_THREADS>(base, z + slot * K, ar + slot * K,
+                               ai + slot * K, K, real, wre, wim);
 #pragma unroll
       for (int q = 0; q < PER; ++q) {
         const unsigned o = (threadIdx.x + q * ST_THREADS) ^ x;
@@ -327,8 +305,8 @@ expect_bucket_kernel(const float* __restrict__ psi, unsigned N, int cb,
       if (!act[slot]) continue;
       const unsigned x = (unsigned)xl[slot];
       float wre[PER], wim[PER];
-      wfields<PER>(base, z + slot * K, ar + slot * K, ai + slot * K, K,
-                   real, wre, wim);
+      wfields<PER, ST_THREADS>(base, z + slot * K, ar + slot * K,
+                               ai + slot * K, K, real, wre, wim);
       float part = 0.f;
 #pragma unroll
       for (int q = 0; q < PER; ++q) {

@@ -14,7 +14,7 @@ parity, so the TPU's rank-K sign matmuls and lane splits are not needed.
 
 Two layers live here:
 
-* host prep (``group_pauli_sum``, ``group_op_sequence``,
+* host prep (``group_pauli_sum``, ``group_op_sequence``, ``group_pool``,
   ``group_field_mode``, ``sequence_field_mode``), numpy only and pinned
   array for array to the JAX package's output;
 * plain PyTorch versions (``rot_sweep_ref``, ``ham_apply_ref``,
@@ -22,6 +22,10 @@ Two layers live here:
   the kernels, on the operands of ``sim/convert.py``.  They are the CPU
   path of the port and the oracle every CUDA kernel of ``sim/kernels.py``
   is held against.
+
+The ADAPT pool screen (``build_grouped_pool_gradient_fn``) runs its
+overlaps through ``kernels.pool_overlap`` (plain version
+``streaming.pool_overlap_ref``) on both routes of the objective.
 
 Not ported: the padding buckets (``pad_grouped_sequence``,
 ``bucket_size``) and the segmented engine.  They exist for XLA
@@ -82,6 +86,19 @@ class GroupedOpSequence:
     @property
     def n_groups(self) -> int:
         return len(self.x)
+
+
+@dataclass
+class GroupedPool:
+    """Pool operators grouped by (op, x) for batched ADAPT screening;
+    coefficients are the full complex a = w * kappa."""
+    n: int
+    x: np.ndarray
+    z: np.ndarray
+    a_re: np.ndarray
+    a_im: np.ndarray
+    op: np.ndarray
+    n_ops: int
 
 
 def _pow2ceil(k: int, minimum: int = 1) -> int:
@@ -194,6 +211,44 @@ def group_op_sequence(seq: CompiledOpSequence, k_cap: int = 16
         op=np.asarray([r[0] for r in runs], dtype=np.int32),
         n_ops=seq.n_ops,
         n_terms=seq.n_terms,
+    )
+
+
+def group_pool(seq: CompiledOpSequence, k_cap: int = 16) -> GroupedPool:
+    """Group pool terms by (op, x): screening overlaps are linear in the
+    terms, so no odd-Y restriction and full reordering is allowed."""
+    rd = np.float64
+    a = seq.w * seq.kappa
+    keys: List[Tuple[int, int]] = []
+    seen = {}
+    members: List[List[int]] = []
+    for t in range(seq.n_terms):
+        k = (int(seq.op_index[t]), int(seq.x[t]))
+        if k not in seen:
+            seen[k] = len(keys)
+            keys.append(k)
+            members.append([])
+        members[seen[k]].append(t)
+    xs, zr, ar, ai, ops = [], [], [], [], []
+    max_k = 1
+    for (op, xv), idx in zip(keys, members):
+        for s0 in range(0, len(idx), k_cap):
+            chunk = idx[s0 : s0 + k_cap]
+            xs.append(xv)
+            ops.append(op)
+            zr.append(seq.z[chunk].astype(np.int32))
+            ar.append(np.real(a[chunk]).astype(rd))
+            ai.append(np.imag(a[chunk]).astype(rd))
+            max_k = max(max_k, len(chunk))
+    K = _pow2ceil(max_k)
+    return GroupedPool(
+        n=seq.n,
+        x=np.asarray(xs, dtype=np.int32),
+        z=_pad_rows(zr, K, np.int32),
+        a_re=_pad_rows(ar, K, rd),
+        a_im=_pad_rows(ai, K, rd),
+        op=np.asarray(ops, dtype=np.int32),
+        n_ops=seq.n_ops,
     )
 
 
@@ -334,15 +389,23 @@ def rot_sweep_ref(psi, angles, x, z, s, fmode: int):
 
 def ham_apply_ref(psi, x, z, a_re, a_im):
     """sum_g W_g(j) psi[j ^ x_g] with complex W = W_re + i W_im; x = 0
-    groups carry the diagonal."""
-    idx = _indices(psi.shape[-1], psi.device)
+    groups carry the diagonal.  Groups are taken in blocks whose sign
+    tables stay below 2^22 entries (one group at a time at n = 20), which
+    keeps the many small H passes of a Lanczos run on the CPU cheap."""
+    N = psi.shape[-1]
+    idx = _indices(N, psi.device)
     acc = torch.zeros_like(psi)
-    for g, xg in enumerate(x.tolist()):
-        px = psi[:, idx ^ xg]
-        w_re = sign_field(z[g], a_re[g], idx)
-        w_im = sign_field(z[g], a_im[g], idx)
-        acc = acc + torch.stack([w_re * px[0] - w_im * px[1],
-                                 w_re * px[1] + w_im * px[0]])
+    step = max(1, (1 << 22) // (N * max(1, z.shape[-1])))
+    for g0 in range(0, len(x), step):
+        xs = x[g0:g0 + step].to(torch.int64)
+        px = psi[:, idx[None, :] ^ xs[:, None]]                  # (2, g, N)
+        par = _parity(idx[None, :, None]
+                      & z[g0:g0 + step].to(torch.int64)[:, None, :])
+        sgn = (1 - 2 * par).to(psi.dtype)                       # (g, N, K)
+        w_re = (sgn * a_re[g0:g0 + step][:, None, :]).sum(-1)
+        w_im = (sgn * a_im[g0:g0 + step][:, None, :]).sum(-1)
+        acc = acc + torch.stack([(w_re * px[0] - w_im * px[1]).sum(0),
+                                 (w_re * px[1] + w_im * px[0]).sum(0)])
     return acc
 
 
@@ -405,3 +468,48 @@ def segment_grad(gts: torch.Tensor, op: np.ndarray,
     grad.index_add_(0, op_t[keep], gts.detach().cpu().to(torch.float64)[keep])
     return grad
 
+
+# --------------------------------------------------------- pool screening
+
+def segment_rows(rows: torch.Tensor, op: np.ndarray, n_ops: int
+                 ) -> np.ndarray:
+    """Per-group (re, im) rows summed into the complex v of each operator,
+    in float64 on the host: a fixed order, so v is the same from run to
+    run (the ADAPT stagnation test compares norms to 1e-8)."""
+    r = rows.detach().cpu().to(torch.float64).numpy().reshape(-1, 2)
+    op = np.asarray(op, np.int64).reshape(-1)
+    vre, vim = np.zeros(n_ops), np.zeros(n_ops)
+    np.add.at(vre, op, r[:, 0])
+    np.add.at(vim, op, r[:, 1])
+    return vre + 1j * vim
+
+
+def pool_screen(gpool: GroupedPool, lham, device, dtype):
+    """grads_host(psi) -> complex (n_ops,) v_i = <H psi|A_i|psi>: sigma from
+    ``lham``, then every (op, x) group in one ``kernels.pool_overlap`` call
+    (the E14 kernel on a CUDA state, its plain version on the CPU)."""
+    from . import kernels as K
+
+    def dev(a, dt):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
+                               device=device).contiguous()
+
+    x, z = dev(gpool.x, torch.int32), dev(gpool.z, torch.int32)
+    cre, cim = dev(gpool.a_re, dtype), dev(gpool.a_im, dtype)
+
+    def grads_host(psi) -> np.ndarray:
+        psi = torch.as_tensor(psi).to(device=device, dtype=dtype).contiguous()
+        sigma = lham(psi).contiguous()
+        return segment_rows(K.pool_overlap(sigma, psi, x, z, cre, cim),
+                            gpool.op, gpool.n_ops)
+
+    return grads_host
+
+
+def build_grouped_pool_gradient_fn(gpool: GroupedPool, objective):
+    """The n <= 19 screen (counterpart of the JAX package's XLA
+    ``build_grouped_pool_gradient_fn``): sigma = H psi from the objective's
+    per-group H kernel, the overlaps from the E14 kernel, so no plain
+    version runs on the card."""
+    return pool_screen(gpool, objective.ham_apply, objective.device,
+                       objective.dtype)

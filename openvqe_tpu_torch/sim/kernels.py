@@ -1,7 +1,7 @@
 """The hand-written CUDA kernels of the port and their wrappers: the
 counterpart of ``openvqe_tpu/sim/pallas_kernels.py`` (per-group route,
-n <= 19) and of the default path of ``openvqe_tpu/sim/streaming.py``
-(bucketed route, n >= 20).
+n <= 19), of the default path of ``openvqe_tpu/sim/streaming.py``
+(bucketed route, n >= 20) and of its two ADAPT pool-screen kernels.
 
 ===================  ==================================================
 wrapper              replaces
@@ -14,10 +14,12 @@ wrapper              replaces
 ``adjoint_fused``    ``streaming.py::_adj_fused_kernel``
 ``ham_bucketed``     ``streaming.py::_ham_bucket_kernel``
 ``expect_bucketed``  ``streaming.py::_expect_bucket_kernel``
+``pool_overlap``     ``streaming.py::_pool_stream_kernel``
+``pool_bucketed``    ``streaming.py::_pool_bucket_kernel``
 ===================  ==================================================
 
-The sources are ``csrc/grouped_kernels.cu`` and
-``csrc/streaming_kernels.cu`` (what bounds each kernel and what its design
+The sources are ``csrc/grouped_kernels.cu``, ``csrc/streaming_kernels.cu``
+and ``csrc/pool_kernels.cu`` (what bounds each kernel and what its design
 does about it is noted there; shared helpers in ``csrc/common.cuh``).
 ``build()`` compiles each with ``nvcc`` for ``sm_90a`` into its own shared
 library under ``build/`` at the root of the checkout on first use, both
@@ -28,7 +30,8 @@ Wrapper rules: a tensor on the CPU goes to the plain PyTorch version
 kernel, or the wrapper raises.  There is no fallback.  Per-group operands
 are those of ``sim/convert.py``: x (G,) int32, z (G, K) int32,
 coefficients (G, K) float32, angles (G,) float32; bucketed operands are a
-``streaming.BucketOperands`` with angles (B, gcap) float32; state planes
+``streaming.BucketOperands`` with angles (B, gcap) float32; pool-overlap
+rows are (G, 2) or (B, gcap, 2) float32 (re, im); state planes
 are (2, 2^n) float32, all contiguous and on one device.  Outputs are
 allocated with ``torch.empty`` and the kernels run on the current stream.
 ``LAUNCHES`` counts, per wrapper, the calls that launched the kernel.
@@ -51,14 +54,16 @@ from . import streaming as st
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"grouped": CSRC / "grouped_kernels.cu",
-           "streaming": CSRC / "streaming_kernels.cu"}
+           "streaming": CSRC / "streaming_kernels.cu",
+           "pool": CSRC / "pool_kernels.cu"}
 HEADERS = (CSRC / "common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"]
 
 KERNELS = ("rot_sweep", "expectation", "ham_apply", "adjoint_sweep",
-           "rot_fused", "adjoint_fused", "ham_bucketed", "expect_bucketed")
+           "rot_fused", "adjoint_fused", "ham_bucketed", "expect_bucketed",
+           "pool_overlap", "pool_bucketed")
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 build_log = ""          # nvcc's output (-Xptxas -v) of the last build
 
@@ -132,6 +137,11 @@ _SIGNATURES = {
         "ovqe_adjoint_fused": "PPLIPPPPPPIIIIPPP",
         "ovqe_ham_bucketed": "PPPLIPPPPPPIIIIP",
         "ovqe_expect_bucketed": "PLIPPPPPPIIIIPPP",
+    },
+    "pool": {
+        "ovqe_pool_overlap": "PPLPPPPIIPIPP",
+        "ovqe_pool_bucketed": "PPLIPPPPPPIIIIPPP",
+        "ovqe_pool_blocks": "L",
     },
 }
 
@@ -375,3 +385,49 @@ def expect_bucketed(psi, bo: st.BucketOperands):
             bo.coef_im, bo.B, bo.gcap, bo.K, int(bo.real), partials, out,
             _stream(psi))
     return out[0]
+
+
+# ----------------------------------------------------------- pool screen
+
+POOL_MAX_GCAP = 16      # PB_MAX_GCAP of csrc/pool_kernels.cu
+
+
+def pool_overlap(sigma, psi, x, z, cre, cim):
+    """(G, 2) rows (re, im) of <sigma| W_g X^{x_g} |psi>, every group in
+    one launch; x (G,), z (G, K) int32, cre, cim (G, K)."""
+    if psi.device.type == "cpu":
+        return st.pool_overlap_ref(sigma, psi, x, z, cre, cim)
+    N = _state("psi", psi)
+    _check("sigma", sigma, torch.float32, (2, N), psi.device)
+    G, K = _groups(psi, x, z, (cre, cim))
+    lib = _load("pool")
+    out = torch.empty((G, 2), dtype=torch.float32, device=psi.device)
+    if G:
+        nb = lib.ovqe_pool_blocks(N)
+        partials = torch.empty((2 * G, nb), dtype=torch.float64,
+                               device=psi.device)
+        _launch("pool_overlap", lib.ovqe_pool_overlap, sigma, psi, N, x, z,
+                cre, cim, G, K, partials, nb, out, _stream(psi))
+    return out
+
+
+def pool_bucketed(sigma, psi, bo: st.BucketOperands):
+    """(B, gcap, 2) rows (re, im) of the pool groups in ``bo``, one launch
+    over all buckets; zeros in padding slots."""
+    if psi.device.type == "cpu":
+        return st.pool_bucketed_ref(sigma, psi, bo)
+    N = _buckets(psi, bo, (bo.coef, bo.coef_im))
+    _check("sigma", sigma, torch.float32, (2, N), psi.device)
+    if bo.gcap > POOL_MAX_GCAP:
+        raise ValueError(f"pool buckets hold at most {POOL_MAX_GCAP} slots, "
+                         f"got {bo.gcap}")
+    lib = _load("pool")
+    partials = torch.empty((bo.B * bo.gcap * 2, N >> bo.chunk_bits),
+                           dtype=torch.float64, device=psi.device)
+    out = torch.empty((bo.B, bo.gcap, 2), dtype=torch.float32,
+                      device=psi.device)
+    _launch("pool_bucketed", lib.ovqe_pool_bucketed, sigma, psi, N,
+            bo.chunk_bits, bo.x_hi, bo.x_lo, bo.act, bo.z, bo.coef,
+            bo.coef_im, bo.B, bo.gcap, bo.K, int(bo.real), partials, out,
+            _stream(psi))
+    return out

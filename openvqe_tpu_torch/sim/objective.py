@@ -13,9 +13,12 @@ Two routes, chosen per objective as the JAX package chooses them:
   groups).
 
 On a CUDA device (float32) the wrappers launch the hand-written kernels,
-on the CPU they run the plain PyTorch versions (float64 by default).
+on the CPU they run the plain PyTorch versions (float64 by default).  The
+ADAPT loops (``algorithms/adapt.py``) start from ``psi0``, screen the pool
+with ``ham_apply`` as sigma = H psi, run the Lanczos reference over
+``ham_apply`` and keep every state on the objective's device.
 
-Not in this slice (ROADMAP queue 1): the segmented mode and the per-term
+Not ported (ROADMAP queues 2 and 3): the segmented mode and the per-term
 engine for ansatze that are not odd-Y.  Binding such an ansatz raises
 ``NotImplementedError``.
 """
@@ -97,7 +100,7 @@ class VQEObjective:
         if gseq is None:
             raise NotImplementedError(
                 "ansatz with terms that are not odd-Y: the per-term engine "
-                "is not ported yet (ROADMAP.md, queue 1)")
+                "is not ported yet (ROADMAP.md, queue 2)")
         return self.bind_grouped(gseq, hf_init)
 
     def bind_grouped(self, gseq, hf_init: int) -> "BoundAnsatz":

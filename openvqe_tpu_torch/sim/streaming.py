@@ -22,6 +22,13 @@ x, its matmul-stage classes, its VMEM guards and its device-call
 segmentation are not ported.  Inert groups (x = 0 with all-zero
 coefficients: the JAX package's padding) are dropped, as JAX drops them.
 
+The ADAPT pool screen lives here too: ``build_pool_buckets`` (pool groups
+bucketed by x_hi, with the slot -> group map), the plain versions
+``pool_overlap_ref`` (per group) and ``pool_bucketed_ref`` (per bucket
+slot) of the two pool-overlap kernels, and
+``build_streaming_pool_gradient_fn``, which picks one of them as the JAX
+package does (``pool_fuse_policy``).
+
 The plain versions (``rot_fused_ref``, ``adjoint_fused_ref``,
 ``ham_bucketed_ref``, ``expect_bucketed_ref``) take the bucket operands of
 ``BucketOperands``, loop over buckets and then over groups, and use the
@@ -36,13 +43,15 @@ against.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from . import grouped as gr
+from . import statevector as sv
 
 ROT_BUCKET_CAP = 16      # groups per rotation run (JAX ROT_BUCKET_CAP)
 HAM_BUCKET_CAP = 16      # groups per Hamiltonian bucket (JAX HAM_BUCKET_CAP)
@@ -203,11 +212,10 @@ def build_seq_buckets(sd: StreamGroupData, gcap: int = ROT_BUCKET_CAP
     return _lay_out(sd, [np.asarray(r) for r in runs], gcap)
 
 
-def _ham_buckets(sd: StreamGroupData, gcap: int,
-                 K: Optional[int] = None) -> Optional[Buckets]:
+def _sorted_buckets(sd: StreamGroupData, gcap: int) -> List[np.ndarray]:
+    """Live groups sorted stably by x_hi, cut into buckets of equal x_hi
+    of at most ``gcap`` groups (order-free consumers only)."""
     keep = np.nonzero(sd.live)[0]
-    if len(keep) == 0:
-        return None
     order = keep[np.argsort(sd.x_hi[keep], kind="stable")]
     buckets: List[np.ndarray] = []
     i = 0
@@ -218,7 +226,13 @@ def _ham_buckets(sd: StreamGroupData, gcap: int,
             j += 1
         buckets.append(order[i:j])
         i = j
-    return _lay_out(sd, buckets, gcap, K)
+    return buckets
+
+
+def _ham_buckets(sd: StreamGroupData, gcap: int,
+                 K: Optional[int] = None) -> Optional[Buckets]:
+    buckets = _sorted_buckets(sd, gcap)
+    return _lay_out(sd, buckets, gcap, K) if buckets else None
 
 
 def build_ham_buckets(gham, gcap: int = HAM_BUCKET_CAP,
@@ -458,3 +472,127 @@ def expect_bucketed_ref(psi, bo: BucketOperands):
             tot = tot - torch.sum(gr.sign_field(bo.z[b, g2],
                                                 bo.coef_im[b, g2], idx) * Q)
     return tot
+
+
+# ------------------------------------------------------ pool overlap screen
+
+def pool_overlap_ref(sigma, psi, x, z, cre, cim):
+    """Per group g the complex overlap <sigma| W_g X^{x_g} |psi> =
+    sum_j conj(sigma_j) W_g(j) psi_{j ^ x_g}, W_g = W_re + i W_im, as (G, 2)
+    rows (re, im):
+        re = sum sigma0 zr + sigma1 zi,  im = sum sigma0 zi - sigma1 zr,
+    zr + i zi = W psi_{j^x} (the sign convention of the JAX package's
+    ``_pool_stream_kernel``)."""
+    idx = gr._indices(psi.shape[-1], psi.device)
+    rows = torch.zeros((len(x), 2), dtype=psi.dtype, device=psi.device)
+    for g, xg in enumerate(x.tolist()):
+        px = psi[:, idx ^ xg]
+        w_re = gr.sign_field(z[g], cre[g], idx)
+        w_im = gr.sign_field(z[g], cim[g], idx)
+        zr = w_re * px[0] - w_im * px[1]
+        zi = w_re * px[1] + w_im * px[0]
+        rows[g, 0] = torch.sum(sigma[0] * zr + sigma[1] * zi)
+        rows[g, 1] = torch.sum(sigma[0] * zi - sigma[1] * zr)
+    return rows
+
+
+def pool_bucketed_ref(sigma, psi, bo: BucketOperands):
+    """The rows of ``pool_overlap_ref`` per (bucket, slot): (B, gcap, 2),
+    zeros in padding slots; a real bucket set drops W_im."""
+    idx = gr._indices(psi.shape[-1], psi.device)
+    rows = torch.zeros(tuple(bo.act.shape) + (2,), dtype=psi.dtype,
+                       device=psi.device)
+    for b, g2, x in _slots(bo):
+        px = psi[:, idx ^ x]
+        w_re = gr.sign_field(bo.z[b, g2], bo.coef[b, g2], idx)
+        if bo.real:
+            zr, zi = w_re * px[0], w_re * px[1]
+        else:
+            w_im = gr.sign_field(bo.z[b, g2], bo.coef_im[b, g2], idx)
+            zr = w_re * px[0] - w_im * px[1]
+            zi = w_re * px[1] + w_im * px[0]
+        rows[b, g2, 0] = torch.sum(sigma[0] * zr + sigma[1] * zi)
+        rows[b, g2, 1] = torch.sum(sigma[0] * zi - sigma[1] * zr)
+    return rows
+
+
+def _sd_select(sd: StreamGroupData, idx: np.ndarray) -> StreamGroupData:
+    """Group subset of a StreamGroupData (order-free consumers only)."""
+    return StreamGroupData(
+        n=sd.n, chunk_bits=sd.chunk_bits, x_lo=sd.x_lo[idx],
+        x_hi=sd.x_hi[idx], z=sd.z[idx], coef=sd.coef[idx],
+        coef_im=None if sd.coef_im is None else sd.coef_im[idx],
+        op=None if sd.op is None else sd.op[idx], live=sd.live[idx],
+        fmode=sd.fmode)
+
+
+def build_pool_buckets(sd: StreamGroupData, gcap: int = HAM_BUCKET_CAP
+                       ) -> Optional[Tuple[Buckets, np.ndarray]]:
+    """Pool groups bucketed by x_hi after a stable sort (overlaps are
+    order-free), at most ``gcap`` per bucket, inert groups dropped.
+    Returns (buckets, slot_group) with slot_group (B, gcap) the index of
+    each slot's group in ``sd`` (-1 for padding)."""
+    buckets = _sorted_buckets(sd, gcap)
+    if not buckets:
+        return None
+    slot_group = np.full((len(buckets), gcap), -1, np.int64)
+    for b, idx in enumerate(buckets):
+        slot_group[b, :len(idx)] = idx
+    return _lay_out(sd, buckets, gcap), slot_group
+
+
+def pool_fuse_policy(fuse: Optional[bool] = None) -> bool:
+    """Which pool-screen kernel runs: ``fuse`` if given, else the JAX
+    package's ``_fuse_policy("pool")``: bucketed (E15) when
+    OVQE_STREAM_FUSE is set to anything but "0", per-group (E14) when it is
+    "0" or unset."""
+    if fuse is not None:
+        return bool(fuse)
+    env = os.environ.get("OVQE_STREAM_FUSE")
+    return env is not None and env != "0"
+
+
+def build_streaming_pool_gradient_fn(gpool, lham, fuse: Optional[bool] = None,
+                                     device=None,
+                                     dtype: Optional[torch.dtype] = None,
+                                     chunk_bits: Optional[int] = None):
+    """Streaming ADAPT pool screen: grads_host(psi) -> complex (n_ops,)
+    v_i = <H psi|A_i|psi>, with ``lham`` supplying H|psi> (the objective's
+    bucketed H kernels).  Counterpart of the JAX package's
+    ``build_streaming_pool_gradient_fn``.
+
+    ``fuse`` (default ``pool_fuse_policy()``, i.e. OVQE_STREAM_FUSE):
+    False runs every (op, x) group through one ``kernels.pool_overlap``
+    call (kernel E14, the JAX default); True buckets the groups by x_hi at
+    ``chunk_bits`` (default ``chunk_bits_for(n)``) and runs
+    ``kernels.pool_bucketed`` (kernel E15) over one bucket set; the JAX
+    package's stage classes, limbs and watchdog segments are TPU-only and
+    not ported.  The rows are summed into v in float64 on the host
+    (``grouped.segment_rows``), not by device atomics, so v repeats
+    exactly from run to run.  The port's rotation and H paths do not read
+    OVQE_STREAM_FUSE: the per-group streaming kernels it selects there
+    (A2, B5, C8, D11) are not ported yet (ROADMAP queue 3)."""
+    device = sv.resolve_device(device)
+    dtype = sv.resolve_dtype(device, dtype)
+    if not pool_fuse_policy(fuse):
+        return gr.pool_screen(gpool, lham, device, dtype)
+    n, n_ops = gpool.n, gpool.n_ops
+    cb = chunk_bits_for(n) if chunk_bits is None else int(chunk_bits)
+    sd = build_stream_data(n, gpool.x, gpool.z, gpool.a_re, op=gpool.op,
+                           coef_im=gpool.a_im, chunk_bits=cb)
+    built = build_pool_buckets(sd)
+    if built is None:
+        return lambda psi: np.zeros(n_ops, complex)
+    bk, _ = built
+    bo = bucket_operands(bk, device, dtype)
+    act = torch.from_numpy(bo.act_host)
+    op_of_slot = bk.op[bo.act_host]
+
+    def grads_host(psi) -> np.ndarray:
+        from . import kernels as K
+        psi = torch.as_tensor(psi).to(device=device, dtype=dtype).contiguous()
+        sigma = lham(psi).contiguous()
+        rows = K.pool_bucketed(sigma, psi, bo).detach().cpu()
+        return gr.segment_rows(rows[act], op_of_slot, n_ops)
+
+    return grads_host

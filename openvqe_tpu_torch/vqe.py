@@ -1,11 +1,13 @@
 """VQE dispatcher (reference ``openvqe/vqe.py``): name -> algorithm class.
 
-The port registers the UCC family only; the other algorithms of
-``openvqe_tpu`` are queued in ROADMAP.md.
+The port registers UCC and the two ADAPT-VQE variants; QUCCSD is queued
+in ROADMAP.md.
 """
 
 from __future__ import annotations
 
+from .algorithms.fermionic_adapt import FermionicAdapt
+from .algorithms.qubit_adapt import QubitAdapt
 from .algorithms.ucc import UCC
 
 
@@ -13,6 +15,8 @@ class VQE:
 
     algorithms = {
         "ucc": UCC,
+        "fermionic_adapt": FermionicAdapt,
+        "qubit_adapt": QubitAdapt,
     }
 
     @classmethod
@@ -22,6 +26,6 @@ class VQE:
             raise KeyError(
                 f"Algorithm {algo_name!r} is not available in the PyTorch "
                 f"port; it has {sorted(cls.algorithms)}.  The rest are "
-                f"queued in ROADMAP.md (queue 1).")
+                f"queued in ROADMAP.md (queue 5).")
         return cls.algorithms[algo_name](molecule_symbol, type_of_generator,
                                          transform, active, opts or {})

@@ -28,6 +28,7 @@ from openvqe_tpu_torch.chem import scf as tscf
 from openvqe_tpu_torch.models.molecule_factory import (
     MoleculeFactory as TMoleculeFactory,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 MOLECULES = ["H2", "H4"]
 TOL = 1e-10

@@ -23,6 +23,7 @@ from openvqe_tpu_torch.sim import compile as tcompile
 from openvqe_tpu_torch.sim import convert
 from openvqe_tpu_torch.sim import grouped as tgr
 from openvqe_tpu_torch.sim import kernels as K
+from torch_threads import one_torch_thread  # noqa: F401
 
 GEN_FMODE = {"UCCSD": 1, "spin_complement_gsd": 2, "singlet_sd": 0}
 TOL = {torch.float64: 1e-10, torch.float32: 1e-6}

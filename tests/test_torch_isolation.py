@@ -8,6 +8,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "openvqe_tpu_torch"
 
@@ -29,8 +31,12 @@ def _port_modules():
 
 def test_port_imports_without_jax_or_reference():
     mods = _port_modules()
-    assert "openvqe_tpu_torch.sim.kernels" in mods
-    assert "openvqe_tpu_torch.sim.streaming" in mods
+    for m in ("sim.kernels", "sim.streaming", "sim.eigensolver",
+              "algorithms.adapt", "algorithms.fermionic_adapt",
+              "algorithms.qubit_adapt", "utils.checkpoint",
+              "utils.run_logger", "utils.sorted_gradient",
+              "mains.main_fermionic_adapt", "mains.main_qubit_adapt"):
+        assert f"openvqe_tpu_torch.{m}" in mods, m
     code = (
         "import sys\n"
         f"for m in {mods!r}:\n"

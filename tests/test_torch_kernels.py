@@ -1,6 +1,6 @@
-"""The eight CUDA kernels of openvqe_tpu_torch/sim/kernels.py against their
-plain PyTorch versions, on the card: the four per-group kernels and the
-four bucketed (streaming) ones.  A CUDA kernel has no CPU mode, so these
+"""The ten CUDA kernels of openvqe_tpu_torch/sim/kernels.py against their
+plain PyTorch versions, on the card: the four per-group kernels, the
+four bucketed (streaming) ones and the two pool-overlap kernels.  A CUDA kernel has no CPU mode, so these
 tests are marked ``cuda`` and skip on a machine without a card; on one
 they run with ``python -m pytest tests/test_torch_kernels.py -q``.
 ``chip_smoke.py`` holds the same kernels at the main paths' shapes.
@@ -17,6 +17,7 @@ from openvqe_tpu_torch.sim import kernels as K
 from openvqe_tpu_torch.sim import streaming as st
 from openvqe_tpu_torch.sim.compile import compile_op_sequence
 from openvqe_tpu_torch.sim.objective import StreamBoundAnsatz, VQEObjective
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 N = 12
@@ -232,3 +233,99 @@ def test_streaming_wrappers_reject_what_the_kernels_do_not_take(dev):
                          chunk_bits=6).bind(gens, 0)
     with pytest.raises(ValueError):              # chunk below 2^8
         K.rot_fused(psi, ang, small._fwd, 1)
+
+
+# ------------------------------------------------------------- pool screen
+
+def _pool(n, cb, real, seed=9):
+    """Pool groups at n qubits: 20 with x_hi = 0 (two of them x = 0), 18
+    with x_hi = 1 (a full bucket of 16 and two more), 14 free; ragged live
+    coefficient rows; non-real coefficients unless ``real``."""
+    rng = np.random.default_rng(seed)
+    hi = np.repeat([0, 1, -1], [20, 18, 14])
+    lo = rng.integers(1, 1 << cb, size=len(hi))
+    lo[:2] = 0
+    free = rng.integers(0, 1 << (n - cb), size=len(hi))
+    x = (np.where(hi < 0, free, hi).astype(np.int64) << cb) | lo
+    G, Kp = len(x), 4
+    z = rng.integers(0, 1 << n, size=(G, Kp))
+    a_re = rng.normal(size=(G, Kp)) * 0.4
+    a_re[::3, Kp - 1] = 0.0
+    a_im = np.zeros((G, Kp)) if real else rng.normal(size=(G, Kp)) * 0.2
+    return gr.GroupedPool(n=n, x=x.astype(np.int32), z=z.astype(np.int32),
+                          a_re=a_re, a_im=a_im,
+                          op=(np.arange(G) % 23).astype(np.int32), n_ops=23)
+
+
+@pytest.mark.parametrize("real", [False, True])
+@pytest.mark.parametrize("cb", [8, 11])
+def test_pool_kernels_match_plain_versions(dev, cb, real):
+    gp = _pool(N, cb, real)
+    sigma, psi = _state(dev, 4), _state(dev, 5)
+
+    def t(a, dt):
+        return torch.as_tensor(a, dtype=dt, device=dev).contiguous()
+
+    args = (t(gp.x, torch.int32), t(gp.z, torch.int32),
+            t(gp.a_re, torch.float32), t(gp.a_im, torch.float32))
+    counts = dict(K.LAUNCHES)
+    rows = K.pool_overlap(sigma, psi, *args)
+    rows_ref = st.pool_overlap_ref(sigma, psi, *args)
+    assert rows.shape == (len(gp.x), 2)
+    assert float((rows - rows_ref).abs().max()) <= TOL
+    assert torch.equal(rows, K.pool_overlap(sigma, psi, *args))
+
+    sd = st.build_stream_data(N, gp.x, gp.z, gp.a_re, op=gp.op,
+                              coef_im=gp.a_im, chunk_bits=cb)
+    bk, slot_group = st.build_pool_buckets(sd)
+    bo = st.bucket_operands(bk, dev)
+    assert bo.real is real and bo.act_host.sum(1).max() == st.HAM_BUCKET_CAP
+    assert (bk.x_hi == 0).any() and (bk.x_hi != 0).any()
+    brows = K.pool_bucketed(sigma, psi, bo)
+    assert float((brows - st.pool_bucketed_ref(sigma, psi, bo)).abs().max()
+                 ) <= TOL
+    assert torch.equal(brows, K.pool_bucketed(sigma, psi, bo))
+    live = slot_group >= 0
+    assert float((brows.cpu()[torch.from_numpy(live)]
+                  - rows_ref.cpu()[slot_group[live]]).abs().max()) <= TOL
+    assert not brows.cpu()[torch.from_numpy(~live)].any()
+    torch.cuda.synchronize()
+    want = {"pool_overlap": 2, "pool_bucketed": 2}
+    assert {k: K.LAUNCHES[k] - counts[k] for k in K.KERNELS} == \
+        {k: want.get(k, 0) for k in K.KERNELS}
+
+
+@pytest.mark.parametrize("fuse", [False, True])
+def test_pool_screen_launches_its_kernel(dev, fuse):
+    """The streaming screen on the card: v against the plain rows summed
+    on the host, and only the selected pool kernel launches."""
+    gp = _pool(N, 8, real=False)
+    sigma, psi = _state(dev, 6), _state(dev, 7)
+    screen = st.build_streaming_pool_gradient_fn(
+        gp, lambda p: sigma, fuse=fuse, device=dev, chunk_bits=8)
+    counts = dict(K.LAUNCHES)
+    v = screen(psi)
+    ref = gr.segment_rows(st.pool_overlap_ref(
+        sigma, psi, *(torch.as_tensor(a, device=dev) for a in (
+            gp.x, gp.z, gp.a_re.astype(np.float32),
+            gp.a_im.astype(np.float32)))), gp.op, gp.n_ops)
+    np.testing.assert_allclose(v, ref, atol=TOL)
+    name = "pool_bucketed" if fuse else "pool_overlap"
+    assert {k: K.LAUNCHES[k] - counts[k] for k in K.KERNELS} == \
+        {k: int(k == name) for k in K.KERNELS}
+
+
+def test_pool_wrappers_reject_what_the_kernels_do_not_take(dev):
+    gp = _pool(N, 8, real=True)
+    sigma, psi = _state(dev, 4), _state(dev, 5)
+    x, z = (torch.as_tensor(a, device=dev) for a in (gp.x, gp.z))
+    cre = torch.as_tensor(gp.a_re, dtype=torch.float32, device=dev)
+    with pytest.raises(TypeError):
+        K.pool_overlap(sigma.double(), psi, x, z, cre, cre)
+    with pytest.raises(ValueError):
+        K.pool_overlap(sigma, psi, x, z, cre[:, :1].contiguous(), cre)
+    sd = st.build_stream_data(N, gp.x, gp.z, gp.a_re, op=gp.op,
+                              coef_im=gp.a_im, chunk_bits=6)
+    bo = st.bucket_operands(st.build_pool_buckets(sd)[0], dev)
+    with pytest.raises(ValueError):              # chunk below 2^8
+        K.pool_bucketed(sigma, psi, bo)

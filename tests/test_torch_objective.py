@@ -15,6 +15,7 @@ from openvqe_tpu.sim.objective import VQEObjective
 from openvqe_tpu_torch.ops.pauli import PauliSum as TPauliSum
 from openvqe_tpu_torch.sim import statevector as tsv
 from openvqe_tpu_torch.sim.objective import VQEObjective as TVQEObjective
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def port_ps(ps):
@@ -110,8 +111,7 @@ def test_out_of_slice_paths_raise(h4_supccgsd):
         build_vqe_objective(hsp, [], 0, mesh=object(), device="cpu")
     from openvqe_tpu_torch.vqe import VQE
     with pytest.raises(KeyError, match="ROADMAP"):
-        VQE.algorithm("fermionic_adapt", "H4", "spin_complement_gsd", "JW",
-                      False)
+        VQE.algorithm("quccsd", "H4", "spin_complement_gsd", "JW", False)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         VQE.algorithm("ucc", "H2", "sUPCCGSD", "JW", False,
                       {"mesh_devices": 2}).build_mesh()

@@ -32,6 +32,7 @@ from openvqe_tpu_torch.sim import kernels as K
 from openvqe_tpu_torch.sim import streaming as tst
 from openvqe_tpu_torch.sim.objective import StreamBoundAnsatz
 from openvqe_tpu_torch.sim.objective import VQEObjective as TVQEObjective
+from torch_threads import one_torch_thread  # noqa: F401
 
 N_BIG = 18            # smallest n the JAX builders take at chunk_bits 2
 CB_JAX = 2            # JAX FUSED_CHUNK_BITS: x_huge = x >> 16
@@ -42,19 +43,6 @@ TOL = {torch.float64: 1e-10, torch.float32: 1e-6}
 
 def port_ps(ps):
     return TPauliSum(ps.nbqbits, dict(ps._terms), ps.constant_coeff)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The plain versions make thousands of calls on small tensors.  With
-    torch's intra-op pool at 8 threads on an 8-core CPU, some of those calls
-    (sin/cos, advanced indexing) took about 3 ms in place of 40 us, and the
-    pool's waiting threads took cores from the other test processes; on
-    one thread the module runs several times faster."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

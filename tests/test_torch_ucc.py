@@ -25,6 +25,7 @@ from openvqe_tpu_torch.models.molecule_factory import (
     MoleculeFactory as TMoleculeFactory,
 )
 from openvqe_tpu_torch.vqe import VQE as TVQE
+from torch_threads import one_torch_thread  # noqa: F401
 
 KEYS_EXACT = ("len_op1", "len_op2", "CNOT1", "CNOT2")
 KEYS_ENERGY = ("energies1_substracted_from_FCI",
