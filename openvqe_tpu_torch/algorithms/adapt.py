@@ -100,7 +100,8 @@ def _objective_and_screen(hamiltonian_sp: PauliSum, n: int, pool_ops,
             gpool, objective.ham_apply, device=objective.device,
             dtype=objective.dtype, chunk_bits=objective.chunk_bits)
     else:
-        grad_fn = gr.build_grouped_pool_gradient_fn(gpool, objective)
+        grad_fn = gr.build_grouped_pool_gradient_fn(
+            gpool, objective.ham_apply, objective.device, objective.dtype)
     return objective, grad_fn
 
 

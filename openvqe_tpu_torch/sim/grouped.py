@@ -389,9 +389,10 @@ def rot_sweep_ref(psi, angles, x, z, s, fmode: int):
 
 def ham_apply_ref(psi, x, z, a_re, a_im):
     """sum_g W_g(j) psi[j ^ x_g] with complex W = W_re + i W_im; x = 0
-    groups carry the diagonal.  Groups are taken in blocks whose sign
-    tables stay below 2^22 entries (one group at a time at n = 20), which
-    keeps the many small H passes of a Lanczos run on the CPU cheap."""
+    groups carry the diagonal.  Groups are taken in blocks of at most
+    2^22 sign entries (N K per group), which keeps the many small H passes
+    of a Lanczos run on the CPU cheap; where one group alone has more
+    (N K > 2^22, e.g. 2^26 at n = 20, K = 64), it is taken by itself."""
     N = psi.shape[-1]
     idx = _indices(N, psi.device)
     acc = torch.zeros_like(psi)
@@ -484,10 +485,14 @@ def segment_rows(rows: torch.Tensor, op: np.ndarray, n_ops: int
     return vre + 1j * vim
 
 
-def pool_screen(gpool: GroupedPool, lham, device, dtype):
+def build_grouped_pool_gradient_fn(gpool: GroupedPool, lham, device, dtype):
     """grads_host(psi) -> complex (n_ops,) v_i = <H psi|A_i|psi>: sigma from
-    ``lham``, then every (op, x) group in one ``kernels.pool_overlap`` call
-    (the E14 kernel on a CUDA state, its plain version on the CPU)."""
+    ``lham`` (the objective's H pass), then every (op, x) group in one
+    ``kernels.pool_overlap`` call (the E14 kernel on a CUDA state, its plain
+    version on the CPU).  Counterpart of the JAX package's XLA
+    ``build_grouped_pool_gradient_fn``, the n <= 19 screen; the streaming
+    screen runs it too unless OVQE_STREAM_FUSE selects the bucketed kernel,
+    so no plain version runs on the card."""
     from . import kernels as K
 
     def dev(a, dt):
@@ -504,12 +509,3 @@ def pool_screen(gpool: GroupedPool, lham, device, dtype):
                             gpool.op, gpool.n_ops)
 
     return grads_host
-
-
-def build_grouped_pool_gradient_fn(gpool: GroupedPool, objective):
-    """The n <= 19 screen (counterpart of the JAX package's XLA
-    ``build_grouped_pool_gradient_fn``): sigma = H psi from the objective's
-    per-group H kernel, the overlaps from the E14 kernel, so no plain
-    version runs on the card."""
-    return pool_screen(gpool, objective.ham_apply, objective.device,
-                       objective.dtype)

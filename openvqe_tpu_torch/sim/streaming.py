@@ -517,7 +517,9 @@ def pool_bucketed_ref(sigma, psi, bo: BucketOperands):
 
 
 def _sd_select(sd: StreamGroupData, idx: np.ndarray) -> StreamGroupData:
-    """Group subset of a StreamGroupData (order-free consumers only)."""
+    """Group subset of a StreamGroupData (order-free consumers only).  Not
+    on the port's screen, which has no stage classes: kept so the tests can
+    hold bucket sets of group subsets against the JAX package's."""
     return StreamGroupData(
         n=sd.n, chunk_bits=sd.chunk_bits, x_lo=sd.x_lo[idx],
         x_hi=sd.x_hi[idx], z=sd.z[idx], coef=sd.coef[idx],
@@ -531,7 +533,9 @@ def build_pool_buckets(sd: StreamGroupData, gcap: int = HAM_BUCKET_CAP
     """Pool groups bucketed by x_hi after a stable sort (overlaps are
     order-free), at most ``gcap`` per bucket, inert groups dropped.
     Returns (buckets, slot_group) with slot_group (B, gcap) the index of
-    each slot's group in ``sd`` (-1 for padding)."""
+    each slot's group in ``sd`` (-1 for padding).  The screen reads the
+    slots' operators from ``buckets.op``; slot_group is for holding bucket
+    rows against per-group rows (the tests and ``chip_smoke.py``)."""
     buckets = _sorted_buckets(sd, gcap)
     if not buckets:
         return None
@@ -575,7 +579,7 @@ def build_streaming_pool_gradient_fn(gpool, lham, fuse: Optional[bool] = None,
     device = sv.resolve_device(device)
     dtype = sv.resolve_dtype(device, dtype)
     if not pool_fuse_policy(fuse):
-        return gr.pool_screen(gpool, lham, device, dtype)
+        return gr.build_grouped_pool_gradient_fn(gpool, lham, device, dtype)
     n, n_ops = gpool.n, gpool.n_ops
     cb = chunk_bits_for(n) if chunk_bits is None else int(chunk_bits)
     sd = build_stream_data(n, gpool.x, gpool.z, gpool.a_re, op=gpool.op,

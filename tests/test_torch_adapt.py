@@ -207,7 +207,8 @@ def test_screen_matches_jax_float64(case, h4):
     flat = tuple(torch.as_tensor(a) for a in (jp.x, jp.z, jp.a_re, jp.a_im))
     rows = tst.pool_overlap_ref(sigma, psi_t, *flat)
     got = {"rows": tgr.segment_rows(rows, jp.op, jp.n_ops),
-           "grouped": tgr.build_grouped_pool_gradient_fn(jp, tobj)(psi)}
+           "grouped": tgr.build_grouped_pool_gradient_fn(
+               jp, tobj.ham_apply, "cpu", torch.float64)(psi)}
     cb = 4 if n > 8 else 5
     sd = tst.build_stream_data(n, jp.x, jp.z, jp.a_re, op=jp.op,
                                coef_im=jp.a_im, chunk_bits=cb)
