@@ -7,8 +7,8 @@ Needs one CUDA card, ``nvcc`` and the checkout around this file; it
 imports nothing of JAX and nothing of ``openvqe_tpu``.  Phases:
 
 1. the card (nvidia-smi name and power limit), CUDA and nvcc versions;
-   build the ten kernels of ``openvqe_tpu_torch/sim/csrc`` (one nvcc per
-   source, started together, sm_90a);
+   build the fourteen kernels of ``openvqe_tpu_torch/sim/csrc`` (one nvcc
+   per source, four sources started together, sm_90a);
 2. per-group kernel parity: each of the four grouped kernels against its
    plain PyTorch version on the same card and inputs, at n = 16, on H8's
    own operands and on a synthetic problem (x masks on every bit, non-real
@@ -31,20 +31,35 @@ imports nothing of JAX and nothing of ``openvqe_tpu``.  Phases:
    sequence, on H10's own bucket operands and on a synthetic problem
    (field modes 0, 1, 2, non-real coefficients, runs with x_hi = 0 and
    x_hi != 0, full 16-group runs, both K classes); timed at H10's shapes;
-6. the H10 main path (the streaming route), counters set to 0 just before
+6. per-group streaming kernel parity at n = 20 (the kernels of
+   OVQE_STREAM_FUSE=0): each of the four against its plain version and
+   against the bucketed kernel of the same function on the same inputs
+   (A2 against A3, C8 against C9, B5 with the diagonal against B6, D11
+   with the diagonal against D12, with herm off and on), gradient entries
+   bit-identical when repeated, on H10's own operands and on the
+   synthetic problems of phase 5 with inert groups added; timed at H10's
+   shapes.  No entry point reaches B5 and D11 (the JAX package's H passes
+   stay bucketed on that route too), so their launches are this phase's;
+7. the H10 main path (the streaming route), counters set to 0 just before
    and read just after: ``energy(0)`` against HF, ``energy_and_grad`` and
    ``energy`` at theta0 (MP2) and theta1 against the JAX package's float64
    numbers in ``tests/torch_h10_reference.json`` (made by
    ``JAX_PLATFORMS=cpu python tests/torch_h10_reference.py``), then 20
    L-BFGS-B iterations from theta0 that must lower the energy and stay
-   above FCI; only the four bucketed kernels run.  Then the per-call time
-   of both routes at H10 and the device busy share of the streaming one;
-7. pool-kernel parity at n = 20: the two pool-overlap kernels (E14
+   above FCI; only the four bucketed kernels run.  Then the device busy
+   share of the streaming route;
+8. the same H10 main path with OVQE_STREAM_FUSE=0 (the per-group
+   streaming route), the variable set only for it: the same checks, the
+   sweeps through ``rot_stream`` and ``adjoint_stream`` and the H through
+   the bucketed kernels only.  Then |psi|^2 - 1 of both streaming routes,
+   the per-call time of all three routes at H10 and the device busy share
+   of the new one;
+9. pool-kernel parity at n = 20: the two pool-overlap kernels (E14
    per-group, E15 bucketed) against their plain versions on H10's own
    pool operands (875 groups, K = 8) and on a synthetic pool (non-real
    coefficients, x_hi = 0 and != 0, a full bucket), bit-identical when
    repeated; timed at H10's shapes;
-8. the slice's main path, fermionic ADAPT-VQE on H10 with the UCCSD pool
+10. fermionic ADAPT-VQE on H10 with the UCCSD pool
    (``fermionic_adapt_vqe``, BFGS, 3 outer iterations, the default
    ``fidelity_max_qubits`` so the Lanczos reference runs), counters set to
    0 just before and read just after: the screen at HF, the chosen
@@ -53,19 +68,22 @@ imports nothing of JAX and nothing of ``openvqe_tpu``.  Phases:
    ``JAX_PLATFORMS=cpu python tests/torch_adapt_reference.py``), energies
    above FCI and not increasing; only the streaming kernels and E14 run.
    Then once more with OVQE_STREAM_FUSE=1, where E15 runs instead of E14;
-9. the ADAPT driver on the per-group route:
+11. the ADAPT driver on the per-group route:
    ``VQE.algorithm("fermionic_adapt", "H4", "spin_complement_gsd", "JW",
    False, {"max_external_iterations": 6}).execute()`` against the JAX
    package's run on the port's chemistry (same file); E14 launches.
 
 The last three lines of standard output are the card's name and power
-limit, a JSON ``{"kernels": [...]}`` line, and the JSON ``{"ok": true,
-"device": ...}`` line.  Any failed phase exits non-zero without them.
+limit, a JSON ``{"kernels": [...]}`` line (one row per kernel, each
+launched on the path its ``launches_on`` names), and the JSON ``{"ok":
+true, "device": ...}`` line.  Any failed phase, or a kernel that no phase
+launched, exits non-zero without them.
 """
 
 import contextlib
 import io
 import json
+import os
 import subprocess
 import sys
 import time
@@ -103,7 +121,10 @@ F32_FLOP_PER_S = 67e12
 
 GROUPED = ("rot_sweep", "expectation", "ham_apply", "adjoint_sweep")
 STREAMING = ("rot_fused", "adjoint_fused", "ham_bucketed", "expect_bucketed")
+STREAM_GROUP = ("rot_stream", "adjoint_stream", "ham_stream", "expect_stream")
 POOL = ("pool_overlap", "pool_bucketed")
+# each per-group streaming kernel computes the function of a bucketed one
+SAME_WORK = dict(zip(STREAM_GROUP, STREAMING))
 REPLACES = {
     "rot_sweep": "openvqe_tpu/sim/pallas_kernels.py:158",
     "expectation": "openvqe_tpu/sim/pallas_kernels.py:206",
@@ -113,12 +134,17 @@ REPLACES = {
     "adjoint_fused": "openvqe_tpu/sim/streaming.py:1363",
     "ham_bucketed": "openvqe_tpu/sim/streaming.py:1681",
     "expect_bucketed": "openvqe_tpu/sim/streaming.py:2086",
+    "rot_stream": "openvqe_tpu/sim/streaming.py:446",
+    "adjoint_stream": "openvqe_tpu/sim/streaming.py:3189",
+    "ham_stream": "openvqe_tpu/sim/streaming.py:780",
+    "expect_stream": "openvqe_tpu/sim/streaming.py:626",
     "pool_overlap": "openvqe_tpu/sim/streaming.py:2660",
     "pool_bucketed": "openvqe_tpu/sim/streaming.py:2873",
 }
 CSRC = "openvqe_tpu_torch/sim/csrc/"
 SOURCE = {**dict.fromkeys(GROUPED, CSRC + "grouped_kernels.cu"),
           **dict.fromkeys(STREAMING, CSRC + "streaming_kernels.cu"),
+          **dict.fromkeys(STREAM_GROUP, CSRC + "stream_group_kernels.cu"),
           **dict.fromkeys(POOL, CSRC + "pool_kernels.cu")}
 N_H10 = 20
 LBFGS_ITERS = 20
@@ -127,7 +153,19 @@ LBFGS_ITERS = 20
 JAX_SEQ_CB, JAX_HAM_CB = 16, 17
 # f32 operations per amplitude of cos/sin from the field (grouped.rot_cos_sin)
 CS_FLOPS = {0: 3, 1: 5, 2: 22}
-ADAPT_ITERS = 3          # outer iterations of the H10 ADAPT run (phase 8)
+ADAPT_ITERS = 3          # outer iterations of the H10 ADAPT run (phase 10)
+# the main path each kernel's launch count is read from
+LAUNCHES_ON = {**dict.fromkeys(GROUPED, "H8 UCC main path (phase 3)"),
+               **dict.fromkeys(STREAMING, "H10 streaming main path (phase 7)"),
+               "rot_stream": "H10 OVQE_STREAM_FUSE=0 main path (phase 8)",
+               "adjoint_stream": "H10 OVQE_STREAM_FUSE=0 main path (phase 8)",
+               "ham_stream": "per-group streaming parity (phase 6): no entry "
+                             "point reaches B5",
+               "expect_stream": "per-group streaming parity (phase 6): no "
+                                "entry point reaches D11",
+               "pool_overlap": "H10 fermionic ADAPT main path (phase 10)",
+               "pool_bucketed": "H10 fermionic ADAPT, OVQE_STREAM_FUSE=1 "
+                                "(phase 10)"}
 H4_ADAPT_OPTS = {"max_external_iterations": 6}
 
 
@@ -333,7 +371,12 @@ def work(name, psi, ops=None, hops=None):
     (non-zero) coefficients only.  Popcounts and selects are integer work
     and are not counted.  For the bucketed kernels ``ops`` is one
     ``BucketOperands`` and ``hops`` the list of K classes (the function is
-    the whole H pass); padding slots do no work and are not counted."""
+    the whole H pass); padding slots do no work and are not counted.  A
+    per-group streaming kernel is given the work of the bucketed kernel of
+    the same function (``SAME_WORK``), with ``ops`` and ``hops`` the
+    bucket operands of the same groups: the bound is the function's,
+    whatever implements it."""
+    name = SAME_WORK.get(name, name)
     N = psi.shape[-1]
     state = psi.numel() * 4
     if name in ("rot_fused", "adjoint_fused"):
@@ -584,7 +627,7 @@ def phase_main_path(h8, ref, card):
     print(f"main path {t_main:.2f} s, launches {launches}")
     for k in GROUPED:
         check(launches[k] > 0, f"kernel {k} was not launched on the H8 path")
-    for k in STREAMING:
+    for k in STREAMING + STREAM_GROUP:
         check(launches[k] == 0, f"kernel {k} was launched on the H8 path")
 
     # per-call times of the objective (after the counters were read)
@@ -800,7 +843,210 @@ def phase_stream_parity(h10, ref, card):
     return rows
 
 
-def phase_h10_main(h10, ref, card):
+# ------------------------------- per-group streaming route (OVQE_STREAM_FUSE=0)
+
+@contextlib.contextmanager
+def stream_fuse(value):
+    """OVQE_STREAM_FUSE set to ``value`` inside the block only."""
+    old = os.environ.get("OVQE_STREAM_FUSE")
+    os.environ["OVQE_STREAM_FUSE"] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("OVQE_STREAM_FUSE")
+        else:
+            os.environ["OVQE_STREAM_FUSE"] = old
+
+
+def group_route(ham, gseq, hf, n):
+    """The per-group streaming ansatz of ``gseq`` (its objective built with
+    OVQE_STREAM_FUSE=0), the fused one on the same objective data, the
+    fused objective, and B5's operands: H's groups with the diagonal, the
+    groups of B6's K classes."""
+    from openvqe_tpu_torch.sim import streaming as st
+    from openvqe_tpu_torch.sim.objective import VQEObjective, _stream_view
+    with stream_fuse("0"):
+        obj = VQEObjective(ham, n=n, device=DEVICE)
+    fobj = VQEObjective(ham, n=n, device=DEVICE)
+    check(obj.stream and not obj.fuse and fobj.fuse,
+          "OVQE_STREAM_FUSE=0 did not select the per-group streaming route")
+    hgo = st.group_operands(st.stream_ham_data(
+        _stream_view(obj.gham, n), obj.chunk_bits, with_diag=True), DEVICE)
+    return (obj.bind_grouped(gseq, hf), fobj.bind_grouped(gseq, hf), fobj,
+            hgo)
+
+
+def parity_group_case(label, psi, theta, b, fb, fobj, hgo, errs):
+    """Each per-group streaming kernel against its plain version and
+    against the bucketed kernel of the same function on the same inputs;
+    the adjoint's gradient entries bit-identical when repeated."""
+    import numpy as np
+    import torch
+    from openvqe_tpu_torch.sim import grouped as gr
+    from openvqe_tpu_torch.sim import kernels as K
+    from openvqe_tpu_torch.sim import streaming as st
+    dev, fm = psi.device, b._fmode
+    fwd, adj = b._fwd, b._adj
+    af = st.group_angles(fwd, theta, torch.float32, dev)
+    aa = st.group_angles(adj, theta, torch.float32, dev)
+    out = {}
+    a = K.rot_stream(psi, af, fwd, fm)
+    d_plain = float((a - st.rot_stream_ref(psi, af, fwd, fm)).abs().max())
+    a3 = K.rot_fused(psi, st.bucket_angles(fb._fwd, theta, torch.float32,
+                                           dev), fb._fwd, fm)
+    d_a3 = float((a - a3).abs().max())
+    out["rot_stream"] = max(d_plain, d_a3)
+    check(out["rot_stream"] <= TOL_STATE,
+          f"{label} rot_stream plain {d_plain} A3 {d_a3}")
+
+    lam_k = K.ham_stream(a, None, hgo)
+    lam_p = st.ham_stream_ref(a, None, hgo)
+    lam_b = None
+    for hc in fobj.hclasses:
+        lam_b = K.ham_bucketed(a, lam_b, hc)
+    d_plain = float((lam_k - lam_p).abs().max())
+    d_b6 = float((lam_k - lam_b).abs().max())
+    out["ham_stream"] = max(d_plain, d_b6)
+    check(out["ham_stream"] <= TOL_STATE,
+          f"{label} ham_stream plain {d_plain} B6 {d_b6}")
+
+    check(st.grouped_hermitian_operator(fobj.gham),
+          f"{label}: H is not Hermitian as an operator")
+    e_b = sum(float(K.expect_bucketed(a, hc)) for hc in fobj.hclasses)
+    out["expect_stream"] = 0.0
+    for herm in (False, True):
+        e_k = float(K.expect_stream(a, hgo, herm))
+        e_p = float(st.expect_stream_ref(a, hgo, herm))
+        d = max(abs(e_k - e_p), abs(e_k - e_b))
+        out["expect_stream"] = max(out["expect_stream"], d)
+        check(d <= TOL_ENERGY_REL * max(1.0, abs(e_p)),
+              f"{label} expect_stream herm={herm} {e_k} plain {e_p} D12 "
+              f"{e_b}")
+        check(float(K.expect_stream(a, hgo, herm)) == e_k,
+              f"{label} expect_stream is not deterministic")
+
+    lam = lam_p.contiguous()
+    pk, lk, gk = K.adjoint_stream(a, lam, aa, adj, fm)
+    pp, lp, gp = st.adjoint_stream_ref(a, lam, aa, adj, fm)
+    d_state = max(float((pk - pp).abs().max()), float((lk - lp).abs().max()))
+    d_grad = float((gk - gp).abs().max())
+    same = torch.equal(gk, K.adjoint_stream(a, lam, aa, adj, fm)[2])
+    _, _, gf = K.adjoint_fused(a, lam, st.bucket_angles(
+        fb._adj, theta, torch.float32, dev), fb._adj, fm)
+    n_par = len(theta)
+    d_c9 = float(np.max(np.abs(gr.segment_grad(gk, adj.op, n_par).numpy()
+                               - st.bucket_grad(gf, fb._adj, n_par).numpy())))
+    out["adjoint_stream"] = max(d_state, d_grad, d_c9)
+    check(d_state <= TOL_STATE and max(d_grad, d_c9) <= TOL_GRAD and same,
+          f"{label} adjoint_stream state {d_state} grad {d_grad} C9 {d_c9} "
+          f"bit-identical repeat {same}")
+    d_back = float((pk - psi).abs().max())
+    check(d_back <= TOL_STATE, f"{label} adjoint does not invert: {d_back}")
+    torch.cuda.synchronize()
+    for k, v in out.items():
+        errs[k] = max(errs.get(k, 0.0), v)
+    print(f"parity {label} fmode={fm}: {fwd.G} rotation groups, {hgo.G} H "
+          f"groups (K {hgo.K}, live rows {int(hgo.k_live.min())}.."
+          f"{int(hgo.k_live.max())}); max |kernel - plain or bucketed "
+          f"kernel|: " + ", ".join(f"{k} {v:.3e}" for k, v in out.items())
+          + "; C8 entries bit-identical when repeated")
+
+
+def with_inert(gseq, count=3):
+    """``gseq`` with inert groups (x = 0, zero weights) after its first."""
+    import numpy as np
+    from openvqe_tpu_torch.sim import grouped as gr
+
+    def ins(a, fill):
+        a = np.asarray(a)
+        pad = np.full((count,) + a.shape[1:], fill, a.dtype)
+        return np.concatenate([a[:1], pad, a[1:]])
+
+    return gr.GroupedOpSequence(
+        n=gseq.n, x=ins(gseq.x, 0), z=ins(gseq.z, 0), s=ins(gseq.s, 0.0),
+        op=ins(gseq.op, 0), n_ops=gseq.n_ops, n_terms=gseq.n_terms,
+        fmode=gseq.fmode)
+
+
+def phase_stream_group_parity(h10, ref, card):
+    import numpy as np
+    import torch
+    from openvqe_tpu_torch.sim import grouped as gr
+    from openvqe_tpu_torch.sim import kernels as K
+    from openvqe_tpu_torch.sim import streaming as st
+    from openvqe_tpu_torch.sim.compile import compile_op_sequence
+    dev = torch.device(DEVICE)
+    errs = {}
+    gseq = gr.group_op_sequence(compile_op_sequence(h10.gens, h10.n))
+    b, fb, fobj, hgo = group_route(h10.ham, gseq, h10.hf, h10.n)
+    check(b._fwd.G == len(gseq.x) and hgo.G > len(fobj.gham.x),
+          f"H10: {b._fwd.G} rotation groups, {hgo.G} H groups")
+    theta1 = np.asarray(ref["points"]["theta1"]["theta"])
+    K.reset_launches()
+    parity_group_case("H10 UCCSD", rand_state(h10.n, 3, dev), theta1, b, fb,
+                      fobj, hgo, errs)
+    rng = np.random.default_rng(9)
+    for fm in (0, 1, 2):
+        ham, gens = stream_synthetic(N_H10, st.CHUNK_BITS, fm)
+        sseq = gr.group_op_sequence(compile_op_sequence(gens, N_H10))
+        sb, sfb, sfobj, shgo = group_route(ham, with_inert(sseq), 0, N_H10)
+        xh = sb._fwd.x.cpu().numpy() >> st.CHUNK_BITS
+        check(sb._fmode == fm and sb._fwd.G == len(sseq.x)
+              and (xh == 0).any() and (xh != 0).any()
+              and bool(shgo.coef_im.abs().max() > 0)
+              and bool((shgo.k_live < shgo.K).any()),
+              "synthetic set misses its fmode, the inert-group drop, x_hi = "
+              "0 or != 0, W_im or short live rows")
+        parity_group_case(f"synthetic n={N_H10} (+3 inert groups)",
+                          rand_state(N_H10, 5, dev),
+                          rng.normal(scale=0.5, size=len(gens)), sb, sfb,
+                          sfobj, shgo, errs)
+    torch.cuda.synchronize()
+    counts = {k: K.LAUNCHES[k] for k in STREAM_GROUP}
+    print(f"per-group streaming parity launches {counts}")
+
+    # times at H10's shapes
+    psi = rand_state(h10.n, 11, dev)
+    fwd, adj, fm = b._fwd, b._adj, b._fmode
+    af = st.group_angles(fwd, theta1, torch.float32, dev)
+    aa = st.group_angles(adj, theta1, torch.float32, dev)
+    lam = K.ham_stream(psi, None, hgo)
+    fns = {
+        "rot_stream": (lambda: K.rot_stream(psi, af, fwd, fm),
+                       lambda: st.rot_stream_ref(psi, af, fwd, fm),
+                       fb._fwd),
+        "adjoint_stream": (
+            lambda: K.adjoint_stream(psi, lam, aa, adj, fm),
+            lambda: st.adjoint_stream_ref(psi, lam, aa, adj, fm), fb._adj),
+        "ham_stream": (lambda: K.ham_stream(psi, None, hgo),
+                       lambda: st.ham_stream_ref(psi, None, hgo), None),
+        "expect_stream": (lambda: K.expect_stream(psi, hgo, True),
+                          lambda: st.expect_stream_ref(psi, hgo, True), None),
+    }
+    rows = {}
+    for name, (kern, plain, ops) in fns.items():
+        ms = cuda_ms(kern, reps=10, warmup=2)
+        plain_ms = cuda_ms(plain, reps=2, warmup=1)
+        nbytes, flops = work(name, psi, ops=ops, hops=fobj.hclasses)
+        b_ms, by = bound(nbytes, flops)
+        rows[name] = {"name": name, "route": "cuda", "source": SOURCE[name],
+                      "replaces": REPLACES[name], "launches": 0,
+                      "max_abs_err": errs[name], "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+                      "library_ms": None}
+        print(f"time {name} at H10 shapes ({card}): kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({by}; the "
+              f"work of {SAME_WORK[name]}: {nbytes} B, {flops} f32 ops)")
+    ms_nh = cuda_ms(lambda: K.expect_stream(psi, hgo, False), reps=10,
+                    warmup=2)
+    print(f"time expect_stream herm=False at H10 shapes ({card}): "
+          f"{ms_nh:.4f} ms (the row's time is herm=True, the certificate "
+          f"holds for H10)")
+    return rows, counts
+
+
+def phase_h10_main(h10, ref, card, routes):
     import numpy as np
     import torch
     from scipy.optimize import minimize
@@ -858,7 +1104,7 @@ def phase_h10_main(h10, ref, card):
     print(f"H10 main path {time.time() - t0:.2f} s, launches {launches}")
     for k in STREAMING:
         check(launches[k] > 0, f"kernel {k} was not launched on the H10 path")
-    for k in GROUPED:
+    for k in GROUPED + STREAM_GROUP:
         check(launches[k] == 0, f"kernel {k} was launched on the H10 path")
 
     # the two routes at H10 (after the counters were read)
@@ -877,11 +1123,90 @@ def phase_h10_main(h10, ref, card):
           f"{e_s - e_ref:+.3e}), per-group {e_p!r} ({e_p - e_ref:+.3e}); "
           f"max|g_stream - g_per_group| {dg:.3e}")
     check(dg <= TOL_G_REF, "the two routes' gradients disagree at H10")
-    for label, ba in (("streaming", b), ("per-group", bp)):
-        norm = float(torch.sum(ba.forward(theta0).double() ** 2))
+    norm = float(torch.sum(bp.forward(theta0).double() ** 2))
+    print(f"H10 per-group route, forward state at theta0 (float32): "
+          f"|psi|^2 - 1 = {norm - 1:+.3e}")
+    device_share(b, theta0, card, "H10 UCCSD (streaming route)")
+    routes.update({"streaming (fused)": b, "per-group": bp})
+    return launches
+
+
+def phase_h10_group_main(h10, ref, card, routes):
+    """Phase 7's checks on the route OVQE_STREAM_FUSE=0 selects."""
+    import numpy as np
+    import torch
+    from scipy.optimize import minimize
+    from openvqe_tpu_torch.sim import kernels as K
+    from openvqe_tpu_torch.sim.objective import VQEObjective
+    pts = ref["points"]
+    theta0 = np.asarray(pts["theta0"]["theta"])
+    energies = []
+
+    def fun(t):
+        e, g = b.energy_and_grad(t)
+        energies.append(e)
+        return e, np.asarray(g, dtype=np.float64)
+
+    with stream_fuse("0"):
+        K.reset_launches()
+        t0 = time.time()
+        obj = VQEObjective(h10.ham, device=DEVICE)
+        b = obj.bind(h10.gens, h10.hf)
+        t_bind = time.time() - t0
+        e_hf = b.energy(np.zeros(len(theta0)))
+        print(f"H10 OVQE_STREAM_FUSE=0 objective + bind {t_bind:.2f} s "
+              f"({b._fwd.G} rotation groups); energy(0) {e_hf!r} HF "
+              f"{ref['HF']!r} delta {abs(e_hf - ref['HF']):.3e}")
+        check(abs(e_hf - ref["HF"]) <= TOL_HF, "H10 energy at 0 is not HF")
+        for name, p in pts.items():
+            theta = np.asarray(p["theta"])
+            e, g = b.energy_and_grad(theta)
+            e2 = b.energy(theta)
+            de = max(abs(e - p["energy"]), abs(e2 - p["energy"]))
+            dg = float(np.max(np.abs(g - np.asarray(p["grad"]))))
+            print(f"H10 OVQE_STREAM_FUSE=0 {name}: energy_and_grad {e!r}, "
+                  f"energy {e2!r}, JAX f64 {p['energy']!r}; |de| {de:.3e} "
+                  f"max|dg| {dg:.3e}")
+            check(de <= TOL_E_REF and dg <= TOL_G_REF,
+                  f"H10 OVQE_STREAM_FUSE=0 {name} off the JAX reference")
+        t1 = time.time()
+        res = minimize(fun, theta0, jac=True, method="L-BFGS-B",
+                       options={"maxiter": LBFGS_ITERS})
+        torch.cuda.synchronize()
+        t_opt = time.time() - t1
+        launches = dict(K.LAUNCHES)
+    check(not obj.fuse and not b._fused,
+          "OVQE_STREAM_FUSE=0 did not select the per-group streaming route")
+    fci = ref["FCI"]
+    print(f"H10 OVQE_STREAM_FUSE=0 L-BFGS-B (maxiter {LBFGS_ITERS}) on "
+          f"{card}: {res.nit} iterations ({res.message}), {res.nfev} "
+          f"evaluations, {t_opt:.3f} s "
+          f"({1e3 * t_opt / max(res.nit, 1):.2f} ms/iteration); E(theta0) "
+          f"{energies[0]!r} -> {res.fun!r}; E - FCI {res.fun - fci:.6e}; "
+          f"lowest evaluated E - FCI {min(energies) - fci:.3e}")
+    check(res.fun < energies[0], "L-BFGS-B did not lower the energy")
+    check(min(energies) >= fci - TOL_E_REF,
+          "an evaluated energy is below FCI: the kernels are not unitary")
+    print(f"H10 OVQE_STREAM_FUSE=0 main path {time.time() - t0:.2f} s, "
+          f"launches {launches}")
+    for k in ("rot_stream", "adjoint_stream", "ham_bucketed",
+              "expect_bucketed"):
+        check(launches[k] > 0, f"kernel {k} was not launched on the "
+              f"OVQE_STREAM_FUSE=0 path")
+    for k in GROUPED + POOL + ("rot_fused", "adjoint_fused", "ham_stream",
+                               "expect_stream"):
+        check(launches[k] == 0, f"kernel {k} was launched on the "
+              f"OVQE_STREAM_FUSE=0 path")
+
+    # after the counters were read: norms, then the three routes in turn
+    routes = {**routes, "per-group streaming (OVQE_STREAM_FUSE=0)": b}
+    for label in ("streaming (fused)", "per-group streaming "
+                  "(OVQE_STREAM_FUSE=0)"):
+        norm = float(torch.sum(routes[label].forward(theta0).double() ** 2))
         print(f"H10 {label} route, forward state at theta0 (float32): "
               f"|psi|^2 - 1 = {norm - 1:+.3e}")
-    for label, ba in (("streaming", b), ("per-group", bp)):
+    for label, ba in routes.items():
+        ba.energy_and_grad(theta0)
         torch.cuda.synchronize()
         ts = []
         for _ in range(20):
@@ -890,7 +1215,7 @@ def phase_h10_main(h10, ref, card):
             ts.append(time.perf_counter() - t)
         print(f"energy_and_grad H10 {label} route on {card}: median "
               f"{1e3 * sorted(ts)[10]:.3f} ms over 20 calls")
-    device_share(b, theta0, card, "H10 UCCSD (streaming route)")
+    device_share(b, theta0, card, "H10 UCCSD (OVQE_STREAM_FUSE=0 route)")
     return launches
 
 
@@ -1040,7 +1365,6 @@ def run_adapt(h10, fci, tmp, tag, **kw):
 
 
 def phase_adapt_main(h10, ref, card):
-    import os
     import tempfile
     import numpy as np
     import torch
@@ -1117,25 +1441,18 @@ def phase_adapt_main(h10, ref, card):
           f"fidelities {it['fidelity']} outside [0, 1]")
     for k in STREAMING + ("pool_overlap",):
         check(launches[k] > 0, f"kernel {k} was not launched on H10 ADAPT")
-    for k in GROUPED + ("pool_bucketed",):
+    for k in GROUPED + STREAM_GROUP + ("pool_bucketed",):
         check(launches[k] == 0, f"kernel {k} was launched on H10 ADAPT")
 
     # the same run with the bucketed screen (the Lanczos is left out)
-    old = os.environ.get("OVQE_STREAM_FUSE")
-    os.environ["OVQE_STREAM_FUSE"] = "1"
-    K.reset_launches()
-    try:
+    with stream_fuse("1"):
+        K.reset_launches()
         t1 = time.time()
         with tempfile.TemporaryDirectory() as tmp:
             it_f, idx_f, _ = run_adapt(h10, fci, Path(tmp), "fused",
                                        fidelity_max_qubits=0, verbose=False)
         torch.cuda.synchronize()
         t_fused = time.time() - t1
-    finally:
-        if old is None:
-            os.environ.pop("OVQE_STREAM_FUSE")
-        else:
-            os.environ["OVQE_STREAM_FUSE"] = old
     fused = dict(K.LAUNCHES)
     de_f = float(np.max(np.abs(np.asarray(it_f["energies"])
                                - np.asarray(e))))
@@ -1193,7 +1510,7 @@ def phase_adapt_driver(ref, card):
           and d <= TOL_EXECUTE, "H4 ADAPT driver off the JAX run")
     for k in ("pool_overlap", "ham_apply", "rot_sweep", "expectation"):
         check(launches[k] > 0, f"kernel {k} was not launched on H4 ADAPT")
-    for k in STREAMING + ("pool_bucketed",):
+    for k in STREAMING + STREAM_GROUP + ("pool_bucketed",):
         check(launches[k] == 0, f"kernel {k} was launched on H4 ADAPT")
 
 
@@ -1231,10 +1548,15 @@ def main():
     t0 = time.time()
     h8 = h8_problem()
     print(f"H8 set-up (chemistry, operators; host) {time.time() - t0:.2f} s")
-    h10 = {}
+    h10, routes = {}, {}
 
     def pick(counts, names):
         return {k: counts[k] for k in names}
+
+    def group_parity():
+        r, counts = phase_stream_group_parity(h10["problem"], ref10, card)
+        rows.update(r)
+        launches.update(pick(counts, ("ham_stream", "expect_stream")))
 
     phases = (
         ("parity", lambda: rows.update(phase_parity(h8, card))),
@@ -1243,8 +1565,13 @@ def main():
         ("H10 set-up", lambda: h10.update(problem=h10_problem())),
         ("streaming parity", lambda: rows.update(
             phase_stream_parity(h10["problem"], ref10, card))),
+        ("per-group streaming parity", group_parity),
         ("H10 main path", lambda: launches.update(
-            pick(phase_h10_main(h10["problem"], ref10, card), STREAMING))),
+            pick(phase_h10_main(h10["problem"], ref10, card, routes),
+                 STREAMING))),
+        ("H10 OVQE_STREAM_FUSE=0 main path", lambda: launches.update(
+            pick(phase_h10_group_main(h10["problem"], ref10, card, routes),
+                 ("rot_stream", "adjoint_stream")))),
         ("pool parity", lambda: rows.update(
             phase_pool_parity(h10["problem"], card))),
         ("H10 fermionic ADAPT", lambda: launches.update(
@@ -1263,6 +1590,12 @@ def main():
         return 1
     for name, row in rows.items():
         row["launches"] = launches[name]
+        row["launches_on"] = LAUNCHES_ON[name]
+    idle = sorted(set(LAUNCHES_ON) - {k for k, r in rows.items()
+                                      if r["launches"] > 0})
+    if idle:
+        print(f"FAILED: no phase launched {idle}", file=sys.stderr)
+        return 1
     print(card)
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {

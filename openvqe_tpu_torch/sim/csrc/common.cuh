@@ -1,5 +1,5 @@
-// Device helpers shared by grouped_kernels.cu, streaming_kernels.cu and
-// pool_kernels.cu.
+// Device helpers shared by grouped_kernels.cu, streaming_kernels.cu,
+// stream_group_kernels.cu and pool_kernels.cu.
 //
 // A state is two float32 planes psi[2][N], N = 2^n, qubit 0 = MSB.  A group
 // is (x, z[K], coef[K]): every term of the group maps amplitude j to j ^ x
@@ -127,7 +127,7 @@ __device__ __forceinline__ RotAngle rot_angle(float ang, int fmode) {
 }
 
 // (cos(B) - 1, sin(B)) at field value F, the interpolation of rot_cs with
-// the formulas of streaming.rot_cm_sin.  The bucketed kernels apply the
+// the formulas of streaming.rot_cm_sin.  The streaming kernels apply the
 // rotation as psi + ((cos - 1) psi + sin psi_x): in float32 the rounding of
 // cos near 1 (a multiple of 2^-24) then no longer enters the norm, which
 // over the 875 groups of an H10 UCCSD sweep drifted by 2e-6 (1e-5 Ha).

@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels of the port and their wrappers: the
 counterpart of ``openvqe_tpu/sim/pallas_kernels.py`` (per-group route,
-n <= 19), of the default path of ``openvqe_tpu/sim/streaming.py``
-(bucketed route, n >= 20) and of its two ADAPT pool-screen kernels.
+n <= 19), of ``openvqe_tpu/sim/streaming.py``'s default path (bucketed
+route, n >= 20) and its per-group path (OVQE_STREAM_FUSE=0), and of its
+two ADAPT pool-screen kernels.
 
 ===================  ==================================================
 wrapper              replaces
@@ -14,27 +15,34 @@ wrapper              replaces
 ``adjoint_fused``    ``streaming.py::_adj_fused_kernel``
 ``ham_bucketed``     ``streaming.py::_ham_bucket_kernel``
 ``expect_bucketed``  ``streaming.py::_expect_bucket_kernel``
+``rot_stream``       ``streaming.py::_rot_stream_kernel``
+``adjoint_stream``   ``streaming.py::_adj_stream_kernel``
+``ham_stream``       ``streaming.py::_ham_stream_kernel``
+``expect_stream``    ``streaming.py::_expect_stream_kernel``
 ``pool_overlap``     ``streaming.py::_pool_stream_kernel``
 ``pool_bucketed``    ``streaming.py::_pool_bucket_kernel``
 ===================  ==================================================
 
-The sources are ``csrc/grouped_kernels.cu``, ``csrc/streaming_kernels.cu``
-and ``csrc/pool_kernels.cu`` (what bounds each kernel and what its design
-does about it is noted there; shared helpers in ``csrc/common.cuh``).
-``build()`` compiles each with ``nvcc`` for ``sm_90a`` into its own shared
-library under ``build/`` at the root of the checkout on first use, both
-compilers running at once, and the libraries are bound with ``ctypes``.
+The sources are ``csrc/grouped_kernels.cu``, ``csrc/streaming_kernels.cu``,
+``csrc/stream_group_kernels.cu`` and ``csrc/pool_kernels.cu`` (what bounds
+each kernel and what its design does about it is noted there; shared
+helpers in ``csrc/common.cuh``).  ``build()`` compiles each with ``nvcc``
+for ``sm_90a`` into its own shared library under ``build/`` at the root of
+the checkout on first use, all compilers running at once, and the
+libraries are bound with ``ctypes``.
 
 Wrapper rules: a tensor on the CPU goes to the plain PyTorch version
 (``sim/grouped.py``, ``sim/streaming.py``); a CUDA tensor goes to the
 kernel, or the wrapper raises.  There is no fallback.  Per-group operands
 are those of ``sim/convert.py``: x (G,) int32, z (G, K) int32,
 coefficients (G, K) float32, angles (G,) float32; bucketed operands are a
-``streaming.BucketOperands`` with angles (B, gcap) float32; pool-overlap
-rows are (G, 2) or (B, gcap, 2) float32 (re, im); state planes
-are (2, 2^n) float32, all contiguous and on one device.  Outputs are
-allocated with ``torch.empty`` and the kernels run on the current stream.
-``LAUNCHES`` counts, per wrapper, the calls that launched the kernel.
+``streaming.BucketOperands`` with angles (B, gcap) float32; per-group
+streaming operands a ``streaming.GroupOperands`` with angles (G,)
+float32; pool-overlap rows are (G, 2) or (B, gcap, 2) float32 (re, im);
+state planes are (2, 2^n) float32, all contiguous and on one device.
+Outputs are allocated with ``torch.empty`` and the kernels run on the
+current stream.  ``LAUNCHES`` counts, per wrapper, the calls that launched
+the kernel.
 """
 
 from __future__ import annotations
@@ -55,6 +63,7 @@ from . import streaming as st
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"grouped": CSRC / "grouped_kernels.cu",
            "streaming": CSRC / "streaming_kernels.cu",
+           "stream_group": CSRC / "stream_group_kernels.cu",
            "pool": CSRC / "pool_kernels.cu"}
 HEADERS = (CSRC / "common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -63,12 +72,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 KERNELS = ("rot_sweep", "expectation", "ham_apply", "adjoint_sweep",
            "rot_fused", "adjoint_fused", "ham_bucketed", "expect_bucketed",
+           "rot_stream", "adjoint_stream", "ham_stream", "expect_stream",
            "pool_overlap", "pool_bucketed")
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 build_log = ""          # nvcc's output (-Xptxas -v) of the last build
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _threads = 0            # block size of the grouped kernels
+_sg_threads = 0         # block size of the per-group streaming kernels
 
 
 def reset_launches() -> None:
@@ -138,6 +149,13 @@ _SIGNATURES = {
         "ovqe_ham_bucketed": "PPPLIPPPPPPIIIIP",
         "ovqe_expect_bucketed": "PLIPPPPPPIIIIPPP",
     },
+    "stream_group": {
+        "ovqe_rot_stream": "PLPPPPPIIIP",
+        "ovqe_adjoint_stream": "PPLPPPPPIIIPIPP",
+        "ovqe_ham_stream": "PPPLPPPPPIIP",
+        "ovqe_expect_stream": "PLPPPPPIIIPIPP",
+        "ovqe_sg_block_threads": "",
+    },
     "pool": {
         "ovqe_pool_overlap": "PPLPPPPIIPIPP",
         "ovqe_pool_bucketed": "PPLIPPPPPPIIIIPPP",
@@ -147,7 +165,7 @@ _SIGNATURES = {
 
 
 def _load(name: str = "grouped") -> ctypes.CDLL:
-    global _threads
+    global _threads, _sg_threads
     if not _libs:
         types = {"P": ctypes.c_void_p, "I": ctypes.c_int,
                  "L": ctypes.c_longlong}
@@ -159,6 +177,7 @@ def _load(name: str = "grouped") -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _libs[lib_name] = lib
         _threads = _libs["grouped"].ovqe_block_threads()
+        _sg_threads = _libs["stream_group"].ovqe_sg_block_threads()
     return _libs[name]
 
 
@@ -384,6 +403,99 @@ def expect_bucketed(psi, bo: st.BucketOperands):
             bo.chunk_bits, bo.x_hi, bo.x_lo, bo.act, bo.z, bo.coef,
             bo.coef_im, bo.B, bo.gcap, bo.K, int(bo.real), partials, out,
             _stream(psi))
+    return out[0]
+
+
+# ------------------------- per-group streaming route (OVQE_STREAM_FUSE=0)
+
+def _group_ops(psi: torch.Tensor, go: st.GroupOperands,
+               coefs: tuple) -> int:
+    """Check a per-group operand set against the state; return N."""
+    N = _state("psi", psi)
+    if N != 1 << go.n:
+        raise ValueError(f"state of 2^{N.bit_length() - 1} amplitudes for "
+                         f"groups built for n = {go.n}")
+    G, Kc = go.G, go.K
+    _check("x", go.x, torch.int32, (G,), psi.device)
+    _check("z", go.z, torch.int32, (G, Kc), psi.device)
+    _check("k_live", go.k_live, torch.int32, (G,), psi.device)
+    for i, c in enumerate(coefs):
+        _check(f"coef{i}", c, torch.float32, (G, Kc), psi.device)
+    return N
+
+
+def rot_stream(psi, ang, go: st.GroupOperands, fmode: int):
+    """The rotation sweep over the groups of ``go`` in order, one launch
+    per group; ang (G,) holds -theta[op] per group."""
+    if psi.device.type == "cpu":
+        return st.rot_stream_ref(psi, ang, go, fmode)
+    N = _group_ops(psi, go, (go.coef,))
+    _check("ang", ang, torch.float32, (go.G,), psi.device)
+    lib = _load("stream_group")
+    out = torch.empty_like(psi)
+    out.copy_(psi)
+    if go.G:
+        _launch("rot_stream", lib.ovqe_rot_stream, out, N, go.x, go.z,
+                go.coef, go.k_live, ang, go.G, go.K, _fmode(fmode),
+                _stream(psi))
+    return out
+
+
+def adjoint_stream(p, lam, ang, go: st.GroupOperands, fmode: int):
+    """Reversible adjoint over the groups of ``go`` in its order, which is
+    the REVERSED sequence (one launch per group); returns (p_prev,
+    lam_prev, gts) with gts (G,) in go's order: gts[i] is the entry of
+    go's group i, to be summed into theta with go.op (the JAX package's
+    ``adjoint_sweep_stream`` returns its entries in the same order)."""
+    if p.device.type == "cpu":
+        return st.adjoint_stream_ref(p, lam, ang, go, fmode)
+    N = _group_ops(p, go, (go.coef,))
+    _check("lam", lam, torch.float32, (2, N), p.device)
+    _check("ang", ang, torch.float32, (go.G,), p.device)
+    lib = _load("stream_group")
+    p_out, l_out = torch.empty_like(p), torch.empty_like(lam)
+    p_out.copy_(p)
+    l_out.copy_(lam)
+    gts = torch.empty(go.G, dtype=torch.float32, device=p.device)
+    if go.G:
+        nb = -(-(N // 2) // _sg_threads)
+        partials = torch.empty((go.G, nb), dtype=torch.float64,
+                               device=p.device)
+        _launch("adjoint_stream", lib.ovqe_adjoint_stream, p_out, l_out, N,
+                go.x, go.z, go.coef, go.k_live, ang, go.G, go.K,
+                _fmode(fmode), partials, nb, gts, _stream(p))
+    return p_out, l_out, gts
+
+
+def ham_stream(psi, acc, go: st.GroupOperands):
+    """acc + sum_g W_g psi[j ^ x_g] over every group in one launch, both
+    weight fields; acc None counts as zero."""
+    if psi.device.type == "cpu":
+        return st.ham_stream_ref(psi, acc, go)
+    N = _group_ops(psi, go, (go.coef, go.coef_im))
+    if acc is not None:
+        _check("acc", acc, torch.float32, (2, N), psi.device)
+    lib = _load("stream_group")
+    out = torch.empty_like(psi)
+    _launch("ham_stream", lib.ovqe_ham_stream, psi, acc, out, N, go.x, go.z,
+            go.coef, go.coef_im, go.k_live, go.G, go.K, _stream(psi))
+    return out
+
+
+def expect_stream(psi, go: st.GroupOperands, herm: bool = False):
+    """The groups of ``go`` contracted with conj(psi), a 0-dim tensor;
+    ``herm`` only where the caller certifies every group Hermitian as an
+    operator (``streaming.grouped_hermitian_operator``)."""
+    if psi.device.type == "cpu":
+        return st.expect_stream_ref(psi, go, herm)
+    N = _group_ops(psi, go, (go.coef, go.coef_im))
+    lib = _load("stream_group")
+    nb = -(-N // _sg_threads)
+    partials = torch.empty(nb, dtype=torch.float64, device=psi.device)
+    out = torch.empty(1, dtype=torch.float32, device=psi.device)
+    _launch("expect_stream", lib.ovqe_expect_stream, psi, N, go.x, go.z,
+            go.coef, go.coef_im, go.k_live, go.G, go.K, int(bool(herm)),
+            partials, nb, out, _stream(psi))
     return out[0]
 
 

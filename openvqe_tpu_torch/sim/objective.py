@@ -3,14 +3,19 @@
 Counterpart of ``openvqe_tpu/sim/objective.py`` with the same API
 (``VQEObjective.bind`` -> ``BoundAnsatz.energy / energy_and_grad /
 forward / scipy_fun_jac``, ``VQEObjective.ham_apply / expectation``).
-Two routes, chosen per objective as the JAX package chooses them:
+Three routes, chosen per objective as the JAX package chooses them:
 
 * per-group (n <= 19): the four wrappers of ``sim/kernels.py`` over the
   operands of ``sim/convert.py``, one launch per group for the sweeps;
 * streaming (n > 19, the port of ``build_streaming_energy_fn``): the
   bucketed wrappers over the operands of ``sim/streaming.py`` (rotation
   runs, K-class Hamiltonian buckets with the diagonal folded in as x = 0
-  groups).
+  groups);
+* per-group streaming (n > 19 with OVQE_STREAM_FUSE=0 when the objective
+  is built, the JAX package's ``_fuse_policy("seq")``): the sweeps run one
+  group at a time through ``rot_stream`` and ``adjoint_stream`` over
+  ``streaming.GroupOperands``; the H-apply and the expectation stay
+  bucketed, as in the JAX package.
 
 On a CUDA device (float32) the wrappers launch the hand-written kernels,
 on the CPU they run the plain PyTorch versions (float64 by default).  The
@@ -18,9 +23,10 @@ ADAPT loops (``algorithms/adapt.py``) start from ``psi0``, screen the pool
 with ``ham_apply`` as sigma = H psi, run the Lanczos reference over
 ``ham_apply`` and keep every state on the objective's device.
 
-Not ported (ROADMAP queues 2 and 3): the segmented mode and the per-term
-engine for ansatze that are not odd-Y.  Binding such an ansatz raises
-``NotImplementedError``.
+Not ported (ROADMAP queue 2): the per-term engine for ansatze that are not
+odd-Y; binding such an ansatz raises ``NotImplementedError``.  The JAX
+package's segmented mode is a device-call watchdog of its TPU runtime and
+is not ported.
 """
 
 from __future__ import annotations
@@ -45,7 +51,9 @@ class VQEObjective:
 
     ``stream``: None follows the JAX package (streaming for n > 19), True
     forces the streaming route, False the per-group one.  ``chunk_bits``
-    sets the streaming chunk (default ``streaming.chunk_bits_for(n)``)."""
+    sets the streaming chunk (default ``streaming.chunk_bits_for(n)``).
+    Whether the streaming sweeps are fused is read from OVQE_STREAM_FUSE
+    once, here (``streaming.fuse_policy("seq")``)."""
 
     def __init__(self, hamiltonian_sp: PauliSum, n: Optional[int] = None,
                  device=None, dtype: Optional[torch.dtype] = None,
@@ -76,6 +84,7 @@ class VQEObjective:
         self.stream = (self.n > st.MAX_N_PER_GROUP if stream is None
                        else bool(stream))
         if self.stream:
+            self.fuse = st.fuse_policy("seq")
             self.chunk_bits = (st.chunk_bits_for(self.n) if chunk_bits is None
                                else int(chunk_bits))
             self.hclasses = [
@@ -228,33 +237,48 @@ class BoundAnsatz:
 
 
 class StreamBoundAnsatz(BoundAnsatz):
-    """Streaming route (``prepare_seq`` of the JAX package): the forward
-    sweep over runs of consecutive equal-x_hi groups, the adjoint over the
-    runs of the reversed sequence, one launch per run."""
+    """Streaming route (``prepare_seq`` of the JAX package).  Fused (the
+    default): the forward sweep over runs of consecutive equal-x_hi groups,
+    the adjoint over the runs of the reversed sequence, one launch per run.
+    Per group (``objective.fuse`` False): the forward sweep over the live
+    groups, the adjoint over the reversed groups, one launch per group."""
 
     def __init__(self, objective: VQEObjective, gseq, hf_init: int):
         self._obj = objective
         self._psi0 = objective.psi0(hf_init)
+        self._fused = objective.fuse
         sd = st.stream_seq_data(gseq, objective.chunk_bits)
-        self._fwd, self._adj = (
-            None if b is None else st.bucket_operands(b, objective.device,
-                                                      objective.dtype)
-            for b in (st.build_seq_buckets(sd),
-                      st.build_seq_buckets(st._reverse_sd(sd))))
+        dev, dt = objective.device, objective.dtype
+        if self._fused:
+            self._fwd, self._adj = (
+                None if b is None else st.bucket_operands(b, dev, dt)
+                for b in (st.build_seq_buckets(sd),
+                          st.build_seq_buckets(st._reverse_sd(sd))))
+        else:
+            self._fwd, self._adj = (
+                st.group_operands(s, dev, dt)
+                for s in (sd, st._reverse_sd(sd)))
         self._fmode = sd.fmode
+
+    def _ops_angles(self, ops, theta) -> torch.Tensor:
+        angles = st.bucket_angles if self._fused else st.group_angles
+        return angles(ops, theta, self._obj.dtype, self._obj.device)
 
     def forward(self, theta) -> torch.Tensor:
         if self._fwd is None:
             return self._psi0.clone()
-        ang = st.bucket_angles(self._fwd, theta, self._obj.dtype,
-                               self._obj.device)
-        return K.rot_fused(self._psi0, ang, self._fwd, self._fmode)
+        rot = K.rot_fused if self._fused else K.rot_stream
+        return rot(self._psi0, self._ops_angles(self._fwd, theta), self._fwd,
+                   self._fmode)
 
     def _grad(self, theta, psi, lam) -> np.ndarray:
         n_params = int(np.asarray(theta).size)
         if self._adj is None:
             return np.zeros(n_params)
-        ang = st.bucket_angles(self._adj, theta, self._obj.dtype,
-                               self._obj.device)
-        _, _, gts = K.adjoint_fused(psi, lam, ang, self._adj, self._fmode)
-        return st.bucket_grad(gts, self._adj, n_params).numpy()
+        ang = self._ops_angles(self._adj, theta)
+        if self._fused:
+            _, _, gts = K.adjoint_fused(psi, lam, ang, self._adj,
+                                        self._fmode)
+            return st.bucket_grad(gts, self._adj, n_params).numpy()
+        _, _, gts = K.adjoint_stream(psi, lam, ang, self._adj, self._fmode)
+        return gr.segment_grad(gts, self._adj.op, n_params).numpy()

@@ -22,23 +22,33 @@ x, its matmul-stage classes, its VMEM guards and its device-call
 segmentation are not ported.  Inert groups (x = 0 with all-zero
 coefficients: the JAX package's padding) are dropped, as JAX drops them.
 
+With OVQE_STREAM_FUSE=0 (``fuse_policy("seq")``) the objective's sweeps
+run one group at a time instead, the JAX package's per-group streaming
+kernels: ``GroupOperands`` (``group_operands``) carries the live groups
+of one ``StreamGroupData`` with x recombined and each group's live row
+count; ``rot_stream_ref``, ``adjoint_stream_ref``, ``ham_stream_ref`` and
+``expect_stream_ref`` are the plain versions of kernels A2, C8, B5 and
+D11.  On that route too the H-apply and the expectation stay bucketed,
+as in the JAX package; B5 and D11 have no caller there (its per-group H
+segments are dead code or need an H without buckets) and are public
+functions, held against their plain versions on the card.
+
 The ADAPT pool screen lives here too: ``build_pool_buckets`` (pool groups
 bucketed by x_hi, with the slot -> group map), the plain versions
 ``pool_overlap_ref`` (per group) and ``pool_bucketed_ref`` (per bucket
 slot) of the two pool-overlap kernels, and
 ``build_streaming_pool_gradient_fn``, which picks one of them as the JAX
-package does (``pool_fuse_policy``).
+package does (``fuse_policy("pool")``).
 
 The plain versions (``rot_fused_ref``, ``adjoint_fused_ref``,
-``ham_bucketed_ref``, ``expect_bucketed_ref``) take the bucket operands of
-``BucketOperands``, loop over buckets and then over groups, and use the
-formulas of ``sim/grouped.py`` (``sign_field`` and the field-mode
-interpolation of ``rot_cos_sin``), with one change: a rotation is applied
-as psi + ((cos - 1) psi + sin psi_x), cos - 1 formed from half-angle sines
-(``rot_cm_sin``), which keeps a float32 state's norm over the hundreds of
-groups of an n >= 20 UCCSD sweep.  They are the CPU path of the streaming
-objective and the oracle each CUDA kernel of ``sim/kernels.py`` is held
-against.
+``ham_bucketed_ref``, ``expect_bucketed_ref`` over ``BucketOperands``, and
+the per-group ones above) use the formulas of ``sim/grouped.py``
+(``sign_field`` and the field-mode interpolation of ``rot_cos_sin``), with
+one change: a rotation is applied as psi + ((cos - 1) psi + sin psi_x),
+cos - 1 formed from half-angle sines (``rot_cm_sin``), which keeps a
+float32 state's norm over the hundreds of groups of an n >= 20 UCCSD
+sweep.  They are the CPU path of the streaming objective and the oracle
+each CUDA kernel of ``sim/kernels.py`` is held against.
 """
 
 from __future__ import annotations
@@ -68,6 +78,22 @@ def chunk_bits_for(n: int) -> int:
     """The chunk size of an n-qubit objective: CHUNK_BITS, or n - 1 when
     the state has fewer than two chunks of that size."""
     return max(1, min(CHUNK_BITS, n - 1))
+
+
+# which kernels run by default: the rotation and adjoint sweeps fused
+# (A3, C9), the pool screen per group (E14); the JAX package's _FUSE_DEFAULT
+_FUSE_DEFAULT = {"seq": True, "pool": False}
+
+
+def fuse_policy(path: str) -> bool:
+    """The JAX package's ``_fuse_policy``: for ``path`` "seq" (the
+    objective's sweeps) or "pool" (the ADAPT screen), fused iff
+    OVQE_STREAM_FUSE is set to anything but "0"; the default above when it
+    is unset.  Read when an objective or screen is built."""
+    env = os.environ.get("OVQE_STREAM_FUSE")
+    if env is not None:
+        return env != "0"
+    return _FUSE_DEFAULT[path]
 
 
 # --------------------------------------------------------------- host prep
@@ -132,11 +158,45 @@ def _reverse_sd(sd: StreamGroupData) -> StreamGroupData:
         fmode=sd.fmode)
 
 
-def stream_ham_data(gham, chunk_bits: int = CHUNK_BITS) -> StreamGroupData:
+def stream_ham_data(gham, chunk_bits: int = CHUNK_BITS,
+                    with_diag: bool = False) -> StreamGroupData:
     """Off-diagonal groups of a grouped Pauli sum (fields n, x, z, a_re,
-    a_im); both weight fields are kept."""
-    return build_stream_data(gham.n, gham.x, gham.z, gham.a_re,
-                             coef_im=gham.a_im, chunk_bits=chunk_bits)
+    a_im); both weight fields are kept.  ``with_diag`` appends the
+    z-diagonal terms as x = 0 groups of K_SMALL terms (fields z_diag,
+    a_diag_re, a_diag_im)."""
+    x, z, are, aim = _ham_rows(gham, K_SMALL, with_diag)
+    return build_stream_data(gham.n, x, z, are, coef_im=aim,
+                             chunk_bits=chunk_bits)
+
+
+def _popcount(v) -> np.ndarray:
+    v = np.asarray(v, np.int64)
+    out = np.zeros_like(v)
+    while np.any(v):
+        out += v & 1
+        v >>= 1
+    return out
+
+
+def grouped_hermitian_operator(gham) -> bool:
+    """True iff the grouped Hamiltonian is Hermitian as an OPERATOR, the
+    certificate ``expect_stream_ref(herm=True)`` needs; distinct from
+    ``gham.hermitian``, which records only that every compiled coefficient
+    is real.  A compiled term c X^x Z^z has adjoint conj(c)
+    (-1)^popcount(x & z) X^x Z^z, so it is Hermitian iff c is real where
+    popcount(x & z) is even and imaginary where it is odd.  A copy of the
+    JAX package's function of the same name."""
+    if float(getattr(gham, "c_im", 0.0)) != 0.0:
+        return False
+    if np.asarray(gham.a_diag_im).any():
+        return False
+    x = np.asarray(gham.x, np.int64)
+    if not len(x):
+        return True
+    par = (_popcount(x[:, None] & np.asarray(gham.z, np.int64)) & 1
+           ).astype(bool)
+    return bool(np.all(np.where(par, np.asarray(gham.a_re) == 0.0,
+                                np.asarray(gham.a_im) == 0.0)))
 
 
 @dataclass
@@ -258,13 +318,10 @@ def _diag_rows(gham, kd: int):
             rows(gham.a_diag_im))
 
 
-def build_ham_buckets_split(gham, gcap: int = HAM_BUCKET_CAP,
-                            small: int = K_SMALL, with_diag: bool = False,
-                            chunk_bits: int = CHUNK_BITS) -> List[Buckets]:
-    """Buckets in two K classes: groups whose last live coefficient column
-    is below ``small`` get K = small, the others the global K.  Each class
-    is bucketed on its own (``build_ham_buckets``).  ``with_diag`` adds the
-    z-diagonal terms as x = 0 groups of ``small`` terms."""
+def _ham_rows(gham, small: int, with_diag: bool):
+    """(x, z, a_re, a_im) of the off-diagonal groups, and with
+    ``with_diag`` the z-diagonal terms after them as x = 0 groups of
+    ``small`` terms (K padded to the larger of the two)."""
     x = np.asarray(gham.x, np.int64)
     z = np.asarray(gham.z, np.int64).reshape(len(x), -1)
     are = np.asarray(gham.a_re, np.float64).reshape(z.shape)
@@ -280,6 +337,17 @@ def build_ham_buckets_split(gham, gcap: int = HAM_BUCKET_CAP,
             x = np.concatenate([x, d[0]])
             z, are, aim = (np.concatenate([padk(a), padk(b)])
                            for a, b in ((z, d[1]), (are, d[2]), (aim, d[3])))
+    return x, z, are, aim
+
+
+def build_ham_buckets_split(gham, gcap: int = HAM_BUCKET_CAP,
+                            small: int = K_SMALL, with_diag: bool = False,
+                            chunk_bits: int = CHUNK_BITS) -> List[Buckets]:
+    """Buckets in two K classes: groups whose last live coefficient column
+    is below ``small`` get K = small, the others the global K.  Each class
+    is bucketed on its own (``build_ham_buckets``).  ``with_diag`` adds the
+    z-diagonal terms as x = 0 groups of ``small`` terms."""
+    x, z, are, aim = _ham_rows(gham, small, with_diag)
     if not len(x):
         return []
     sd = build_stream_data(gham.n, x, z, are, coef_im=aim,
@@ -373,6 +441,69 @@ def bucket_grad(gts: torch.Tensor, bo: BucketOperands,
     act = bo.act_host
     return gr.segment_grad(gts.detach().cpu()[torch.from_numpy(act)],
                            bo.op[act], n_params)
+
+
+@dataclass
+class GroupOperands:
+    """Per-group operands of the route OVQE_STREAM_FUSE=0 selects (kernels
+    A2, B5, C8, D11), as the kernels take them, all contiguous on one
+    device: x (G,) int32, recombined from the x_hi and x_lo of one
+    ``StreamGroupData``; z (G, K) int32; coefficients (G, K) in the
+    objective's dtype (coef_im is zeros for a rotation sequence); k_live
+    (G,) int32, one past each group's last live row, so that no kernel
+    loops over the zero rows that pad a group to H's global K (64 at H10,
+    where most groups have at most 8 live rows).  ``op`` stays on the
+    host: angles are built there."""
+    n: int
+    chunk_bits: int
+    x: torch.Tensor
+    z: torch.Tensor
+    coef: torch.Tensor
+    coef_im: torch.Tensor
+    k_live: torch.Tensor
+    op: Optional[np.ndarray]
+    fmode: int = 0
+
+    @property
+    def G(self) -> int:
+        return self.x.shape[0]
+
+    @property
+    def K(self) -> int:
+        return self.z.shape[1]
+
+
+def group_operands(sd: StreamGroupData, device, dtype=torch.float32
+                   ) -> GroupOperands:
+    """The live groups of ``sd`` in their order (inert groups dropped, as
+    JAX drops them), moved to ``device``."""
+    keep = np.nonzero(sd.live)[0]
+    x = (sd.x_hi[keep].astype(np.int64) << sd.chunk_bits) | sd.x_lo[keep]
+    if np.any(x >> sd.n):
+        raise ValueError("group masks do not fit n")
+    coef = sd.coef[keep]
+    cim = (np.zeros_like(coef) if sd.coef_im is None
+           else sd.coef_im[keep])
+    live = (coef != 0) | (cim != 0)
+    k_live = np.where(live.any(axis=1),
+                      live.shape[1] - np.argmax(live[:, ::-1], axis=1), 0)
+
+    def dev(a, dt):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
+                               device=device).contiguous()
+
+    return GroupOperands(
+        n=sd.n, chunk_bits=sd.chunk_bits, x=dev(x, torch.int32),
+        z=dev(sd.z[keep], torch.int32), coef=dev(coef, dtype),
+        coef_im=dev(cim, dtype), k_live=dev(k_live, torch.int32),
+        op=None if sd.op is None else sd.op[keep], fmode=sd.fmode)
+
+
+def group_angles(go: GroupOperands, theta, dtype, device) -> torch.Tensor:
+    """(G,) angles -theta[op] with the JAX package's index clamp."""
+    th = np.asarray(theta, np.float64).reshape(-1)
+    ang = -th[gr.clamp_op(go.op, len(th))] if go.G else np.zeros(0)
+    return torch.as_tensor(ang, dtype=dtype, device=device)
 
 
 # ------------------------------------------------- plain kernel versions
@@ -474,6 +605,81 @@ def expect_bucketed_ref(psi, bo: BucketOperands):
     return tot
 
 
+def _groups(go: GroupOperands, idx: torch.Tensor):
+    """(g, x, field) of every group in order, field(c) the group's field
+    of coefficients c over its live rows."""
+    for g, (x, kl) in enumerate(zip(go.x.tolist(), go.k_live.tolist())):
+        yield g, x, (lambda c, g=g, kl=kl:
+                     gr.sign_field(go.z[g, :kl], c[g, :kl], idx))
+
+
+def rot_stream_ref(psi, ang, go: GroupOperands, fmode: int):
+    """The groups in order, one at a time: psi'[j] = psi[j] + ((cos(B(j))
+    - 1) psi[j] + sin(B(j)) psi[j ^ x]), B = ang[g] F_g.  The JAX package's
+    ``_rot_stream_kernel`` applies cos(B) psi + sin(B) psi_x; this is the
+    norm-keeping form of ``rot_fused_ref`` (``rot_cm_sin``)."""
+    idx = gr._indices(psi.shape[-1], psi.device)
+    out = psi
+    for g, x, field in _groups(go, idx):
+        if x == 0:
+            continue                   # an identity, as in the kernel
+        cm, s = rot_cm_sin(ang[g], field(go.coef), fmode)
+        out = out + (cm * out + s * out[:, idx ^ x])
+    return out
+
+
+def adjoint_stream_ref(p, lam, ang, go: GroupOperands, fmode: int):
+    """Reversible adjoint over the groups of ``go`` in its order, which is
+    the REVERSED sequence: per group, the entry -2 sum_j F(j) (lam_j .
+    p_{j^x}) from the current states, then both are un-rotated.  Returns
+    (p_prev, lam_prev, gts (G,)) with gts[i] the entry of go's group i."""
+    idx = gr._indices(p.shape[-1], p.device)
+    gts = torch.zeros(go.G, dtype=p.dtype, device=p.device)
+    for g, x, field in _groups(go, idx):
+        if x == 0:
+            continue
+        F = field(go.coef)
+        cm, s = rot_cm_sin(ang[g], F, fmode)
+        px = p[:, idx ^ x]
+        gts[g] = -2.0 * torch.sum(F * lam * px)
+        p = p + (cm * p - s * px)
+        lam = lam + (cm * lam - s * lam[:, idx ^ x])
+    return p, lam, gts
+
+
+def ham_stream_ref(psi, acc, go: GroupOperands):
+    """acc + sum_g W_g(j) psi[j ^ x_g] with W = W_re + i W_im, both fields
+    always (acc None counts as zero)."""
+    idx = gr._indices(psi.shape[-1], psi.device)
+    out = torch.zeros_like(psi) if acc is None else acc.clone()
+    for _, x, field in _groups(go, idx):
+        px = psi[:, idx ^ x]
+        w_re, w_im = field(go.coef), field(go.coef_im)
+        out = out + torch.stack([w_re * px[0] - w_im * px[1],
+                                 w_re * px[1] + w_im * px[0]])
+    return out
+
+
+def expect_stream_ref(psi, go: GroupOperands, herm: bool = False):
+    """sum_g sum_j W_re Re(conj(psi_j) psi_{j^x}) - W_im Im(conj(psi_j)
+    psi_{j^x}), a 0-dim tensor.  ``herm`` (the caller certifies every group
+    Hermitian as an operator, ``grouped_hermitian_operator``) counts each
+    pair {j, j ^ x} of an x != 0 group once, from the end whose bit
+    msb(x) is clear, and doubles it.  The JAX package's
+    ``_expect_stream_kernel`` halves only the pairs that cross chunks;
+    both give the herm=False value on Hermitian groups."""
+    idx = gr._indices(psi.shape[-1], psi.device)
+    tot = torch.zeros((), dtype=psi.dtype, device=psi.device)
+    for _, x, field in _groups(go, idx):
+        px = psi[:, idx ^ x]
+        t = field(go.coef) * (psi[0] * px[0] + psi[1] * px[1]) \
+            - field(go.coef_im) * (psi[0] * px[1] - psi[1] * px[0])
+        if herm and x:
+            t = 2.0 * t[(idx & (1 << (x.bit_length() - 1))) == 0]
+        tot = tot + torch.sum(t)
+    return tot
+
+
 # ------------------------------------------------------ pool overlap screen
 
 def pool_overlap_ref(sigma, psi, x, z, cre, cim):
@@ -545,17 +751,6 @@ def build_pool_buckets(sd: StreamGroupData, gcap: int = HAM_BUCKET_CAP
     return _lay_out(sd, buckets, gcap), slot_group
 
 
-def pool_fuse_policy(fuse: Optional[bool] = None) -> bool:
-    """Which pool-screen kernel runs: ``fuse`` if given, else the JAX
-    package's ``_fuse_policy("pool")``: bucketed (E15) when
-    OVQE_STREAM_FUSE is set to anything but "0", per-group (E14) when it is
-    "0" or unset."""
-    if fuse is not None:
-        return bool(fuse)
-    env = os.environ.get("OVQE_STREAM_FUSE")
-    return env is not None and env != "0"
-
-
 def build_streaming_pool_gradient_fn(gpool, lham, fuse: Optional[bool] = None,
                                      device=None,
                                      dtype: Optional[torch.dtype] = None,
@@ -565,7 +760,7 @@ def build_streaming_pool_gradient_fn(gpool, lham, fuse: Optional[bool] = None,
     bucketed H kernels).  Counterpart of the JAX package's
     ``build_streaming_pool_gradient_fn``.
 
-    ``fuse`` (default ``pool_fuse_policy()``, i.e. OVQE_STREAM_FUSE):
+    ``fuse`` (default ``fuse_policy("pool")``, i.e. OVQE_STREAM_FUSE):
     False runs every (op, x) group through one ``kernels.pool_overlap``
     call (kernel E14, the JAX default); True buckets the groups by x_hi at
     ``chunk_bits`` (default ``chunk_bits_for(n)``) and runs
@@ -573,12 +768,10 @@ def build_streaming_pool_gradient_fn(gpool, lham, fuse: Optional[bool] = None,
     package's stage classes, limbs and watchdog segments are TPU-only and
     not ported.  The rows are summed into v in float64 on the host
     (``grouped.segment_rows``), not by device atomics, so v repeats
-    exactly from run to run.  The port's rotation and H paths do not read
-    OVQE_STREAM_FUSE: the per-group streaming kernels it selects there
-    (A2, B5, C8, D11) are not ported yet (ROADMAP queue 3)."""
+    exactly from run to run."""
     device = sv.resolve_device(device)
     dtype = sv.resolve_dtype(device, dtype)
-    if not pool_fuse_policy(fuse):
+    if not (fuse_policy("pool") if fuse is None else fuse):
         return gr.build_grouped_pool_gradient_fn(gpool, lham, device, dtype)
     n, n_ops = gpool.n, gpool.n_ops
     cb = chunk_bits_for(n) if chunk_bits is None else int(chunk_bits)

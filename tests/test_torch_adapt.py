@@ -252,9 +252,10 @@ def test_pool_fuse_policy_follows_the_jax_switch(monkeypatch, env, want):
         monkeypatch.delenv("OVQE_STREAM_FUSE", raising=False)
     else:
         monkeypatch.setenv("OVQE_STREAM_FUSE", env)
-    assert tst.pool_fuse_policy() is want
+    assert tst.fuse_policy("pool") is want
     assert jst._fuse_policy("pool") is want
-    assert tst.pool_fuse_policy(not want) is (not want)
+    # the same variable selects the objective's sweeps, fused by default
+    assert tst.fuse_policy("seq") is (env != "0")
 
 
 # ----------------------------------------------------------------- Lanczos

@@ -41,6 +41,18 @@ def test_port_imports_without_jax_or_reference():
         "import sys\n"
         f"for m in {mods!r}:\n"
         "    __import__(m)\n"
+        # the per-group streaming route's surface, in the same process
+        "from openvqe_tpu_torch.sim import kernels as K, streaming as st\n"
+        "assert len(K.KERNELS) == 14 and set(K.SOURCES) == {'grouped',\n"
+        "    'streaming', 'stream_group', 'pool'}\n"
+        "for f in ('rot_stream', 'adjoint_stream', 'ham_stream',\n"
+        "          'expect_stream'):\n"
+        "    assert callable(getattr(K, f)) and f in K.LAUNCHES, f\n"
+        "for f in ('fuse_policy', 'grouped_hermitian_operator',\n"
+        "          'group_operands', 'rot_stream_ref', 'adjoint_stream_ref',\n"
+        "          'ham_stream_ref', 'expect_stream_ref'):\n"
+        "    assert callable(getattr(st, f)), f\n"
+        "assert all(p.is_file() for p in K.SOURCES.values())\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith('jax.') or m == 'openvqe_tpu'\n"
         "             or m.startswith('openvqe_tpu.'))\n"

@@ -1,8 +1,10 @@
-"""The ten CUDA kernels of openvqe_tpu_torch/sim/kernels.py against their
-plain PyTorch versions, on the card: the four per-group kernels, the
-four bucketed (streaming) ones and the two pool-overlap kernels.  A CUDA kernel has no CPU mode, so these
-tests are marked ``cuda`` and skip on a machine without a card; on one
-they run with ``python -m pytest tests/test_torch_kernels.py -q``.
+"""The fourteen CUDA kernels of openvqe_tpu_torch/sim/kernels.py against
+their plain PyTorch versions, on the card: the four per-group kernels, the
+four bucketed (streaming) ones, the four per-group streaming ones
+(OVQE_STREAM_FUSE=0) and the two pool-overlap kernels.  A CUDA kernel has
+no CPU mode, so these tests are marked ``cuda`` and skip on a machine
+without a card; on one they run with
+``python -m pytest tests/test_torch_kernels.py -q``.
 ``chip_smoke.py`` holds the same kernels at the main paths' shapes.
 """
 
@@ -16,7 +18,8 @@ from openvqe_tpu_torch.sim import grouped as gr
 from openvqe_tpu_torch.sim import kernels as K
 from openvqe_tpu_torch.sim import streaming as st
 from openvqe_tpu_torch.sim.compile import compile_op_sequence
-from openvqe_tpu_torch.sim.objective import StreamBoundAnsatz, VQEObjective
+from openvqe_tpu_torch.sim.objective import (StreamBoundAnsatz, VQEObjective,
+                                              _stream_view)
 from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.cuda
@@ -233,6 +236,91 @@ def test_streaming_wrappers_reject_what_the_kernels_do_not_take(dev):
                          chunk_bits=6).bind(gens, 0)
     with pytest.raises(ValueError):              # chunk below 2^8
         K.rot_fused(psi, ang, small._fwd, 1)
+
+
+# ---------------------- per-group streaming route (OVQE_STREAM_FUSE=0)
+
+def _group_route(monkeypatch, dev, fmode):
+    """The fused and the per-group streaming objective on one problem, and
+    the per-group H operands with the diagonal (the groups of B6)."""
+    ham, gens = _stream_problem(N, 8, fmode)
+    monkeypatch.delenv("OVQE_STREAM_FUSE", raising=False)
+    fobj = VQEObjective(ham, n=N, device=dev, stream=True, chunk_bits=8)
+    monkeypatch.setenv("OVQE_STREAM_FUSE", "0")
+    obj = VQEObjective(ham, n=N, device=dev, stream=True, chunk_bits=8)
+    hgo = st.group_operands(st.stream_ham_data(
+        _stream_view(obj.gham, N), 8, with_diag=True), dev)
+    return obj.bind(gens, 0), fobj.bind(gens, 0), fobj, hgo, len(gens)
+
+
+@pytest.mark.parametrize("fmode", [0, 1, 2])
+def test_stream_group_kernels_match_plain_versions(dev, monkeypatch, fmode):
+    b, fb, fobj, hgo, n_par = _group_route(monkeypatch, dev, fmode)
+    assert not b._fused and b._fmode == fmode
+    fwd, adj = b._fwd, b._adj
+    assert (hgo.k_live < hgo.K).any() and not hgo.coef_im.cpu().eq(0).all()
+    theta = np.random.default_rng(1).normal(size=n_par)
+    af = st.group_angles(fwd, theta, torch.float32, dev)
+    aa = st.group_angles(adj, theta, torch.float32, dev)
+    psi = _state(dev, 2)
+    counts = dict(K.LAUNCHES)
+
+    a = K.rot_stream(psi, af, fwd, fmode)
+    assert float((a - st.rot_stream_ref(psi, af, fwd, fmode)).abs().max()) \
+        <= TOL
+    a_fused = K.rot_fused(psi, st.bucket_angles(fb._fwd, theta,
+                                                torch.float32, dev),
+                          fb._fwd, fmode)
+    assert float((a - a_fused).abs().max()) <= TOL
+
+    lam = K.ham_stream(a, None, hgo)
+    assert float((lam - st.ham_stream_ref(a, None, hgo)).abs().max()) <= TOL
+    lam_b = None
+    for hc in fobj.hclasses:
+        lam_b = K.ham_bucketed(a, lam_b, hc)
+    assert float((lam - lam_b).abs().max()) <= TOL
+    assert st.grouped_hermitian_operator(fobj.gham)
+    e_b = sum(float(K.expect_bucketed(a, hc)) for hc in fobj.hclasses)
+    for herm in (False, True):
+        e = float(K.expect_stream(a, hgo, herm))
+        e_ref = float(st.expect_stream_ref(a, hgo, herm))
+        assert abs(e - e_ref) <= TOL * max(1.0, abs(e_ref))
+        assert abs(e - e_b) <= TOL * max(1.0, abs(e_b))
+        assert float(K.expect_stream(a, hgo, herm)) == e
+
+    p, l, g = K.adjoint_stream(a, lam, aa, adj, fmode)
+    pr, lr, grf = st.adjoint_stream_ref(a, lam, aa, adj, fmode)
+    assert float((p - pr).abs().max()) <= TOL
+    assert float((l - lr).abs().max()) <= TOL
+    assert float((g - grf).abs().max()) <= TOL
+    assert float((p - psi).abs().max()) <= TOL
+    assert torch.equal(g, K.adjoint_stream(a, lam, aa, adj, fmode)[2])
+    _, _, gf = K.adjoint_fused(a, lam, st.bucket_angles(
+        fb._adj, theta, torch.float32, dev), fb._adj, fmode)
+    np.testing.assert_allclose(
+        gr.segment_grad(g, adj.op, n_par).numpy(),
+        st.bucket_grad(gf, fb._adj, n_par).numpy(), atol=TOL)
+    torch.cuda.synchronize()
+    want = {"rot_stream": 1, "rot_fused": 1, "ham_stream": 1,
+            "ham_bucketed": 2, "expect_stream": 4, "expect_bucketed": 2,
+            "adjoint_stream": 2, "adjoint_fused": 1}
+    assert {k: K.LAUNCHES[k] - counts[k] for k in K.KERNELS} == \
+        {k: want.get(k, 0) for k in K.KERNELS}
+
+
+def test_stream_group_wrappers_reject_what_the_kernels_do_not_take(
+        dev, monkeypatch):
+    b, _, _, hgo, _ = _group_route(monkeypatch, dev, 1)
+    psi = _state(dev, 3)
+    ang = torch.zeros(b._fwd.G, device=dev)
+    with pytest.raises(TypeError):
+        K.rot_stream(psi.double(), ang, b._fwd, 1)
+    with pytest.raises(ValueError):
+        K.rot_stream(psi[:, :1 << (N - 1)].contiguous(), ang, b._fwd, 1)
+    with pytest.raises(ValueError):
+        K.rot_stream(psi, ang[:1].contiguous(), b._fwd, 1)
+    with pytest.raises(ValueError):
+        K.ham_stream(psi, psi[:, ::2], hgo)
 
 
 # ------------------------------------------------------------- pool screen
