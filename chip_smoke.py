@@ -7,7 +7,7 @@ Needs one CUDA card, ``nvcc`` and the checkout around this file; it
 imports nothing of JAX and nothing of ``openvqe_tpu``.  Phases:
 
 1. the card (nvidia-smi name and power limit), CUDA and nvcc versions;
-   build the fourteen kernels of ``openvqe_tpu_torch/sim/csrc`` (one nvcc
+   build the fifteen kernels of ``openvqe_tpu_torch/sim/csrc`` (one nvcc
    per source, four sources started together, sm_90a);
 2. per-group kernel parity: each of the four grouped kernels against its
    plain PyTorch version on the same card and inputs, at n = 16, on H8's
@@ -71,7 +71,32 @@ imports nothing of JAX and nothing of ``openvqe_tpu``.  Phases:
 11. the ADAPT driver on the per-group route:
    ``VQE.algorithm("fermionic_adapt", "H4", "spin_complement_gsd", "JW",
    False, {"max_external_iterations": 6}).execute()`` against the JAX
-   package's run on the port's chemistry (same file); E14 launches.
+   package's run on the port's chemistry (same file); E14 launches;
+12. expectation parity at n = 20: the bucketed expectation with ``herm``
+   (D12) and the hoisted one (D13, caps 8 and 2) against their plain
+   versions and against D12 without ``herm`` (the same value on Hermitian
+   groups), on H10's H with the diagonal and the constant and on
+   synthetic sets (complex and real coefficients, x_hi = 0 and != 0);
+   on a non-Hermitian set ``herm`` must change D12's value; timed at
+   H10's shapes;
+13. the 30-qubit energy entry point (``streaming.
+   build_streaming_energy_xl_fn``) at H10's 20 qubits, on its three
+   routes (fused, OVQE_STREAM_FUSE=0, OVQE_EXP_HOIST=1), against the JAX
+   package's float64 numbers and the objective's energy, each route
+   running only its kernels; then the objective's energy-only call under
+   OVQE_EXP_HOIST=1 (D13);
+14. the 30-qubit main path: H16/STO-3G (32 spin orbitals) tapered to 30
+   qubits as ``benchmarks/bench_32q_frontier.py`` sets it up, its UCCSD
+   ansatz (5,792 operators) through the entry point on one 8 GiB state:
+   theta = 0 against the SCF HF energy, the MP2 guess below HF and near
+   the JAX package's TPU float32 record, the same theta under
+   OVQE_EXP_HOIST=1 (D13, counters set to 0 just before and read just
+   after), a 4-operator ansatz against the exact sparse oracle
+   (``sim/oracle.py``, energy and amplitudes), the peak device memory of
+   one energy call and the wall time of each.  The host set-up (SCF,
+   Jordan-Wigner, taper, grouping; minutes) runs in a child process
+   started right after the build, beside phases 2-13, and is kept in
+   ``chiprun_out/`` for the next run of the same sources.
 
 The last three lines of standard output are the card's name and power
 limit, a JSON ``{"kernels": [...]}`` line (one row per kernel, each
@@ -123,8 +148,10 @@ GROUPED = ("rot_sweep", "expectation", "ham_apply", "adjoint_sweep")
 STREAMING = ("rot_fused", "adjoint_fused", "ham_bucketed", "expect_bucketed")
 STREAM_GROUP = ("rot_stream", "adjoint_stream", "ham_stream", "expect_stream")
 POOL = ("pool_overlap", "pool_bucketed")
-# each per-group streaming kernel computes the function of a bucketed one
-SAME_WORK = dict(zip(STREAM_GROUP, STREAMING))
+# each per-group streaming kernel computes the function of a bucketed one,
+# and the hoisted expectation that of the bucketed one with herm
+SAME_WORK = {**dict(zip(STREAM_GROUP, STREAMING)),
+             "expect_hoisted": "expect_bucketed"}
 REPLACES = {
     "rot_sweep": "openvqe_tpu/sim/pallas_kernels.py:158",
     "expectation": "openvqe_tpu/sim/pallas_kernels.py:206",
@@ -140,10 +167,12 @@ REPLACES = {
     "expect_stream": "openvqe_tpu/sim/streaming.py:626",
     "pool_overlap": "openvqe_tpu/sim/streaming.py:2660",
     "pool_bucketed": "openvqe_tpu/sim/streaming.py:2873",
+    "expect_hoisted": "openvqe_tpu/sim/streaming.py:2306",
 }
 CSRC = "openvqe_tpu_torch/sim/csrc/"
 SOURCE = {**dict.fromkeys(GROUPED, CSRC + "grouped_kernels.cu"),
-          **dict.fromkeys(STREAMING, CSRC + "streaming_kernels.cu"),
+          **dict.fromkeys(STREAMING + ("expect_hoisted",),
+                          CSRC + "streaming_kernels.cu"),
           **dict.fromkeys(STREAM_GROUP, CSRC + "stream_group_kernels.cu"),
           **dict.fromkeys(POOL, CSRC + "pool_kernels.cu")}
 N_H10 = 20
@@ -165,7 +194,9 @@ LAUNCHES_ON = {**dict.fromkeys(GROUPED, "H8 UCC main path (phase 3)"),
                                 "entry point reaches D11",
                "pool_overlap": "H10 fermionic ADAPT main path (phase 10)",
                "pool_bucketed": "H10 fermionic ADAPT, OVQE_STREAM_FUSE=1 "
-                                "(phase 10)"}
+                                "(phase 10)",
+               "expect_hoisted": "H16 30-qubit energy entry point, "
+                                 "OVQE_EXP_HOIST=1 (phase 14)"}
 H4_ADAPT_OPTS = {"max_external_iterations": 6}
 
 
@@ -365,7 +396,7 @@ def live(c):
     return int((c != 0).sum())
 
 
-def work(name, psi, ops=None, hops=None):
+def work(name, psi, ops=None, hops=None, herm=False):
     """(bytes, f32 operations) the function needs on these inputs: each
     input read once, each output written once; operations count the live
     (non-zero) coefficients only.  Popcounts and selects are integer work
@@ -375,7 +406,9 @@ def work(name, psi, ops=None, hops=None):
     per-group streaming kernel is given the work of the bucketed kernel of
     the same function (``SAME_WORK``), with ``ops`` and ``hops`` the
     bucket operands of the same groups: the bound is the function's,
-    whatever implements it."""
+    whatever implements it.  ``herm`` (an expectation over Hermitian
+    groups) counts a group across chunks (x_hi != 0) on half the
+    amplitudes: the other half of its pairs gives the same terms."""
     name = SAME_WORK.get(name, name)
     N = psi.shape[-1]
     state = psi.numel() * 4
@@ -392,12 +425,15 @@ def work(name, psi, ops=None, hops=None):
         nbytes = (2 if name == "ham_bucketed" else 1) * state
         flops = 0 if name == "ham_bucketed" else N
         for hc in hops:
-            G = int(hc.act.sum())
             nbytes += (hc.B + 2 * hc.act.numel() + 3 * hc.z.numel()) * 4
-            lv = live(hc.coef) + (0 if hc.real else live(hc.coef_im))
+            lv = (hc.coef != 0).sum(-1) + (0 if hc.real
+                                           else (hc.coef_im != 0).sum(-1))
             per_group = {"ham_bucketed": 8, "expect_bucketed": 10}[name]
-            flops += N * (2 * lv + (per_group // 2 if hc.real else per_group)
-                          * G)
+            per_slot = 2 * lv + (per_group // 2 if hc.real else per_group
+                                 ) * (hc.act != 0)
+            amps = N // 2 if herm else N
+            flops += N * int(per_slot[hc.x_hi == 0].sum()) \
+                + amps * int(per_slot[hc.x_hi != 0].sum())
         return nbytes, flops
     if name in ("pool_overlap", "pool_bucketed"):
         # ops: the pool's (x, z, cre, cim) tensors or one BucketOperands;
@@ -680,9 +716,8 @@ def geometry(obj, h10):
     from openvqe_tpu_torch.sim import grouped as gr
     from openvqe_tpu_torch.sim import streaming as st
     from openvqe_tpu_torch.sim.compile import compile_op_sequence
-    from openvqe_tpu_torch.sim.objective import _stream_view
     gseq = gr.group_op_sequence(compile_op_sequence(h10.gens, h10.n))
-    view = _stream_view(obj.gham, h10.n)
+    view = st.ham_view(obj.gham, h10.n)
     for cb_seq, cb_ham, who in ((obj.chunk_bits, obj.chunk_bits, "port"),
                                 (JAX_SEQ_CB, JAX_HAM_CB, "JAX package")):
         runs = st.build_seq_buckets(st.stream_seq_data(gseq, cb_seq)
@@ -846,17 +881,18 @@ def phase_stream_parity(h10, ref, card):
 # ------------------------------- per-group streaming route (OVQE_STREAM_FUSE=0)
 
 @contextlib.contextmanager
-def stream_fuse(value):
-    """OVQE_STREAM_FUSE set to ``value`` inside the block only."""
-    old = os.environ.get("OVQE_STREAM_FUSE")
-    os.environ["OVQE_STREAM_FUSE"] = value
+def env_vars(**values):
+    """Environment variables set inside the block only."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
     try:
         yield
     finally:
-        if old is None:
-            os.environ.pop("OVQE_STREAM_FUSE")
-        else:
-            os.environ["OVQE_STREAM_FUSE"] = old
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def group_route(ham, gseq, hf, n):
@@ -865,14 +901,14 @@ def group_route(ham, gseq, hf, n):
     fused objective, and B5's operands: H's groups with the diagonal, the
     groups of B6's K classes."""
     from openvqe_tpu_torch.sim import streaming as st
-    from openvqe_tpu_torch.sim.objective import VQEObjective, _stream_view
-    with stream_fuse("0"):
+    from openvqe_tpu_torch.sim.objective import VQEObjective
+    with env_vars(OVQE_STREAM_FUSE="0"):
         obj = VQEObjective(ham, n=n, device=DEVICE)
     fobj = VQEObjective(ham, n=n, device=DEVICE)
     check(obj.stream and not obj.fuse and fobj.fuse,
           "OVQE_STREAM_FUSE=0 did not select the per-group streaming route")
     hgo = st.group_operands(st.stream_ham_data(
-        _stream_view(obj.gham, n), obj.chunk_bits, with_diag=True), DEVICE)
+        st.ham_view(obj.gham, n), obj.chunk_bits, with_diag=True), DEVICE)
     return (obj.bind_grouped(gseq, hf), fobj.bind_grouped(gseq, hf), fobj,
             hgo)
 
@@ -1104,7 +1140,7 @@ def phase_h10_main(h10, ref, card, routes):
     print(f"H10 main path {time.time() - t0:.2f} s, launches {launches}")
     for k in STREAMING:
         check(launches[k] > 0, f"kernel {k} was not launched on the H10 path")
-    for k in GROUPED + STREAM_GROUP:
+    for k in GROUPED + STREAM_GROUP + ("expect_hoisted",):
         check(launches[k] == 0, f"kernel {k} was launched on the H10 path")
 
     # the two routes at H10 (after the counters were read)
@@ -1147,7 +1183,7 @@ def phase_h10_group_main(h10, ref, card, routes):
         energies.append(e)
         return e, np.asarray(g, dtype=np.float64)
 
-    with stream_fuse("0"):
+    with env_vars(OVQE_STREAM_FUSE="0"):
         K.reset_launches()
         t0 = time.time()
         obj = VQEObjective(h10.ham, device=DEVICE)
@@ -1194,7 +1230,7 @@ def phase_h10_group_main(h10, ref, card, routes):
         check(launches[k] > 0, f"kernel {k} was not launched on the "
               f"OVQE_STREAM_FUSE=0 path")
     for k in GROUPED + POOL + ("rot_fused", "adjoint_fused", "ham_stream",
-                               "expect_stream"):
+                               "expect_stream", "expect_hoisted"):
         check(launches[k] == 0, f"kernel {k} was launched on the "
               f"OVQE_STREAM_FUSE=0 path")
 
@@ -1445,7 +1481,7 @@ def phase_adapt_main(h10, ref, card):
         check(launches[k] == 0, f"kernel {k} was launched on H10 ADAPT")
 
     # the same run with the bucketed screen (the Lanczos is left out)
-    with stream_fuse("1"):
+    with env_vars(OVQE_STREAM_FUSE="1"):
         K.reset_launches()
         t1 = time.time()
         with tempfile.TemporaryDirectory() as tmp:
@@ -1514,7 +1550,476 @@ def phase_adapt_driver(ref, card):
         check(launches[k] == 0, f"kernel {k} was launched on H4 ADAPT")
 
 
+# ------------------------------------ the expectation with herm and hoisted
+
+def parity_expect_case(label, psi, classes, errs, hermitian=True):
+    """D12 with and without herm and D13 at caps 8 and 2 against their
+    plain versions on every class; on a Hermitian set all four sums agree,
+    on another herm must change the value."""
+    from openvqe_tpu_torch.sim import kernels as K
+    from openvqe_tpu_torch.sim import streaming as st
+    dev = psi.device
+    tot = {"no herm": 0.0, "herm": 0.0, "hoisted cap 8": 0.0,
+           "hoisted cap 2": 0.0}
+    rows = 0
+    for bk in classes:
+        bo = st.bucket_operands(bk, dev)
+        for key, herm in (("no herm", False), ("herm", True)):
+            k = float(K.expect_bucketed(psi, bo, herm))
+            p = float(st.expect_bucketed_ref(psi, bo, herm))
+            errs["expect_bucketed"] = max(errs.get("expect_bucketed", 0.0),
+                                          abs(k - p))
+            check(abs(k - p) <= TOL_ENERGY_REL * max(1.0, abs(p)),
+                  f"{label} expect_bucketed herm={herm}: {k} vs {p}")
+            tot[key] += k
+        for cap in (8, 2):
+            ho = st.hoist_operands(st.hoist_bucket_args(bk, cap), dev)
+            k = float(K.expect_hoisted(psi, ho))
+            p = float(st.expect_hoisted_ref(psi, ho))
+            errs["expect_hoisted"] = max(errs.get("expect_hoisted", 0.0),
+                                         abs(k - p))
+            check(abs(k - p) <= TOL_ENERGY_REL * max(1.0, abs(p)),
+                  f"{label} expect_hoisted cap {cap}: {k} vs {p}")
+            check(float(K.expect_hoisted(psi, ho)) == k,
+                  f"{label} expect_hoisted is not deterministic")
+            tot[f"hoisted cap {cap}"] += k
+            rows += ho.bo.B if cap == 2 else 0
+    ref = tot["no herm"]
+    spread = max(abs(v - ref) for v in tot.values())
+    if hermitian:
+        check(spread <= TOL_ENERGY_REL * max(1.0, abs(ref)),
+              f"{label}: herm / hoisted sums differ from D12's: {tot}")
+    else:
+        check(abs(tot["herm"] - ref) > 1e-3
+              and abs(tot["hoisted cap 8"] - tot["herm"])
+              <= TOL_ENERGY_REL * max(1.0, abs(ref)),
+              f"{label}: herm did not change a non-Hermitian set: {tot}")
+    n_b = sum(bk.B for bk in classes)
+    print(f"parity {label}: {n_b} buckets in {len(classes)} K classes "
+          f"(x_hi != 0 in {sum(int((bk.x_hi != 0).sum()) for bk in classes)}"
+          f"), {rows} hoisted rows at cap 2; sums "
+          + ", ".join(f"{k} {v:.9f}" for k, v in tot.items())
+          + f"; largest spread {spread:.3e}")
+
+
+def phase_expect_parity(h10, card, rows):
+    """D12 with herm and D13 against their plain versions (phase 12)."""
+    import numpy as np
+    import torch
+    from openvqe_tpu_torch.sim import kernels as K
+    from openvqe_tpu_torch.sim import streaming as st
+    from openvqe_tpu_torch.sim.objective import VQEObjective
+    dev = torch.device(DEVICE)
+    errs = {}
+    obj = VQEObjective(h10.ham, device=dev)
+    check(obj.stream and obj.herm and obj.chunk_bits == st.CHUNK_BITS,
+          "H10: not the streaming route or H not Hermitian as an operator")
+    view = st.ham_view(obj.gham, h10.n)
+    psi = rand_state(h10.n, 3, dev)
+
+    def split(v):
+        return st.build_ham_buckets_split(v, with_diag=True, with_const=True,
+                                          chunk_bits=st.CHUNK_BITS)
+
+    parity_expect_case("H10 H (diagonal and constant folded)", psi,
+                       split(view), errs)
+    ham, _ = stream_synthetic(N_H10, st.CHUNK_BITS, 1)
+    sview = st.ham_view(VQEObjective(ham, n=N_H10, device=dev,
+                                     stream=True).gham, N_H10)
+    scl = split(sview)
+    check(not all(bk.real for bk in scl)
+          and any((bk.x_hi != 0).any() for bk in scl)
+          and any((bk.x_hi == 0).any() for bk in scl),
+          "synthetic H misses W_im, x_hi = 0 or x_hi != 0")
+    psi = rand_state(N_H10, 5, dev)
+    parity_expect_case(f"synthetic n={N_H10}, complex", psi, scl, errs)
+    sview.a_im = np.zeros_like(sview.a_im)     # the even-parity terms
+    parity_expect_case(f"synthetic n={N_H10}, real", psi, split(sview), errs)
+    nh = [st.Buckets(**{**bk.__dict__, "coef_im": np.random.default_rng(5)
+                        .normal(size=bk.coef.shape) * bk.act[..., None]})
+          for bk in scl]
+    parity_expect_case(f"synthetic n={N_H10}, not Hermitian", psi, nh, errs,
+                       hermitian=False)
+
+    # times at H10's shapes: D12 over the objective's classes (the energy
+    # call), D13 over the hoisted off-diagonal classes of OVQE_EXP_HOIST=1
+    psi = rand_state(h10.n, 11, dev)
+    hcl = obj.hclasses
+    hoisted = [o for h, o in st.expect_operands(view, obj.chunk_bits, dev,
+                                                torch.float32, True) if h]
+    fns = {
+        "expect_bucketed": (
+            lambda: [K.expect_bucketed(psi, hc, True) for hc in hcl],
+            lambda: [st.expect_bucketed_ref(psi, hc, True) for hc in hcl],
+            hcl),
+        "expect_hoisted": (
+            lambda: [K.expect_hoisted(psi, ho) for ho in hoisted],
+            lambda: [st.expect_hoisted_ref(psi, ho) for ho in hoisted],
+            [ho.bo for ho in hoisted]),
+    }
+    for name, (kern, plain, hops) in fns.items():
+        ms = cuda_ms(kern, reps=20)
+        plain_ms = cuda_ms(plain, reps=2, warmup=1)
+        nbytes, flops = work(name, psi, hops=hops, herm=True)
+        b_ms, by = bound(nbytes, flops)
+        err = max(errs[name], rows.get(name, {}).get("max_abs_err", 0.0))
+        rows[name] = {"name": name, "route": "cuda", "source": SOURCE[name],
+                      "replaces": REPLACES[name], "launches": 0,
+                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+        print(f"time {name} (herm) at H10 shapes ({card}): kernel {ms:.4f} "
+              f"ms, plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({by}; "
+              f"{nbytes} B, {flops} f32 ops; "
+              f"{sum(int(h.act.sum()) for h in hops)} groups)")
+    ms_nh = cuda_ms(lambda: [K.expect_bucketed(psi, hc) for hc in hcl],
+                    reps=20)
+    print(f"time expect_bucketed herm=False at H10 shapes ({card}): "
+          f"{ms_nh:.4f} ms (the row's time is herm=True: H10's H is "
+          f"Hermitian as an operator)")
+    n_b = sum(bk.B for bk in st.build_ham_buckets_split(
+        view, chunk_bits=obj.chunk_bits))
+    per_row = torch.cat([(h.ux >= 0).sum(1) for h in hoisted]).float()
+    print(f"H10 off-diagonal groups hoisted at cap 8: "
+          f"{sum(h.bo.B for h in hoisted)} rows from {n_b} buckets, "
+          f"{float(per_row.mean()):.2f} distinct x_lo per row")
+
+
+XL_ROUTES = {("1", "0"): ("rot_fused", "expect_bucketed"),
+             ("0", "0"): ("rot_stream", "expect_bucketed"),
+             ("1", "1"): ("rot_fused", "expect_bucketed", "expect_hoisted")}
+
+
+def phase_h10_xl(h10, ref, card):
+    """The 30-qubit entry point at 20 qubits, its three routes (phase
+    13), then the objective's energy-only call under OVQE_EXP_HOIST=1."""
+    import numpy as np
+    import torch
+    from openvqe_tpu_torch.sim import grouped as gr
+    from openvqe_tpu_torch.sim import kernels as K
+    from openvqe_tpu_torch.sim import streaming as st
+    from openvqe_tpu_torch.sim.compile import (compile_op_sequence,
+                                               compile_pauli_sum)
+    from openvqe_tpu_torch.sim.objective import VQEObjective
+    gseq = gr.group_op_sequence(compile_op_sequence(h10.gens, h10.n))
+    gham = gr.group_pauli_sum(compile_pauli_sum(h10.ham, h10.n))
+    pts = ref["points"]
+    fused = VQEObjective.from_grouped(gham, device=DEVICE).bind_grouped(
+        gseq, h10.hf)
+    e_obj = {name: fused.energy(np.asarray(p["theta"]))
+             for name, p in pts.items()}
+    for (fuse, hoist), kernels in XL_ROUTES.items():
+        with env_vars(OVQE_STREAM_FUSE=fuse, OVQE_EXP_HOIST=hoist):
+            energy = st.build_streaming_energy_xl_fn(gseq, gham, h10.hf,
+                                                     device=DEVICE)
+        K.reset_launches()
+        e_hf = energy(np.zeros(gseq.n_ops))
+        out = [f"energy(0) - HF {e_hf - ref['HF']:+.3e}"]
+        check(abs(e_hf - ref["HF"]) <= TOL_HF, f"xl {fuse}/{hoist} at 0")
+        for name, p in pts.items():
+            t = time.perf_counter()
+            e = energy(np.asarray(p["theta"]))
+            dt = time.perf_counter() - t
+            out.append(f"{name} {e!r} (JAX f64 {e - p['energy']:+.3e}, "
+                       f"objective {e - e_obj[name]:+.3e}; {1e3 * dt:.2f} "
+                       f"ms)")
+            check(abs(e - p["energy"]) <= TOL_E_REF
+                  and abs(e - e_obj[name]) <= TOL_E_REF,
+                  f"xl {fuse}/{hoist} {name}: {e} vs {p['energy']}, "
+                  f"{e_obj[name]}")
+        torch.cuda.synchronize()
+        ran = {k for k, v in K.LAUNCHES.items() if v}
+        print(f"H10 entry point OVQE_STREAM_FUSE={fuse} OVQE_EXP_HOIST="
+              f"{hoist}: " + "; ".join(out) + f"; launches "
+              f"{ {k: K.LAUNCHES[k] for k in sorted(ran)} }")
+        check(ran == set(kernels), f"xl {fuse}/{hoist} launched {ran}")
+    with env_vars(OVQE_EXP_HOIST="1"):
+        obj = VQEObjective.from_grouped(gham, device=DEVICE)
+    b = obj.bind_grouped(gseq, h10.hf)
+    K.reset_launches()
+    p = pts["theta0"]
+    e = b.energy(np.asarray(p["theta"]))
+    torch.cuda.synchronize()
+    ran = {k for k, v in K.LAUNCHES.items() if v}
+    print(f"H10 objective energy under OVQE_EXP_HOIST=1: {e!r}, JAX f64 "
+          f"{e - p['energy']:+.3e}; launches "
+          f"{ {k: K.LAUNCHES[k] for k in sorted(ran)} }")
+    check(abs(e - p["energy"]) <= TOL_E_REF, "hoisted objective energy")
+    check(ran == {"rot_fused", "expect_hoisted", "expect_bucketed"},
+          f"the hoisted objective launched {ran}")
+
+
+# ------------------------------------------------- the 30-qubit main path
+
+H16_GEOMETRY = [("H", (0.0, 0.0, 1.0 * k)) for k in range(16)]
+# the JAX package's TPU float32 energy at the MP2 guess (BENCH_DETAIL.json,
+# slug h16_32q_taper_energy); a record to compare with, not a reference
+H16_MP2_RECORD = -8.554815292358398
+TOL_HF_30Q = 5e-4          # Ha, energy(0) - HF (bench_32q_frontier.py)
+TOL_RECORD = 1e-3          # Ha, MP2-guess energy - the TPU record
+TOL_ORACLE_E = 1e-5        # Ha, 4-operator energy - the f64 oracle
+TOL_ORACLE_AMP = 1e-6      # its amplitudes
+MEM_LIMIT = 8.5 * 2**30    # bytes: one 2^30 state (8 GiB) and operands
+H16_SETUP_TIMEOUT = 900    # s the main path waits for the child set-up
+# what the set-up reads: a change here makes a new cache entry
+H16_SETUP_SOURCES = ("openvqe_tpu_torch/chem", "openvqe_tpu_torch/ops",
+                     "openvqe_tpu_torch/sim/compile.py",
+                     "openvqe_tpu_torch/sim/grouped.py")
+
+
+def h16_cache_path():
+    import hashlib
+    h = hashlib.sha256(b"h16-sto3g-taper30-v1")
+    for rel in H16_SETUP_SOURCES:
+        p = ROOT / rel
+        for f in sorted(p.rglob("*.py")) if p.is_dir() else [p]:
+            h.update(f.read_bytes())
+    return ROOT / "chiprun_out" / f"h16_setup_{h.hexdigest()[:12]}.pkl"
+
+
+def h16_setup(path):
+    """The H16 set-up of ``benchmarks/bench_32q_frontier.py::setup_32q``
+    with the port's modules, pickled to ``path`` (run in a child process:
+    ``python3 chip_smoke.py --h16-setup PATH``)."""
+    import pickle
+    import numpy as np
+    from openvqe_tpu_torch.chem.frontend import compute_molecule
+    from openvqe_tpu_torch.ops.hamiltonian import (
+        ElectronicStructureHamiltonian, convert_to_h_integrals)
+    from openvqe_tpu_torch.ops.tapering import taper_vqe_problem
+    from openvqe_tpu_torch.ops.transforms import transform_operator
+    from openvqe_tpu_torch.ops.uccsd import get_cluster_ops_and_init_guess
+    from openvqe_tpu_torch.sim import grouped as gr
+    from openvqe_tpu_torch.sim.compile import (compile_op_sequence,
+                                               compile_pauli_sum)
+    t, times = time.time(), {}
+
+    def lap(key):
+        nonlocal t
+        times[key] = time.time() - t
+        t = time.time()
+        print(f"H16 set-up: {key} {times[key]:.2f} s", flush=True)
+
+    md = compute_molecule(H16_GEOMETRY, "sto-3g", spin=0, charge=0,
+                          run_fci_flag=False)
+    lap("SCF and integrals")
+    hpq, hpqrs = convert_to_h_integrals(md.one_body_integrals,
+                                        md.two_body_integrals)
+    hsp = ElectronicStructureHamiltonian(hpq, hpqrs,
+                                         md.nuclear_repulsion).to_spin("JW")
+    n_sys = hsp.nbqbits
+    lap(f"Jordan-Wigner of H ({len(hsp)} Pauli terms)")
+    eps = [e for e in md.orbital_energies for _ in range(2)]
+    ops, theta0, hf = get_cluster_ops_and_init_guess(md.n_elec, [0] * n_sys,
+                                                     eps, hpqrs)
+    gens = [transform_operator(op, "JW") * 1j for op in ops]
+    lap(f"UCCSD operators ({len(gens)}) and their JW images")
+    hsp, gens, hf, _ = taper_vqe_problem(hsp, gens, hf)
+    n = hsp.nbqbits
+    lap(f"taper {n_sys} -> {n} qubits")
+    hc = compile_pauli_sum(hsp, n)
+    data = dict(n=n, n_sys=n_sys, gens=gens, theta0=np.asarray(theta0),
+                hf=int(hf), hc=hc, h_terms=len(hsp),
+                gseq=gr.group_op_sequence(compile_op_sequence(gens, n)),
+                gham=gr.group_pauli_sum(hc), HF=float(md.info["HF"]),
+                MP2=float(md.info["MP2"]))
+    lap("compile and group")
+    data["seconds"] = times
+    tmp = Path(f"{path}.{os.getpid()}.tmp")
+    with open(tmp, "wb") as f:
+        pickle.dump(data, f, protocol=pickle.HIGHEST_PROTOCOL)
+    os.replace(tmp, path)
+    print(f"H16 set-up: {sum(times.values()):.2f} s in all", flush=True)
+    return 0
+
+
+def start_h16_setup():
+    """The set-up child, unless this run's sources have a cache entry;
+    returns (process or None, cache path, log path, start time)."""
+    path = h16_cache_path()
+    log = path.with_suffix(".log")
+    if path.exists():
+        return None, path, log, time.time()
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--h16-setup",
+             str(path)], stdout=f, stderr=subprocess.STDOUT, cwd=str(ROOT))
+    return proc, path, log, time.time()
+
+
+def h16_problem(setup):
+    """Wait for the set-up child (or read the cache) and load it."""
+    import pickle
+    proc, path, log, t0 = setup
+    if proc is not None:
+        try:
+            proc.wait(timeout=max(1.0, H16_SETUP_TIMEOUT
+                                  - (time.time() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            raise PhaseError(f"H16 set-up passed {H16_SETUP_TIMEOUT} s")
+        print(log.read_text().rstrip())
+        check(proc.returncode == 0 and path.exists(),
+              f"H16 set-up child failed ({proc.returncode})")
+        print(f"H16 set-up (host, child process, cold): "
+              f"{time.time() - t0:.1f} s after it started; the main path "
+              f"waited for it")
+    t = time.time()
+    with open(path, "rb") as f:
+        data = pickle.load(f)
+    print(f"H16 set-up read from {path.name} in "
+          f"{time.time() - t:.2f} s ({'cold run' if proc else 'cached'}; "
+          f"cold set-up: " + ", ".join(f"{k} {v:.2f} s" for k, v in
+                                       data["seconds"].items()) + ")")
+    return SimpleNamespace(**data)
+
+
+def timed(fn, *a):
+    import torch
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn(*a)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def phase_h16(setup, card):
+    """The 30-qubit main path (phase 14); returns D13's launch count."""
+    import numpy as np
+    import torch
+    from openvqe_tpu_torch.sim import grouped as gr
+    from openvqe_tpu_torch.sim import kernels as K
+    from openvqe_tpu_torch.sim import oracle
+    from openvqe_tpu_torch.sim import streaming as st
+    from openvqe_tpu_torch.sim.compile import compile_op_sequence
+    h = h16_problem(setup)
+    gseq, gham = h.gseq, h.gham
+    check(h.n == 30 and h.n_sys == 32 and len(h.gens) == gseq.n_ops,
+          f"H16: {h.n_sys} -> {h.n} qubits, {len(h.gens)} operators")
+    check(st.grouped_hermitian_operator(gham), "H16: H is not Hermitian")
+    print(f"H16/STO-3G tapered {h.n_sys} -> {h.n} qubits: {h.h_terms} Pauli "
+          f"terms, {gham.n_groups} off-diagonal groups (K {gham.z.shape[1]})"
+          f" + {len(gham.z_diag)} diagonal terms; UCCSD {gseq.n_ops} "
+          f"operators in {gseq.n_groups} groups (field mode {gseq.fmode}); "
+          f"HF {h.HF!r}, MP2 {h.MP2!r}")
+    check(gseq.n_ops == 5792 and gham.n_groups == 9192,
+          "H16 operators / H groups differ from the JAX package's record")
+    K.reset_launches()
+    energy, t_build = timed(st.build_streaming_energy_xl_fn, gseq, gham,
+                            h.hf)
+    print(f"H16 entry point built (host operands) in {t_build:.2f} s")
+    cb = st.chunk_bits_for(h.n)
+    view = st.ham_view(gham, h.n)
+    runs = st.build_seq_buckets(st.stream_seq_data(gseq, cb)).act.sum(1)
+    print(f"H16 geometry at chunk 2^{cb}: {len(runs)} rotation runs of "
+          f"{runs.mean():.2f} groups; H with the diagonal and the constant: "
+          + ", ".join(f"K {c.K}: {int(c.act.sum())} groups in {c.B} buckets"
+                      f" ({len(set(c.x_hi.tolist()))} distinct x_hi)"
+                      for c in st.build_ham_buckets_split(
+                          view, with_diag=True, with_const=True,
+                          chunk_bits=cb))
+          + "; hoisted at cap 8: " + ", ".join(
+              f"{hb.rows.B} rows, {float((hb.ux >= 0).sum(1).mean()):.2f} "
+              f"distinct x_lo a row" for hb in (
+                  st.hoist_bucket_args(c) for c in
+                  st.build_ham_buckets_split(view, chunk_bits=cb))))
+    e0, t0 = timed(energy, np.zeros(gseq.n_ops))
+    print(f"H16 30q energy(0) {e0!r} HF {h.HF!r} delta {e0 - h.HF:+.3e}; "
+          f"{t0:.2f} s (host clock, ends in a device sync; first call)")
+    check(abs(e0 - h.HF) <= TOL_HF_30Q, "H16 energy at 0 is not HF")
+    # the MP2 guess: the entry point's two halves, timed apart; energy(theta)
+    # is expectation(forward(theta))
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    psi, t_fwd = timed(energy.forward, h.theta0)
+    e1, t_e12 = timed(energy.expectation, psi)
+    peak = torch.cuda.max_memory_allocated()
+    d_rec = e1 - H16_MP2_RECORD
+    print(f"H16 30q energy(MP2 guess) {e1!r}: below HF by {h.HF - e1:.6f} "
+          f"Ha; minus the JAX package's TPU float32 record "
+          f"{H16_MP2_RECORD!r}: {d_rec:+.3e} Ha; {t_fwd + t_e12:.2f} s on "
+          f"{card}: the in-place rotation sweep (A3, {gseq.n_groups} "
+          f"groups) {t_fwd:.2f} s, the expectation (D12 herm) {t_e12:.2f} s "
+          f"(host clock, each ending in a device sync)")
+    print(f"H16 30q peak device memory over that energy call: {peak} B "
+          f"({peak / 2**30:.3f} GiB; {base} B held before it, one state "
+          f"{2 * 4 * 2**h.n} B)")
+    norm = sum(float(torch.sum(psi[:, i:i + (1 << 26)].double() ** 2))
+               for i in range(0, psi.shape[1], 1 << 26))
+    print(f"H16 30q |psi|^2 - 1 after the float32 sweep: {norm - 1:+.3e}; "
+          f"energy / |psi|^2 minus the record "
+          f"{e1 / norm - H16_MP2_RECORD:+.3e} Ha")
+    check(e1 < h.HF, "the MP2-guess energy is not below HF")
+    check(abs(d_rec) <= TOL_RECORD, "the MP2-guess energy is off the record")
+    check(peak <= MEM_LIMIT, f"peak device memory {peak} B")
+    before = dict(K.LAUNCHES)
+    check(before["expect_hoisted"] == 0 and before["rot_fused"] > 0
+          and before["expect_bucketed"] > 0,
+          f"the default 30q route launched {before}")
+
+    with env_vars(OVQE_EXP_HOIST="1"):
+        energy_h, t_bh = timed(st.build_streaming_energy_xl_fn, gseq, gham,
+                               h.hf)
+    # each expectation alone on the same state: D13, and D12 without herm
+    e13, t_e13 = timed(energy_h.expectation, psi)
+    nh = st.expect_operands(st.ham_view(gham, h.n), st.chunk_bits_for(h.n),
+                            psi.device, torch.float32, False,
+                            with_const=True)
+    e_nh, t_nh = timed(lambda: float(st.expect_sum(psi, nh, herm=False)))
+    del psi
+    print(f"H16 30q expectation alone on that state ({card}): D12 herm "
+          f"{t_e12:.2f} s, D13 {t_e13:.2f} s ({e13 - e1:+.3e} Ha), D12 "
+          f"without herm {t_nh:.2f} s ({e_nh - e1:+.3e} Ha)")
+    check(abs(e13 - e1) <= TOL_ENERGY_REL * abs(e1)
+          and abs(e_nh - e1) <= TOL_ENERGY_REL * abs(e1),
+          "the 30q expectations disagree")
+    K.reset_launches()
+    e_h, t_h = timed(energy_h, h.theta0)
+    launches = dict(K.LAUNCHES)
+    print(f"H16 30q energy(MP2 guess) with OVQE_EXP_HOIST=1: {e_h!r}, "
+          f"relative to D12 herm {(e_h - e1) / abs(e1):+.3e}; {t_h:.2f} s "
+          f"(entry point built in {t_bh:.2f} s); launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    check(abs(e_h - e1) <= TOL_ENERGY_REL * abs(e1),
+          "D13 and D12 herm disagree at 30 qubits")
+    check({k for k, v in launches.items() if v}
+          == {"rot_fused", "expect_hoisted", "expect_bucketed"},
+          f"the 30q OVQE_EXP_HOIST=1 route launched {launches}")
+
+
+    # four operators against the exact sparse oracle
+    order = [int(k) for k in np.argsort(-np.abs(h.theta0))[:4]]
+    gens4 = [h.gens[k] for k in order]
+    th4 = np.asarray([h.theta0[k] for k in order]) + 0.05
+    seq4 = compile_op_sequence(gens4, h.n)
+    energy4 = st.build_streaming_energy_xl_fn(gr.group_op_sequence(seq4),
+                                              gham, h.hf)
+    state = oracle.sparse_forward(th4, seq4, h.hf)
+    e_or = oracle.sparse_expectation(state, h.hc)
+    psi = energy4.forward(th4)
+    idx = torch.as_tensor(sorted(state), device=psi.device)
+    amps = psi[:, idx].double().cpu().numpy()
+    want = np.array([[state[j].real for j in sorted(state)],
+                     [state[j].imag for j in sorted(state)]])
+    d_amp = float(np.max(np.abs(amps - want)))
+    norm_out = 1.0 - float(np.sum(amps * amps))
+    del psi
+    e4, t4 = timed(energy4, th4)
+    print(f"H16 30q 4-operator ansatz (operators {order}): energy {e4!r}, "
+          f"f64 oracle {e_or!r}, delta {e4 - e_or:+.3e} Ha; {len(state)} "
+          f"live amplitudes, max |psi - oracle| {d_amp:.3e}, weight off "
+          f"them {norm_out:+.3e}; {t4:.2f} s")
+    check(len(state) <= 16 and abs(e4 - e_or) <= TOL_ORACLE_E
+          and d_amp <= TOL_ORACLE_AMP and abs(norm_out) <= TOL_ORACLE_E,
+          "the 4-operator ansatz is off the exact oracle")
+    return {"expect_hoisted": launches["expect_hoisted"]}
+
+
 def main():
+    if sys.argv[1:2] == ["--h16-setup"] and len(sys.argv) == 3:
+        sys.path.insert(0, str(ROOT))
+        return h16_setup(sys.argv[2])
     try:
         import torch
     except ImportError:
@@ -1531,15 +2036,26 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.time()
-    failures = []
-    rows, launches = {}, {}
-    card = None
     try:
         phase_build()
         card = card_line()
     except Exception as exc:  # the build failing ends the run
         print(f"FAILED build: {exc!r}", file=sys.stderr)
         return 1
+    h16_setup_run = start_h16_setup()
+    try:
+        return run_phases(torch, card, t_start, h16_setup_run)
+    finally:
+        proc = h16_setup_run[0]
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def run_phases(torch, card, t_start, h16_setup_run):
+    """Phases 2-14; the closing lines when all passed."""
+    failures = []
+    rows, launches = {}, {}
     ref = json.loads((ROOT / "tests" / "torch_h8_reference.json").read_text())
     ref10 = json.loads(
         (ROOT / "tests" / "torch_h10_reference.json").read_text())
@@ -1578,13 +2094,22 @@ def main():
             phase_adapt_main(h10["problem"], ref_adapt, card))),
         ("H4 fermionic ADAPT driver", lambda: phase_adapt_driver(ref_adapt,
                                                                  card)),
+        ("expectation parity", lambda: phase_expect_parity(
+            h10["problem"], card, rows)),
+        ("H10 energy entry point", lambda: phase_h10_xl(h10["problem"],
+                                                        ref10, card)),
+        ("H16 30-qubit main path", lambda: launches.update(
+            phase_h16(h16_setup_run, card))),
     )
     for phase, fn in phases:
+        t = time.time()
         try:
             fn()
         except Exception as exc:
             failures.append(f"{phase}: {exc!r}")
             print(f"FAILED {phase}: {exc!r}", file=sys.stderr)
+        print(f"phase {phase}: {time.time() - t:.1f} s (ended "
+              f"{time.time() - t_start:.1f} s into the run)")
     print(f"total {time.time() - t_start:.1f} s")
     if failures:
         return 1

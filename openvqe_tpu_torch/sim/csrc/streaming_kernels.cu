@@ -1,6 +1,8 @@
 // Hand-written Hopper (sm_90a) kernels of the bucketed ("streaming")
 // objective for n >= 20: the four kernels that the default path of
-// openvqe_tpu/sim/streaming.py::build_streaming_energy_fn runs.
+// openvqe_tpu/sim/streaming.py::build_streaming_energy_fn runs, and the
+// hoisted expectation that OVQE_EXP_HOIST=1 selects there and in the
+// 30-qubit entry point build_streaming_energy_xl_fn.
 //
 // State and group conventions: common.cuh.  A chunk is 2^cb consecutive
 // amplitudes; a group's mask splits as x = x_hi << cb | x_lo.  Every pair
@@ -31,7 +33,20 @@
 //   by x_hi), stages the source chunk c ^ x_hi once per distinct x_hi, and
 //   adds every group of the bucket.  No scatter, no atomics; sums across
 //   blocks go through per-block partials and one fixed-order block, so
-//   every number is reproducible.
+//   every number is reproducible.  With herm (every group Hermitian as an
+//   operator), a bucket with x_hi != 0 is counted only by the block of
+//   the lower chunk of each pair {c, c ^ x_hi}, doubled.
+// * expect_hoist: the expectation over the rows of
+//   streaming.hoist_bucket_args (a bucket's groups sorted by x_lo, at most
+//   cap distinct x_lo per row).  The TPU kernel shares a permutation matmul
+//   per distinct in-tile mask across a bucket; here the XOR is an index,
+//   and what a row shares is (a) the partner amplitudes of each distinct
+//   x_lo, read from the staged chunk into registers once for all its
+//   groups, and (b) the high-bit part of every sign: above the chunk j is
+//   the block's base, so (-1)^popcount(z & j) = (-1)^popcount(z & base)
+//   (-1)^popcount(z & l), and the first factor is folded into the row's
+//   coefficients in shared memory once per block and row.  The real path
+//   (c) skips W_im.  Hermitian only (herm is implied).
 //
 // TMA double-buffering, hoisting the high-bit signs per block and a
 // persistent kernel over all runs are later work.  Every entry point
@@ -273,8 +288,10 @@ ham_bucket_kernel(const float* __restrict__ psi,
 //     sum W_re Re(conj(psi_j) psi_{j^x}) - W_im Im(conj(psi_j) psi_{j^x}),
 // each group's share over the thread's amplitudes added to a float64 sum,
 // then a block sum into partials[blockIdx.x]; stage 2 is row_reduce_kernel
-// with one block.  No Hermitian pair halving (every pair is summed from
-// both ends).
+// with one block.  herm: a pair across chunks (x_hi != 0) is counted once,
+// by the block of the lower chunk, and doubled (the two ends give equal
+// terms for a Hermitian group); a pair inside a chunk is summed from both
+// ends, as in the TPU kernel.
 template <int PER>
 __global__ void __launch_bounds__(ST_THREADS)
 expect_bucket_kernel(const float* __restrict__ psi, unsigned N, int cb,
@@ -282,7 +299,7 @@ expect_bucket_kernel(const float* __restrict__ psi, unsigned N, int cb,
                      const int* __restrict__ xl, const int* __restrict__ act,
                      const int* __restrict__ z, const float* __restrict__ ar,
                      const float* __restrict__ ai, int gcap, int K, int real,
-                     double* __restrict__ partials) {
+                     int herm, double* __restrict__ partials) {
   extern __shared__ float sm[];
   const unsigned C = 1u << cb, c = blockIdx.x, base = c << cb;
   float a0[PER], a1[PER];
@@ -295,11 +312,13 @@ expect_bucket_kernel(const float* __restrict__ psi, unsigned N, int cb,
   double acc = 0.0;
   unsigned staged = 0xffffffffu;
   for (int b = 0; b < B; ++b) {
-    const unsigned src = c ^ (unsigned)xh[b];
+    const unsigned xhb = (unsigned)xh[b], src = c ^ xhb;
+    if (herm && src < c) continue;        // the lower chunk's block counts it
     if (src != staged) {
       stage_src(sm, psi, N, cb, src);
       staged = src;
     }
+    const double w = (herm && xhb) ? 2.0 : 1.0;
     for (int g2 = 0; g2 < gcap; ++g2) {
       const size_t slot = (size_t)b * gcap + g2;
       if (!act[slot]) continue;
@@ -315,15 +334,117 @@ expect_bucket_kernel(const float* __restrict__ psi, unsigned N, int cb,
         part += wre[q] * (a0[q] * b0 + a1[q] * b1);
         if (!real) part -= wim[q] * (a0[q] * b1 - a1[q] * b0);
       }
-      acc += part;
+      acc += w * part;
     }
   }
   const double tot = block_sum<ST_THREADS>(acc);
   if (threadIdx.x == 0) partials[blockIdx.x] = tot;
 }
 
+// ---------------------------------------------------------------- kernel 5
+// expect_hoist: all hoisted rows, one launch; stage 2 is row_reduce_kernel.
+// Replaces openvqe_tpu/sim/streaming.py::_expect_hoist_kernel.  Block c
+// owns chunk c and walks the rows (sorted by x_hi): a row with x_hi != 0
+// is counted by the block of the lower chunk of {c, c ^ x_hi} and doubled,
+// a row with x_hi == 0 (pairs inside the chunk, or x = 0) is summed from
+// every amplitude.  Per row: stage the source chunk when it changes, fold
+// the high-bit signs into the row's coefficients (wr, wi in shared
+// memory), then per distinct x_lo u load the thread's partners
+// psi[l ^ u] once and contract every slot of u (the slots are sorted by
+// x_lo, so they are consecutive) with fields over the low bits of j only.
+// Shared memory: the source chunk (2C floats) and 2 gcap K coefficients.
+template <int PER>
+__global__ void __launch_bounds__(ST_THREADS)
+expect_hoist_kernel(const float* __restrict__ psi, unsigned N, int cb,
+                    int B, const int* __restrict__ xh,
+                    const int* __restrict__ ux, const int* __restrict__ ix,
+                    const int* __restrict__ act, const int* __restrict__ z,
+                    const float* __restrict__ ar,
+                    const float* __restrict__ ai, int cap, int gcap, int K,
+                    int real, double* __restrict__ partials) {
+  extern __shared__ float sm[];
+  const unsigned C = 1u << cb, c = blockIdx.x, base = c << cb;
+  float* wr = sm + 2 * C;
+  float* wi = wr + gcap * K;
+  float a0[PER], a1[PER];
+#pragma unroll
+  for (int q = 0; q < PER; ++q) {
+    const unsigned j = base | (threadIdx.x + q * ST_THREADS);
+    a0[q] = psi[j];
+    a1[q] = psi[N + j];
+  }
+  double acc = 0.0;
+  unsigned staged = 0xffffffffu;
+  for (int b = 0; b < B; ++b) {
+    const unsigned xhb = (unsigned)xh[b], src = c ^ xhb;
+    if (src < c) continue;                // the lower chunk's block counts it
+    __syncthreads();                      // the previous row's reads are done
+    if (src != staged) {
+      for (unsigned o = threadIdx.x; o < C; o += ST_THREADS) {
+        sm[o] = psi[(src << cb) | o];
+        sm[C + o] = psi[N + ((src << cb) | o)];
+      }
+      staged = src;
+    }
+    const size_t row = (size_t)b * gcap * K;
+    for (int i = threadIdx.x; i < gcap * K; i += ST_THREADS) {
+      const float s = sgn(base, (unsigned)z[row + i]);   // (b)
+      wr[i] = s * ar[row + i];
+      wi[i] = real ? 0.f : s * ai[row + i];
+    }
+    __syncthreads();
+    double racc = 0.0;
+    int g2 = 0;
+    for (int u = 0; u < cap; ++u) {
+      const int xu = ux[(size_t)b * cap + u];
+      if (xu < 0) break;
+      float p0[PER], p1[PER];                            // (a)
+#pragma unroll
+      for (int q = 0; q < PER; ++q) {
+        const unsigned o = (threadIdx.x + q * ST_THREADS) ^ (unsigned)xu;
+        p0[q] = sm[o];
+        p1[q] = sm[C + o];
+      }
+      for (; g2 < gcap; ++g2) {
+        const size_t slot = (size_t)b * gcap + g2;
+        if (!act[slot] || ix[slot] != u) break;
+        const int* zg = z + slot * K;
+        const float* rg = wr + g2 * K;
+        const float* ig = wi + g2 * K;
+        float wre[PER], wim[PER];
+#pragma unroll
+        for (int q = 0; q < PER; ++q) wre[q] = wim[q] = 0.f;
+        for (int k = 0; k < K; ++k) {
+          const float r = rg[k], i = ig[k];
+          if (r == 0.f && i == 0.f) continue;
+          const unsigned zk = (unsigned)zg[k];
+#pragma unroll
+          for (int q = 0; q < PER; ++q) {
+            const float sg = sgn(threadIdx.x + q * ST_THREADS, zk);
+            wre[q] += sg * r;
+            wim[q] += sg * i;
+          }
+        }
+        float part = 0.f;
+#pragma unroll
+        for (int q = 0; q < PER; ++q) {
+          part += wre[q] * (a0[q] * p0[q] + a1[q] * p1[q]);
+          if (!real) part -= wim[q] * (a0[q] * p1[q] - a1[q] * p0[q]); // (c)
+        }
+        racc += part;
+      }
+    }
+    acc += (xhb ? 2.0 : 1.0) * racc;
+  }
+  const double tot = block_sum<ST_THREADS>(acc);
+  if (threadIdx.x == 0) partials[blockIdx.x] = tot;
+}
+
+// N = 2^n with 2^30 at most: every index of a state plane, N + j included,
+// then fits an unsigned int
 bool cb_ok(long long N, int cb) {
-  return cb >= ST_MIN_CB && cb <= ST_MAX_CB && (N >> (cb + 1)) >= 1;
+  return cb >= ST_MIN_CB && cb <= ST_MAX_CB && (N >> (cb + 1)) >= 1 &&
+         N <= (1ll << 30);
 }
 
 template <typename F>
@@ -351,13 +472,29 @@ template <int PER>
 int launch_expect(const float* psi, long long N, int cb, int B,
                   const int* xh, const int* xl, const int* act, const int* z,
                   const float* ar, const float* ai, int gcap, int K,
-                  int real, double* partials, cudaStream_t st) {
+                  int real, int herm, double* partials, cudaStream_t st) {
   const size_t smem = ((size_t)2 << cb) * sizeof(float);
   int e = set_smem(expect_bucket_kernel<PER>, smem);
   if (e) return e;
   expect_bucket_kernel<PER><<<(unsigned)(N >> cb), ST_THREADS, smem, st>>>(
-      psi, (unsigned)N, cb, B, xh, xl, act, z, ar, ai, gcap, K, real,
+      psi, (unsigned)N, cb, B, xh, xl, act, z, ar, ai, gcap, K, real, herm,
       partials);
+  return (int)cudaGetLastError();
+}
+
+template <int PER>
+int launch_hoist(const float* psi, long long N, int cb, int B,
+                 const int* xh, const int* ux, const int* ix, const int* act,
+                 const int* z, const float* ar, const float* ai, int cap,
+                 int gcap, int K, int real, double* partials,
+                 cudaStream_t st) {
+  const size_t smem =
+      (((size_t)2 << cb) + (size_t)2 * gcap * K) * sizeof(float);
+  int e = set_smem(expect_hoist_kernel<PER>, smem);
+  if (e) return e;
+  expect_hoist_kernel<PER><<<(unsigned)(N >> cb), ST_THREADS, smem, st>>>(
+      psi, (unsigned)N, cb, B, xh, ux, ix, act, z, ar, ai, cap, gcap, K,
+      real, partials);
   return (int)cudaGetLastError();
 }
 
@@ -431,22 +568,49 @@ int ovqe_ham_bucketed(const float* psi, const float* acc_in, float* out,
 int ovqe_expect_bucketed(const float* psi, long long N, int cb,
                          const int* xh, const int* xl, const int* act,
                          const int* z, const float* ar, const float* ai,
-                         int B, int gcap, int K, int real, double* partials,
-                         float* out, void* stream) {
+                         int B, int gcap, int K, int real, int herm,
+                         double* partials, float* out, void* stream) {
   if (!cb_ok(N, cb)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   int e;
   switch (cb) {
     case 8: e = launch_expect<1>(psi, N, cb, B, xh, xl, act, z, ar, ai,
-                                 gcap, K, real, partials, st); break;
+                                 gcap, K, real, herm, partials, st); break;
     case 9: e = launch_expect<2>(psi, N, cb, B, xh, xl, act, z, ar, ai,
-                                 gcap, K, real, partials, st); break;
+                                 gcap, K, real, herm, partials, st); break;
     case 10: e = launch_expect<4>(psi, N, cb, B, xh, xl, act, z, ar, ai,
-                                  gcap, K, real, partials, st); break;
+                                  gcap, K, real, herm, partials, st); break;
     case 11: e = launch_expect<8>(psi, N, cb, B, xh, xl, act, z, ar, ai,
-                                  gcap, K, real, partials, st); break;
+                                  gcap, K, real, herm, partials, st); break;
     default: e = launch_expect<16>(psi, N, cb, B, xh, xl, act, z, ar, ai,
-                                   gcap, K, real, partials, st); break;
+                                   gcap, K, real, herm, partials, st); break;
+  }
+  if (e) return e;
+  row_reduce_kernel<ST_THREADS, double><<<1, ST_THREADS, 0, st>>>(
+      partials, (int)(N >> cb), 1.f, out);
+  return (int)cudaGetLastError();
+}
+
+int ovqe_expect_hoisted(const float* psi, long long N, int cb,
+                        const int* xh, const int* ux, const int* ix,
+                        const int* act, const int* z, const float* ar,
+                        const float* ai, int B, int cap, int gcap, int K,
+                        int real, double* partials, float* out,
+                        void* stream) {
+  if (!cb_ok(N, cb) || cap < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  int e;
+  switch (cb) {
+    case 8: e = launch_hoist<1>(psi, N, cb, B, xh, ux, ix, act, z, ar, ai,
+                                cap, gcap, K, real, partials, st); break;
+    case 9: e = launch_hoist<2>(psi, N, cb, B, xh, ux, ix, act, z, ar, ai,
+                                cap, gcap, K, real, partials, st); break;
+    case 10: e = launch_hoist<4>(psi, N, cb, B, xh, ux, ix, act, z, ar, ai,
+                                 cap, gcap, K, real, partials, st); break;
+    case 11: e = launch_hoist<8>(psi, N, cb, B, xh, ux, ix, act, z, ar, ai,
+                                 cap, gcap, K, real, partials, st); break;
+    default: e = launch_hoist<16>(psi, N, cb, B, xh, ux, ix, act, z, ar, ai,
+                                  cap, gcap, K, real, partials, st); break;
   }
   if (e) return e;
   row_reduce_kernel<ST_THREADS, double><<<1, ST_THREADS, 0, st>>>(

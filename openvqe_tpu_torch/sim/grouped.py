@@ -35,6 +35,7 @@ identities, so leaving them out changes no number.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
@@ -315,7 +316,11 @@ def group_field_mode(z: np.ndarray, s: np.ndarray,
 
 def sequence_field_mode(z: np.ndarray, s: np.ndarray) -> int:
     """Uniform mode for a whole grouped sequence: 0 unless every group is
-    integer-valued, else the largest per-group magnitude."""
+    integer-valued, else the largest per-group magnitude.  OVQE_FMODE=0
+    forces the general trigonometric field (mode 0) everywhere, as in the
+    JAX package."""
+    if os.environ.get("OVQE_FMODE", "auto") == "0":
+        return 0
     modes = [group_field_mode(z[g], s[g]) for g in range(len(z))]
     if not modes:
         return 1
@@ -365,7 +370,11 @@ def _parity(v: torch.Tensor) -> torch.Tensor:
 def sign_field(z: torch.Tensor, coef: torch.Tensor,
                idx: torch.Tensor) -> torch.Tensor:
     """W(j) = sum_k coef_k (-1)^popcount(j & z_k) for j in idx; z (K,)
-    integer masks, coef (K,) real."""
+    integer masks, coef (K,) real.  Zero coefficients (the padding of K)
+    are skipped: they add exact zeros."""
+    live = coef != 0
+    if not bool(live.all()):
+        z, coef = z[live], coef[live]
     par = _parity(idx[:, None] & z.to(torch.int64)[None, :])
     return ((1 - 2 * par).to(coef.dtype) * coef[None, :]).sum(-1)
 

@@ -1,8 +1,8 @@
 """The hand-written CUDA kernels of the port and their wrappers: the
 counterpart of ``openvqe_tpu/sim/pallas_kernels.py`` (per-group route,
 n <= 19), of ``openvqe_tpu/sim/streaming.py``'s default path (bucketed
-route, n >= 20) and its per-group path (OVQE_STREAM_FUSE=0), and of its
-two ADAPT pool-screen kernels.
+route, n >= 20), its per-group path (OVQE_STREAM_FUSE=0), its hoisted
+expectation (OVQE_EXP_HOIST=1) and its two ADAPT pool-screen kernels.
 
 ===================  ==================================================
 wrapper              replaces
@@ -15,6 +15,7 @@ wrapper              replaces
 ``adjoint_fused``    ``streaming.py::_adj_fused_kernel``
 ``ham_bucketed``     ``streaming.py::_ham_bucket_kernel``
 ``expect_bucketed``  ``streaming.py::_expect_bucket_kernel``
+``expect_hoisted``   ``streaming.py::_expect_hoist_kernel``
 ``rot_stream``       ``streaming.py::_rot_stream_kernel``
 ``adjoint_stream``   ``streaming.py::_adj_stream_kernel``
 ``ham_stream``       ``streaming.py::_ham_stream_kernel``
@@ -72,8 +73,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 KERNELS = ("rot_sweep", "expectation", "ham_apply", "adjoint_sweep",
            "rot_fused", "adjoint_fused", "ham_bucketed", "expect_bucketed",
-           "rot_stream", "adjoint_stream", "ham_stream", "expect_stream",
-           "pool_overlap", "pool_bucketed")
+           "expect_hoisted", "rot_stream", "adjoint_stream", "ham_stream",
+           "expect_stream", "pool_overlap", "pool_bucketed")
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 build_log = ""          # nvcc's output (-Xptxas -v) of the last build
 
@@ -147,7 +148,8 @@ _SIGNATURES = {
         "ovqe_rot_fused": "PLIPPPPPPIIIIP",
         "ovqe_adjoint_fused": "PPLIPPPPPPIIIIPPP",
         "ovqe_ham_bucketed": "PPPLIPPPPPPIIIIP",
-        "ovqe_expect_bucketed": "PLIPPPPPPIIIIPPP",
+        "ovqe_expect_bucketed": "PLIPPPPPPIIIIIPPP",
+        "ovqe_expect_hoisted": "PLIPPPPPPPIIIIIPPP",
     },
     "stream_group": {
         "ovqe_rot_stream": "PLPPPPPIIIP",
@@ -306,11 +308,6 @@ def expectation(psi, x, z, a_re, a_im):
 
 # ------------------------------------------------ bucketed (streaming) route
 
-# chunk sizes the streaming kernels are built for (ST_MIN_CB, ST_MAX_CB of
-# csrc/streaming_kernels.cu): 2^(cb - 8) amplitudes per thread of 256
-CUDA_CHUNK_BITS = (8, 12)
-
-
 def _buckets(psi: torch.Tensor, bo: st.BucketOperands,
              coefs: tuple) -> int:
     """Check a bucket operand set against the state; return N."""
@@ -318,7 +315,7 @@ def _buckets(psi: torch.Tensor, bo: st.BucketOperands,
     if N != 1 << bo.n:
         raise ValueError(f"state of 2^{N.bit_length() - 1} amplitudes for "
                          f"buckets built for n = {bo.n}")
-    lo, hi = CUDA_CHUNK_BITS
+    lo, hi = st.CUDA_CHUNK_BITS
     if not lo <= bo.chunk_bits <= min(hi, bo.n - 1):
         raise ValueError(f"the CUDA kernels take chunk_bits in [{lo}, "
                          f"{min(hi, bo.n - 1)}], got {bo.chunk_bits}")
@@ -334,16 +331,22 @@ def _buckets(psi: torch.Tensor, bo: st.BucketOperands,
     return N
 
 
-def rot_fused(psi, ang, bo: st.BucketOperands, fmode: int):
+def _in_place(psi, out, inplace: bool):
+    """A plain version's result, written into psi when ``inplace``."""
+    return psi.copy_(out) if inplace else out
+
+
+def rot_fused(psi, ang, bo: st.BucketOperands, fmode: int,
+              inplace: bool = False):
     """The rotation sweep over the runs of ``bo`` in order (one launch per
-    run); ang (B, gcap) holds -theta[op] per slot."""
+    run); ang (B, gcap) holds -theta[op] per slot.  ``inplace`` rotates
+    psi itself and returns it (no second state)."""
     if psi.device.type == "cpu":
-        return st.rot_fused_ref(psi, ang, bo, fmode)
+        return _in_place(psi, st.rot_fused_ref(psi, ang, bo, fmode), inplace)
     N = _buckets(psi, bo, (bo.coef,))
     _check("ang", ang, torch.float32, (bo.B, bo.gcap), psi.device)
     lib = _load("streaming")
-    out = torch.empty_like(psi)
-    out.copy_(psi)
+    out = psi if inplace else torch.empty_like(psi).copy_(psi)
     _launch("rot_fused", lib.ovqe_rot_fused, out, N, bo.chunk_bits, bo.x_hi,
             bo.x_lo, bo.act, bo.z, bo.coef, ang, bo.B, bo.gcap, bo.K,
             _fmode(fmode), _stream(psi))
@@ -389,11 +392,13 @@ def ham_bucketed(psi, acc, bo: st.BucketOperands):
     return out
 
 
-def expect_bucketed(psi, bo: st.BucketOperands):
+def expect_bucketed(psi, bo: st.BucketOperands, herm: bool = False):
     """The groups of one K class contracted with conj(psi): a 0-dim
-    tensor."""
+    tensor.  ``herm`` counts each pair across chunks once, doubled; only
+    where the caller certifies every group Hermitian as an operator
+    (``streaming.grouped_hermitian_operator``)."""
     if psi.device.type == "cpu":
-        return st.expect_bucketed_ref(psi, bo)
+        return st.expect_bucketed_ref(psi, bo, herm)
     N = _buckets(psi, bo, (bo.coef, bo.coef_im))
     lib = _load("streaming")
     partials = torch.empty(N >> bo.chunk_bits, dtype=torch.float64,
@@ -401,8 +406,32 @@ def expect_bucketed(psi, bo: st.BucketOperands):
     out = torch.empty(1, dtype=torch.float32, device=psi.device)
     _launch("expect_bucketed", lib.ovqe_expect_bucketed, psi, N,
             bo.chunk_bits, bo.x_hi, bo.x_lo, bo.act, bo.z, bo.coef,
-            bo.coef_im, bo.B, bo.gcap, bo.K, int(bo.real), partials, out,
-            _stream(psi))
+            bo.coef_im, bo.B, bo.gcap, bo.K, int(bo.real), int(bool(herm)),
+            partials, out, _stream(psi))
+    return out[0]
+
+
+def expect_hoisted(psi, ho: st.HoistOperands):
+    """The Hermitian expectation over hoisted rows (``streaming.
+    hoist_bucket_args``): a 0-dim tensor, the value of
+    ``expect_bucketed(herm=True)`` on the same groups.  The caller
+    certifies every group Hermitian as an operator."""
+    if psi.device.type == "cpu":
+        return st.expect_hoisted_ref(psi, ho)
+    bo = ho.bo
+    N = _buckets(psi, bo, (bo.coef, bo.coef_im))
+    if ho.cap < 1:
+        raise ValueError(f"empty table of distinct x_lo ({ho.cap})")
+    _check("ux", ho.ux, torch.int32, (bo.B, ho.cap), psi.device)
+    _check("ix", ho.ix, torch.int32, (bo.B, bo.gcap), psi.device)
+    lib = _load("streaming")
+    partials = torch.empty(N >> bo.chunk_bits, dtype=torch.float64,
+                           device=psi.device)
+    out = torch.empty(1, dtype=torch.float32, device=psi.device)
+    _launch("expect_hoisted", lib.ovqe_expect_hoisted, psi, N,
+            bo.chunk_bits, bo.x_hi, ho.ux, ho.ix, bo.act, bo.z, bo.coef,
+            bo.coef_im, bo.B, ho.cap, bo.gcap, bo.K, int(bo.real),
+            partials, out, _stream(psi))
     return out[0]
 
 
@@ -424,16 +453,18 @@ def _group_ops(psi: torch.Tensor, go: st.GroupOperands,
     return N
 
 
-def rot_stream(psi, ang, go: st.GroupOperands, fmode: int):
+def rot_stream(psi, ang, go: st.GroupOperands, fmode: int,
+               inplace: bool = False):
     """The rotation sweep over the groups of ``go`` in order, one launch
-    per group; ang (G,) holds -theta[op] per group."""
+    per group; ang (G,) holds -theta[op] per group.  ``inplace`` rotates
+    psi itself and returns it (no second state)."""
     if psi.device.type == "cpu":
-        return st.rot_stream_ref(psi, ang, go, fmode)
+        return _in_place(psi, st.rot_stream_ref(psi, ang, go, fmode),
+                         inplace)
     N = _group_ops(psi, go, (go.coef,))
     _check("ang", ang, torch.float32, (go.G,), psi.device)
     lib = _load("stream_group")
-    out = torch.empty_like(psi)
-    out.copy_(psi)
+    out = psi if inplace else torch.empty_like(psi).copy_(psi)
     if go.G:
         _launch("rot_stream", lib.ovqe_rot_stream, out, N, go.x, go.z,
                 go.coef, go.k_live, ang, go.G, go.K, _fmode(fmode),

@@ -17,13 +17,27 @@ Three routes, chosen per objective as the JAX package chooses them:
   ``streaming.GroupOperands``; the H-apply and the expectation stay
   bucketed, as in the JAX package.
 
+With no ``stream=`` the route follows OVQE_STREAM, read once when the
+objective is built, with the JAX package's parse: ``1`` (the default)
+streams for n > 19, ``0`` never streams, ``force`` streams wherever the
+streaming kernels run (``streaming.streaming_supported``), and any other
+value raises ``ValueError``.  On the streaming routes the energy-only call
+(``energy``, ``expectation``) runs the bucketed expectation (kernel D12),
+halving the pairs across chunks where the grouped H is Hermitian as an
+operator (``streaming.grouped_hermitian_operator``); with OVQE_EXP_HOIST=1
+when the objective is built, and that certificate, it runs the hoisted
+expectation (kernel D13) for the off-diagonal groups instead.
+``energy_and_grad`` keeps the H-apply, which it needs for the gradient.
+The JAX package's OVQE_PALLAS=0 selects its XLA route; the port has no
+XLA route on CUDA, so that switch has no counterpart here.
+
 On a CUDA device (float32) the wrappers launch the hand-written kernels,
 on the CPU they run the plain PyTorch versions (float64 by default).  The
 ADAPT loops (``algorithms/adapt.py``) start from ``psi0``, screen the pool
 with ``ham_apply`` as sigma = H psi, run the Lanczos reference over
 ``ham_apply`` and keep every state on the objective's device.
 
-Not ported (ROADMAP queue 2): the per-term engine for ansatze that are not
+Not ported (ROADMAP queue 3): the per-term engine for ansatze that are not
 odd-Y; binding such an ansatz raises ``NotImplementedError``.  The JAX
 package's segmented mode is a device-call watchdog of its TPU runtime and
 is not ported.
@@ -31,7 +45,7 @@ is not ported.
 
 from __future__ import annotations
 
-from types import SimpleNamespace
+import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -49,11 +63,13 @@ from .compile import compile_op_sequence, compile_pauli_sum
 class VQEObjective:
     """One Hamiltonian on one device; ``bind`` attaches an ansatz.
 
-    ``stream``: None follows the JAX package (streaming for n > 19), True
-    forces the streaming route, False the per-group one.  ``chunk_bits``
-    sets the streaming chunk (default ``streaming.chunk_bits_for(n)``).
-    Whether the streaming sweeps are fused is read from OVQE_STREAM_FUSE
-    once, here (``streaming.fuse_policy("seq")``)."""
+    ``stream``: None follows OVQE_STREAM as the JAX package does (by
+    default streaming for n > 19), True forces the streaming route, False
+    the per-group one.  ``chunk_bits`` sets the streaming chunk (default
+    ``streaming.chunk_bits_for(n)``).  Whether the streaming sweeps are
+    fused is read from OVQE_STREAM_FUSE once, here
+    (``streaming.fuse_policy("seq")``), and whether the energy-only call
+    runs the hoisted expectation from OVQE_EXP_HOIST."""
 
     def __init__(self, hamiltonian_sp: PauliSum, n: Optional[int] = None,
                  device=None, dtype: Optional[torch.dtype] = None,
@@ -81,17 +97,25 @@ class VQEObjective:
         self.dtype = sv.resolve_dtype(self.device, dtype)
         self.gham = gham
         self.c_re, self.c_im = float(gham.c_re), float(gham.c_im)
-        self.stream = (self.n > st.MAX_N_PER_GROUP if stream is None
+        self.stream = (stream_policy(self.n, self.device) if stream is None
                        else bool(stream))
         if self.stream:
             self.fuse = st.fuse_policy("seq")
             self.chunk_bits = (st.chunk_bits_for(self.n) if chunk_bits is None
                                else int(chunk_bits))
+            view = st.ham_view(gham, self.n)
             self.hclasses = [
                 st.bucket_operands(b, self.device, self.dtype)
                 for b in st.build_ham_buckets_split(
-                    _stream_view(gham, self.n), with_diag=True,
-                    chunk_bits=self.chunk_bits)]
+                    view, with_diag=True, chunk_bits=self.chunk_bits)]
+            # the energy-only call: D12 over hclasses, halving pairs across
+            # chunks where H is Hermitian as an operator; D13 under
+            # OVQE_EXP_HOIST=1 with that certificate
+            self.herm = st.grouped_hermitian_operator(gham)
+            self.eops = [(False, hc) for hc in self.hclasses]
+            if self.herm and st.hoist_policy():
+                self.eops = st.expect_operands(view, self.chunk_bits,
+                                               self.device, self.dtype, True)
         else:
             self.hops = convert.ham_operands(gham, self.device, self.dtype)
         self._psi0_cache: Dict[int, torch.Tensor] = {}
@@ -109,7 +133,7 @@ class VQEObjective:
         if gseq is None:
             raise NotImplementedError(
                 "ansatz with terms that are not odd-Y: the per-term engine "
-                "is not ported yet (ROADMAP.md, queue 2)")
+                "is not ported yet (ROADMAP.md, queue 3)")
         return self.bind_grouped(gseq, hf_init)
 
     def bind_grouped(self, gseq, hf_init: int) -> "BoundAnsatz":
@@ -142,8 +166,7 @@ class VQEObjective:
     def _energy(self, psi) -> float:
         """Re <psi|H|psi>: the kernels' sum plus c <psi|psi>."""
         if self.stream:
-            e = sum((K.expect_bucketed(psi, hc) for hc in self.hclasses),
-                    torch.zeros((), dtype=psi.dtype, device=psi.device))
+            e = st.expect_sum(psi, self.eops, self.herm)
         else:
             e = K.expectation(psi, *self.hops.args())
         return float(e + self.c_re * torch.sum(psi * psi))
@@ -165,19 +188,16 @@ class VQEObjective:
         return self._energy(self._on_device(psi))
 
 
-def _stream_view(gham, n: int):
-    """The fields the streaming builders read; a Hermitian-flagged sum
-    drops its imaginary parts, as ``convert.ham_operands`` does."""
-    herm = getattr(gham, "hermitian", False)
-
-    def im(a):
-        a = np.asarray(a, np.float64)
-        return np.zeros_like(a) if herm else a
-
-    return SimpleNamespace(
-        n=n, x=gham.x, z=gham.z, a_re=gham.a_re, a_im=im(gham.a_im),
-        z_diag=gham.z_diag, a_diag_re=gham.a_diag_re,
-        a_diag_im=im(gham.a_diag_im))
+def stream_policy(n: int, device) -> bool:
+    """The route of an objective built with no ``stream=``: OVQE_STREAM
+    parsed as the JAX package parses it (``1`` by default: stream for
+    n > 19; ``0``: never; ``force``: wherever ``streaming_supported``;
+    anything else raises)."""
+    env = os.environ.get("OVQE_STREAM", "1").lower()
+    if env not in ("1", "0", "force"):
+        raise ValueError(f"OVQE_STREAM must be 1|0|force, got {env!r}")
+    want = env == "force" or n > st.MAX_N_PER_GROUP
+    return want and env != "0" and st.streaming_supported(n, device)
 
 
 class BoundAnsatz:

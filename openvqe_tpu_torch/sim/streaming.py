@@ -33,6 +33,17 @@ as in the JAX package; B5 and D11 have no caller there (its per-group H
 segments are dead code or need an H without buckets) and are public
 functions, held against their plain versions on the card.
 
+The expectation has two more forms.  ``expect_bucketed_ref(herm=True)``
+counts each pair across chunks once, doubled, where the caller certifies
+the groups Hermitian as an operator (``grouped_hermitian_operator``).
+``hoist_bucket_args`` rewrites buckets into rows whose groups are sorted
+by x_lo, at most ``cap`` distinct x_lo a row, for the hoisted expectation
+(kernel D13, plain version ``expect_hoisted_ref``; OVQE_EXP_HOIST=1);
+``expect_operands`` / ``expect_sum`` pick the classes and kernels of one
+expectation pass.  ``build_streaming_energy_xl_fn`` is the 30-qubit
+energy-only entry point: one state, the sweep in place, one expectation
+with the diagonal and the constant folded in as x = 0 rows.
+
 The ADAPT pool screen lives here too: ``build_pool_buckets`` (pool groups
 bucketed by x_hi, with the slot -> group map), the plain versions
 ``pool_overlap_ref`` (per group) and ``pool_bucketed_ref`` (per bucket
@@ -55,6 +66,7 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass
+from types import SimpleNamespace
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -80,6 +92,23 @@ def chunk_bits_for(n: int) -> int:
     return max(1, min(CHUNK_BITS, n - 1))
 
 
+# chunk sizes the CUDA kernels of csrc/streaming_kernels.cu are built for
+# (ST_MIN_CB, ST_MAX_CB): 2^(cb - 8) amplitudes per thread of 256
+CUDA_CHUNK_BITS = (8, 12)
+
+
+def streaming_supported(n: int, device=None) -> bool:
+    """Whether the streaming route runs at n qubits on ``device`` (default
+    CUDA) with the default chunk (``chunk_bits_for``): the CUDA kernels
+    take chunk_bits 8..12, the plain versions on the CPU any n >= 2.  The
+    counterpart of the JAX package's ``streaming_supported``, which asks
+    for a TPU backend."""
+    cb = chunk_bits_for(n)
+    if torch.device("cuda" if device is None else device).type == "cpu":
+        return n >= 2
+    return CUDA_CHUNK_BITS[0] <= cb <= CUDA_CHUNK_BITS[1]
+
+
 # which kernels run by default: the rotation and adjoint sweeps fused
 # (A3, C9), the pool screen per group (E14); the JAX package's _FUSE_DEFAULT
 _FUSE_DEFAULT = {"seq": True, "pool": False}
@@ -94,6 +123,14 @@ def fuse_policy(path: str) -> bool:
     if env is not None:
         return env != "0"
     return _FUSE_DEFAULT[path]
+
+
+def hoist_policy() -> bool:
+    """OVQE_EXP_HOIST=1: the energy-only expectation runs the hoisted
+    kernel D13 for the off-diagonal groups, as in the JAX package (off by
+    default).  Read when an objective or the 30-qubit entry point is
+    built."""
+    return os.environ.get("OVQE_EXP_HOIST", "0") == "1"
 
 
 # --------------------------------------------------------------- host prep
@@ -302,32 +339,41 @@ def build_ham_buckets(gham, gcap: int = HAM_BUCKET_CAP,
     return _ham_buckets(stream_ham_data(gham, chunk_bits), gcap)
 
 
-def _diag_rows(gham, kd: int):
-    """The z-diagonal terms as x = 0 rows of kd terms (the constant stays
-    out: the objective adds c <psi|psi> and c psi itself)."""
+def _diag_rows(gham, kd: int, with_const: bool = False):
+    """The z-diagonal terms as x = 0 rows of kd terms.  ``with_const``
+    puts the constant first, as a z = 0 term: its field is 1 everywhere,
+    so it contributes exactly c_re <psi|psi> to an expectation (the JAX
+    package's ``diag_stream_rows``).  Without it the constant stays out:
+    the objective adds c <psi|psi> and c psi itself."""
     zd = np.asarray(gham.z_diag, np.int64)
+    adr = np.asarray(gham.a_diag_re, np.float64)
+    adi = np.asarray(gham.a_diag_im, np.float64)
+    if with_const:
+        zd = np.concatenate([[0], zd])
+        adr = np.concatenate([[float(gham.c_re)], adr])
+        adi = np.concatenate([[float(gham.c_im)], adi])
     if not len(zd):
         return None
     gd = -(-len(zd) // kd)
     pad = gd * kd - len(zd)
 
     def rows(a):
-        return np.pad(np.asarray(a), (0, pad)).reshape(gd, kd)
+        return np.pad(a, (0, pad)).reshape(gd, kd)
 
-    return (np.zeros(gd, np.int64), rows(zd), rows(gham.a_diag_re),
-            rows(gham.a_diag_im))
+    return np.zeros(gd, np.int64), rows(zd), rows(adr), rows(adi)
 
 
-def _ham_rows(gham, small: int, with_diag: bool):
+def _ham_rows(gham, small: int, with_diag: bool, with_const: bool = False):
     """(x, z, a_re, a_im) of the off-diagonal groups, and with
-    ``with_diag`` the z-diagonal terms after them as x = 0 groups of
-    ``small`` terms (K padded to the larger of the two)."""
+    ``with_diag`` the z-diagonal terms (and with ``with_const`` the
+    constant) after them as x = 0 groups of ``small`` terms (K padded to
+    the larger of the two)."""
     x = np.asarray(gham.x, np.int64)
     z = np.asarray(gham.z, np.int64).reshape(len(x), -1)
     are = np.asarray(gham.a_re, np.float64).reshape(z.shape)
     aim = np.asarray(gham.a_im, np.float64).reshape(z.shape)
     if with_diag:
-        d = _diag_rows(gham, small)
+        d = _diag_rows(gham, small, with_const)
         if d is not None:
             kk = max(small, z.shape[1])
 
@@ -342,12 +388,15 @@ def _ham_rows(gham, small: int, with_diag: bool):
 
 def build_ham_buckets_split(gham, gcap: int = HAM_BUCKET_CAP,
                             small: int = K_SMALL, with_diag: bool = False,
-                            chunk_bits: int = CHUNK_BITS) -> List[Buckets]:
+                            chunk_bits: int = CHUNK_BITS,
+                            with_const: bool = False) -> List[Buckets]:
     """Buckets in two K classes: groups whose last live coefficient column
     is below ``small`` get K = small, the others the global K.  Each class
     is bucketed on its own (``build_ham_buckets``).  ``with_diag`` adds the
-    z-diagonal terms as x = 0 groups of ``small`` terms."""
-    x, z, are, aim = _ham_rows(gham, small, with_diag)
+    z-diagonal terms as x = 0 groups of ``small`` terms, ``with_const``
+    (with ``with_diag``) the constant among them (``_diag_rows``); only
+    the 30-qubit entry point folds the constant in."""
+    x, z, are, aim = _ham_rows(gham, small, with_diag, with_const)
     if not len(x):
         return []
     sd = build_stream_data(gham.n, x, z, are, coef_im=aim,
@@ -367,6 +416,36 @@ def build_ham_buckets_split(gham, gcap: int = HAM_BUCKET_CAP,
         if b is not None:
             out.append(b)
     return out
+
+
+def ham_view(gham, n: int):
+    """The fields the bucket functions read; a Hermitian-flagged sum
+    drops its imaginary parts, as ``convert.ham_operands`` does."""
+    herm = getattr(gham, "hermitian", False)
+
+    def im(a):
+        a = np.asarray(a, np.float64)
+        return np.zeros_like(a) if herm else a
+
+    return SimpleNamespace(
+        n=n, x=gham.x, z=gham.z, a_re=gham.a_re, a_im=im(gham.a_im),
+        z_diag=gham.z_diag, a_diag_re=gham.a_diag_re,
+        a_diag_im=im(gham.a_diag_im), c_re=float(gham.c_re),
+        c_im=0.0 if herm else float(getattr(gham, "c_im", 0.0)))
+
+
+def diag_buckets(gham, chunk_bits: int = CHUNK_BITS,
+                 with_const: bool = False) -> Optional[Buckets]:
+    """The z-diagonal terms (and with ``with_const`` the constant) alone,
+    as x = 0 groups of K_SMALL terms in buckets of their own: the
+    expectation's perm-free rows beside the hoisted off-diagonal ones."""
+    d = _diag_rows(gham, K_SMALL, with_const)
+    if d is None:
+        return None
+    x, z, are, aim = d
+    return _ham_buckets(build_stream_data(gham.n, x, z, are, coef_im=aim,
+                                          chunk_bits=chunk_bits),
+                        HAM_BUCKET_CAP)
 
 
 # ------------------------------------------------------ device operands
@@ -424,6 +503,121 @@ def bucket_operands(bk: Buckets, device, dtype=torch.float32
         z=dev(bk.z, torch.int32), coef=dev(bk.coef, dtype),
         coef_im=dev(np.zeros_like(cim) if real else cim, dtype), real=real,
         op=bk.op, act_host=np.asarray(bk.act, bool), fmode=bk.fmode)
+
+
+@dataclass
+class HoistBuckets:
+    """Buckets rewritten for the hoisted expectation (kernel D13): each row
+    holds the groups of one bucket (its x_hi), its live slots sorted by
+    x_lo, at most ``cap`` distinct x_lo per row.  ``ux`` (B, cap) int32 is
+    each row's table of distinct x_lo in ascending order (-1 after the
+    last), ``ix`` (B, gcap) int32 each slot's index into it (0 in padding
+    slots)."""
+    rows: Buckets
+    ux: np.ndarray
+    ix: np.ndarray
+
+
+def hoist_bucket_args(bk: Buckets, cap: int = 8) -> HoistBuckets:
+    """The port's ``hoist_bucket_args``: within each bucket the live groups
+    are sorted stably by x_lo, and a bucket whose distinct x_lo count
+    passes ``cap`` is split (the JAX package's split rule, there on the
+    distinct x_mid and x_lane of its tiles; the sum is order-free).  What
+    a row shares on the card is the partner amplitudes of each distinct
+    x_lo (see ``csrc/streaming_kernels.cu``)."""
+    if cap < 1:
+        raise ValueError(f"cap must be >= 1, got {cap}")
+    sd = StreamGroupData(
+        n=bk.n, chunk_bits=bk.chunk_bits, x_lo=bk.x_lo.reshape(-1),
+        x_hi=np.repeat(bk.x_hi, bk.act.shape[1]),
+        z=bk.z.reshape(-1, bk.K), coef=bk.coef.reshape(-1, bk.K),
+        coef_im=(None if bk.coef_im is None
+                 else bk.coef_im.reshape(-1, bk.K)),
+        op=None, live=bk.act.reshape(-1) != 0)
+    gcap = bk.act.shape[1]
+    rows: List[np.ndarray] = []
+    for b in range(bk.B):
+        slots = np.nonzero(bk.act[b])[0]
+        order = b * gcap + slots[np.argsort(bk.x_lo[b, slots],
+                                            kind="stable")]
+        cur: List[int] = []
+        seen: set = set()
+        for g in order:
+            xl = int(sd.x_lo[g])
+            if cur and xl not in seen and len(seen) == cap:
+                rows.append(np.asarray(cur))
+                cur, seen = [], set()
+            cur.append(int(g))
+            seen.add(xl)
+        if cur:
+            rows.append(np.asarray(cur))
+    out = _lay_out(sd, rows, gcap)
+    ux = np.full((out.B, cap), -1, np.int32)
+    ix = np.zeros((out.B, gcap), np.int32)
+    for r, g in enumerate(rows):
+        uniq = np.unique(sd.x_lo[g])
+        ux[r, :len(uniq)] = uniq
+        ix[r, :len(g)] = np.searchsorted(uniq, sd.x_lo[g])
+    return HoistBuckets(rows=out, ux=ux, ix=ix)
+
+
+@dataclass
+class HoistOperands:
+    """``HoistBuckets`` as kernel D13 takes them: the rows as
+    ``BucketOperands``, ux (B, cap) and ix (B, gcap) int32 on the same
+    device."""
+    bo: BucketOperands
+    ux: torch.Tensor
+    ix: torch.Tensor
+
+    @property
+    def cap(self) -> int:
+        return self.ux.shape[1]
+
+
+def hoist_operands(hb: HoistBuckets, device, dtype=torch.float32
+                   ) -> HoistOperands:
+    def dev(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.int32,
+                               device=device).contiguous()
+
+    return HoistOperands(bo=bucket_operands(hb.rows, device, dtype),
+                         ux=dev(hb.ux), ix=dev(hb.ix))
+
+
+def expect_operands(view, chunk_bits: int, device, dtype, hoist: bool,
+                    with_const: bool = False) -> list:
+    """Operands of one expectation pass over the grouped H ``view``
+    (``ham_view``), the diagonal folded in as x = 0 rows, with
+    ``with_const`` the constant too.  Without ``hoist``: the K classes of
+    ``build_ham_buckets_split`` for kernel D12.  With it: the off-diagonal
+    classes hoisted for kernel D13 (``hoist_bucket_args``) and the x = 0
+    rows in buckets of their own for D12, as the JAX package keeps its
+    perm-free class on the plain kernel.  Returns [(hoisted, operands)]
+    for ``expect_sum``."""
+    if not hoist:
+        return [(False, bucket_operands(b, device, dtype))
+                for b in build_ham_buckets_split(
+                    view, with_diag=True, with_const=with_const,
+                    chunk_bits=chunk_bits)]
+    out = [(True, hoist_operands(hoist_bucket_args(b), device, dtype))
+           for b in build_ham_buckets_split(view, chunk_bits=chunk_bits)]
+    d = diag_buckets(view, chunk_bits, with_const)
+    if d is not None:
+        out.append((False, bucket_operands(d, device, dtype)))
+    return out
+
+
+def expect_sum(psi, eops: list, herm: bool):
+    """sum over ``expect_operands``' classes of <psi|class|psi> as a 0-dim
+    float64 tensor: D13 for hoisted classes (Hermitian by certificate),
+    D12 with ``herm`` for the others."""
+    from . import kernels as K
+    parts = [K.expect_hoisted(psi, o) if hoisted
+             else K.expect_bucketed(psi, o, herm) for hoisted, o in eops]
+    if not parts:
+        return torch.zeros((), dtype=torch.float64, device=psi.device)
+    return torch.stack(parts).double().sum()
 
 
 def bucket_angles(bo: BucketOperands, theta, dtype, device) -> torch.Tensor:
@@ -588,20 +782,68 @@ def ham_bucketed_ref(psi, acc, bo: BucketOperands):
     return out
 
 
-def expect_bucketed_ref(psi, bo: BucketOperands):
+def _contract(psi, px, z, cre, cim, idx, real: bool):
+    """W_re Re(conj(psi_j) psi_{j^x}) - W_im Im(conj(psi_j) psi_{j^x}) per
+    amplitude j, with px = psi[:, idx ^ x]; real skips W_im."""
+    t = gr.sign_field(z, cre, idx) * (psi[0] * px[0] + psi[1] * px[1])
+    if not real:
+        t = t - gr.sign_field(z, cim, idx) * (psi[0] * px[1]
+                                              - psi[1] * px[0])
+    return t
+
+
+def _cross_half(idx, cb: int, x_hi: int):
+    """The amplitudes of a pair across chunks (x_hi != 0) whose chunk is the
+    lower of the two: those where bit msb(x_hi) of the chunk index is 0."""
+    return (idx & (1 << (cb + x_hi.bit_length() - 1))) == 0
+
+
+def expect_bucketed_ref(psi, bo: BucketOperands, herm: bool = False):
     """sum over the buckets' groups of sum_j W_re Re(conj(psi_j)
-    psi_{j^x}) - W_im Im(conj(psi_j) psi_{j^x}), a 0-dim tensor."""
+    psi_{j^x}) - W_im Im(conj(psi_j) psi_{j^x}), a 0-dim tensor.  ``herm``
+    (the caller certifies every group Hermitian as an operator,
+    ``grouped_hermitian_operator``) counts each pair across chunks (x_hi
+    != 0) once, from the lower chunk, and doubles it; pairs inside a chunk
+    are summed from both ends, as in the JAX package's
+    ``_expect_bucket_kernel``.  Both give the herm=False value on
+    Hermitian groups."""
     idx = gr._indices(psi.shape[-1], psi.device)
     tot = torch.zeros((), dtype=psi.dtype, device=psi.device)
+    xh = bo.x_hi.tolist()
     for b, g2, x in _slots(bo):
-        px = psi[:, idx ^ x]
-        P = psi[0] * px[0] + psi[1] * px[1]
-        tot = tot + torch.sum(gr.sign_field(bo.z[b, g2], bo.coef[b, g2],
-                                            idx) * P)
-        if not bo.real:
-            Q = psi[0] * px[1] - psi[1] * px[0]
-            tot = tot - torch.sum(gr.sign_field(bo.z[b, g2],
-                                                bo.coef_im[b, g2], idx) * Q)
+        t = _contract(psi, psi[:, idx ^ x], bo.z[b, g2], bo.coef[b, g2],
+                      bo.coef_im[b, g2], idx, bo.real)
+        if herm and xh[b]:
+            t = 2.0 * t[_cross_half(idx, bo.chunk_bits, xh[b])]
+        tot = tot + torch.sum(t)
+    return tot
+
+
+def expect_hoisted_ref(psi, ho: "HoistOperands"):
+    """The Hermitian bucketed expectation over hoisted rows (kernel D13):
+    the value of ``expect_bucketed_ref(herm=True)`` on the same groups,
+    computed as the kernel computes it.  Per row, the partner amplitudes
+    psi[j ^ (x_hi << cb | u)] are formed once per distinct x_lo u
+    (``ho.ux``) and every slot with that u (``ho.ix``) is contracted with
+    them; a row with x_hi != 0 is counted from its lower chunk and
+    doubled."""
+    bo = ho.bo
+    idx = gr._indices(psi.shape[-1], psi.device)
+    tot = torch.zeros((), dtype=psi.dtype, device=psi.device)
+    xh, ux, ix = bo.x_hi.tolist(), ho.ux.tolist(), ho.ix.tolist()
+    for b in range(bo.B):
+        half = _cross_half(idx, bo.chunk_bits, xh[b]) if xh[b] else None
+        for u, xu in enumerate(ux[b]):
+            if xu < 0:
+                break
+            px = psi[:, idx ^ ((xh[b] << bo.chunk_bits) | xu)]
+            for g2 in np.nonzero(bo.act_host[b])[0]:
+                if ix[b][g2] != u:
+                    continue
+                t = _contract(psi, px, bo.z[b, g2], bo.coef[b, g2],
+                              bo.coef_im[b, g2], idx, bo.real)
+                tot = tot + (torch.sum(t) if half is None
+                             else 2.0 * torch.sum(t[half]))
     return tot
 
 
@@ -793,3 +1035,70 @@ def build_streaming_pool_gradient_fn(gpool, lham, fuse: Optional[bool] = None,
         return gr.segment_rows(rows[act], op_of_slot, n_ops)
 
     return grads_host
+
+
+# ------------------------------------------- the 30-qubit energy entry point
+
+def build_streaming_energy_xl_fn(gseq, gham, hf_init: int, device=None,
+                                 chunk_bits: Optional[int] = None):
+    """Energy-only evaluator for the largest states one card holds (30
+    qubits: a 2^30 split-real float32 state is 8 GiB), the counterpart of
+    the JAX package's ``build_streaming_energy_xl_fn``.  Returns
+    ``energy_host(theta) -> float``; ``energy_host.forward(theta)`` is the
+    state the energy is read from.
+
+    One full-state buffer, and no other: |HF> is built on the device, the
+    rotation sweep runs in place on it (kernel A3 over the rotation runs,
+    or A2 per group under OVQE_STREAM_FUSE=0, ``fuse_policy("seq")``), and
+    <psi|H|psi> is one read-only pass with the z-diagonal and the constant
+    folded in as x = 0 rows (a z = 0 row has field 1, so the constant
+    contributes exactly c_re <psi|psi>): kernel D12 with ``herm``, or
+    under OVQE_EXP_HOIST=1 kernel D13 for the off-diagonal rows and D12
+    for the x = 0 rows.  Both switches are read here, once.  A grouped H
+    that is not Hermitian as an operator is refused, since every class is
+    counted with the Hermitian halving.  ``energy_host.expectation(psi)``
+    is the expectation pass alone."""
+    from . import kernels as K
+    if not grouped_hermitian_operator(gham):
+        raise ValueError("build_streaming_energy_xl_fn requires an "
+                         "operator-Hermitian grouped Hamiltonian (its "
+                         "expectation classes certify herm=True); use the "
+                         "streaming objective")
+    device = sv.resolve_device(device)
+    dtype = sv.resolve_dtype(device)
+    n = int(gham.n)
+    cb = chunk_bits_for(n) if chunk_bits is None else int(chunk_bits)
+    fuse = fuse_policy("seq")
+    hoist = hoist_policy()
+    fwd, fmode = None, getattr(gseq, "fmode", 0)
+    if gseq.n_groups:
+        sd = stream_seq_data(gseq, cb)
+        if fuse:
+            runs = build_seq_buckets(sd)
+            fwd = None if runs is None else bucket_operands(runs, device,
+                                                            dtype)
+        else:
+            fwd = group_operands(sd, device, dtype)
+    rot, angles = ((K.rot_fused, bucket_angles) if fuse
+                   else (K.rot_stream, group_angles))
+    eops = expect_operands(ham_view(gham, n), cb, device, dtype, hoist,
+                           with_const=True)
+    hf = int(hf_init)
+
+    def forward(theta) -> torch.Tensor:
+        psi = torch.zeros((2, 1 << n), dtype=dtype, device=device)
+        psi[0, hf] = 1.0
+        if fwd is not None:
+            rot(psi, angles(fwd, theta, dtype, device), fwd, fmode,
+                inplace=True)
+        return psi
+
+    def expectation(psi) -> float:
+        return float(expect_sum(psi, eops, herm=True))
+
+    def energy_host(theta) -> float:
+        return expectation(forward(theta))
+
+    energy_host.forward = forward
+    energy_host.expectation = expectation
+    return energy_host

@@ -26,6 +26,6 @@ class VQE:
             raise KeyError(
                 f"Algorithm {algo_name!r} is not available in the PyTorch "
                 f"port; it has {sorted(cls.algorithms)}.  The rest are "
-                f"queued in ROADMAP.md (queue 5).")
+                f"queued in ROADMAP.md (queue 2 on).")
         return cls.algorithms[algo_name](molecule_symbol, type_of_generator,
                                          transform, active, opts or {})

@@ -31,7 +31,7 @@ def _port_modules():
 
 def test_port_imports_without_jax_or_reference():
     mods = _port_modules()
-    for m in ("sim.kernels", "sim.streaming", "sim.eigensolver",
+    for m in ("sim.kernels", "sim.streaming", "sim.eigensolver", "sim.oracle",
               "algorithms.adapt", "algorithms.fermionic_adapt",
               "algorithms.qubit_adapt", "utils.checkpoint",
               "utils.run_logger", "utils.sorted_gradient",
@@ -43,15 +43,19 @@ def test_port_imports_without_jax_or_reference():
         "    __import__(m)\n"
         # the per-group streaming route's surface, in the same process
         "from openvqe_tpu_torch.sim import kernels as K, streaming as st\n"
-        "assert len(K.KERNELS) == 14 and set(K.SOURCES) == {'grouped',\n"
+        "assert len(K.KERNELS) == 15 and set(K.SOURCES) == {'grouped',\n"
         "    'streaming', 'stream_group', 'pool'}\n"
         "for f in ('rot_stream', 'adjoint_stream', 'ham_stream',\n"
-        "          'expect_stream'):\n"
+        "          'expect_stream', 'expect_hoisted'):\n"
         "    assert callable(getattr(K, f)) and f in K.LAUNCHES, f\n"
         "for f in ('fuse_policy', 'grouped_hermitian_operator',\n"
         "          'group_operands', 'rot_stream_ref', 'adjoint_stream_ref',\n"
-        "          'ham_stream_ref', 'expect_stream_ref'):\n"
+        "          'ham_stream_ref', 'expect_stream_ref', 'streaming_supported',\n"
+        "          'hoist_bucket_args', 'expect_hoisted_ref',\n"
+        "          'build_streaming_energy_xl_fn'):\n"
         "    assert callable(getattr(st, f)), f\n"
+        "from openvqe_tpu_torch.sim import oracle\n"
+        "assert callable(oracle.sparse_energy)\n"
         "assert all(p.is_file() for p in K.SOURCES.values())\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith('jax.') or m == 'openvqe_tpu'\n"

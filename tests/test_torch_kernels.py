@@ -18,8 +18,7 @@ from openvqe_tpu_torch.sim import grouped as gr
 from openvqe_tpu_torch.sim import kernels as K
 from openvqe_tpu_torch.sim import streaming as st
 from openvqe_tpu_torch.sim.compile import compile_op_sequence
-from openvqe_tpu_torch.sim.objective import (StreamBoundAnsatz, VQEObjective,
-                                              _stream_view)
+from openvqe_tpu_torch.sim.objective import StreamBoundAnsatz, VQEObjective
 from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.cuda
@@ -238,6 +237,92 @@ def test_streaming_wrappers_reject_what_the_kernels_do_not_take(dev):
         K.rot_fused(psi, ang, small._fwd, 1)
 
 
+# ---------------- the expectation with herm (D12) and hoisted (D13)
+
+def _expect_classes(ham, cb, dev, real):
+    """The K classes of ham with the diagonal and the constant, in buckets
+    of 4 (several per x_hi); ``real`` drops the imaginary coefficients,
+    which leaves the even-parity terms, a Hermitian real set."""
+    view = st.ham_view(VQEObjective(ham, n=N, device="cpu").gham, N)
+    if real:
+        view.a_im = np.zeros_like(view.a_im)
+    return st.build_ham_buckets_split(view, gcap=4, with_diag=True,
+                                      with_const=True, chunk_bits=cb)
+
+
+@pytest.mark.parametrize("real", [False, True])
+@pytest.mark.parametrize("cb", [8, 11])
+def test_expect_herm_and_hoisted_match_plain_versions(dev, cb, real):
+    """D12 with herm and D13 at caps 8, 2 and 1 against their plain
+    versions and against D12 without herm (the same value on Hermitian
+    groups); with random imaginary coefficients (not Hermitian) herm must
+    change D12's value and D13 must still equal its plain version."""
+    ham, _ = _stream_problem(N, cb, 1)
+    classes = _expect_classes(ham, cb, dev, real)
+    assert all(bk.real for bk in classes) == real
+    assert any(bk.x_hi.any() for bk in classes)
+    psi = _state(dev, 4)
+    counts = dict(K.LAUNCHES)
+    tot = {"plain": 0.0, "herm": 0.0}
+    n_hoist = 0
+    for bk in classes:
+        bo = st.bucket_operands(bk, dev)
+        for key, herm in (("plain", False), ("herm", True)):
+            e = float(K.expect_bucketed(psi, bo, herm))
+            e_ref = float(st.expect_bucketed_ref(psi, bo, herm))
+            assert abs(e - e_ref) <= TOL * max(1.0, abs(e_ref))
+            tot[key] += e
+        for cap in (8, 2, 1):
+            ho = st.hoist_operands(st.hoist_bucket_args(bk, cap), dev)
+            e = float(K.expect_hoisted(psi, ho))
+            e_ref = float(st.expect_hoisted_ref(psi, ho))
+            assert abs(e - e_ref) <= TOL * max(1.0, abs(e_ref))
+            assert float(K.expect_hoisted(psi, ho)) == e
+            tot[cap] = tot.get(cap, 0.0) + e
+            n_hoist += 2
+    for v in tot.values():
+        assert abs(v - tot["plain"]) <= TOL * max(1.0, abs(tot["plain"]))
+    torch.cuda.synchronize()
+    want = {"expect_bucketed": 2 * len(classes), "expect_hoisted": n_hoist}
+    assert {k: K.LAUNCHES[k] - counts[k] for k in K.KERNELS} == \
+        {k: want.get(k, 0) for k in K.KERNELS}
+    # not Hermitian: herm halves pairs whose two ends now differ
+    bk = max(classes, key=lambda b: int(b.x_hi.astype(bool).sum()))
+    bo = st.bucket_operands(bk, dev)
+    bo.coef_im = torch.as_tensor(
+        np.random.default_rng(5).normal(size=bo.coef_im.shape)
+        * bk.act[..., None], dtype=torch.float32, device=dev)
+    bo.real = False
+    e0, e1 = (float(K.expect_bucketed(psi, bo, h)) for h in (False, True))
+    assert abs(e1 - float(st.expect_bucketed_ref(psi, bo, True))) <= TOL
+    assert abs(e1 - e0) > 1e-3
+
+
+def test_energy_xl_on_the_card_matches_the_cpu(dev, monkeypatch):
+    """The 30-qubit entry point at n = 12 (chunk 2^8) on the card against
+    the same entry point on the CPU in float64, for the three routes; each
+    runs its kernels and no others."""
+    ham, gens = _stream_problem(N, 8, 1)
+    gham = VQEObjective(ham, n=N, device="cpu").gham
+    gseq = gr.group_op_sequence(compile_op_sequence(gens, N))
+    theta = np.random.default_rng(2).normal(scale=0.4, size=len(gens))
+    want = {("1", "0"): {"rot_fused", "expect_bucketed"},
+            ("0", "0"): {"rot_stream", "expect_bucketed"},
+            ("1", "1"): {"rot_fused", "expect_bucketed", "expect_hoisted"}}
+    for (fuse, hoist), kernels in want.items():
+        monkeypatch.setenv("OVQE_STREAM_FUSE", fuse)
+        monkeypatch.setenv("OVQE_EXP_HOIST", hoist)
+        e_cpu = st.build_streaming_energy_xl_fn(gseq, gham, 0, device="cpu",
+                                                chunk_bits=8)(theta)
+        energy = st.build_streaming_energy_xl_fn(gseq, gham, 0, device=dev,
+                                                 chunk_bits=8)
+        counts = dict(K.LAUNCHES)
+        e = energy(theta)
+        ran = {k for k in K.KERNELS if K.LAUNCHES[k] > counts[k]}
+        assert ran == kernels, (fuse, hoist, ran)
+        assert abs(e - e_cpu) <= TOL * max(1.0, abs(e_cpu)), (e, e_cpu)
+
+
 # ---------------------- per-group streaming route (OVQE_STREAM_FUSE=0)
 
 def _group_route(monkeypatch, dev, fmode):
@@ -249,7 +334,7 @@ def _group_route(monkeypatch, dev, fmode):
     monkeypatch.setenv("OVQE_STREAM_FUSE", "0")
     obj = VQEObjective(ham, n=N, device=dev, stream=True, chunk_bits=8)
     hgo = st.group_operands(st.stream_ham_data(
-        _stream_view(obj.gham, N), 8, with_diag=True), dev)
+        st.ham_view(obj.gham, N), 8, with_diag=True), dev)
     return obj.bind(gens, 0), fobj.bind(gens, 0), fobj, hgo, len(gens)
 
 
