@@ -31,6 +31,10 @@ imports nothing of JAX and nothing of ``openvqe_tpu``.  Phases:
    sequence, on H10's own bucket operands and on a synthetic problem
    (field modes 0, 1, 2, non-real coefficients, runs with x_hi = 0 and
    x_hi != 0, full 16-group runs, both K classes); timed at H10's shapes;
+   for the two fused sweeps (A3, C9) the registers, spills and shared
+   memory of the instance H10 runs (``kernels.sweep_attributes``; phase 1
+   prints every kernel's ``nvcc -Xptxas -v`` lines), its resident blocks
+   per SM and its time against its bound;
 6. per-group streaming kernel parity at n = 20 (the kernels of
    OVQE_STREAM_FUSE=0): each of the four against its plain version and
    against the bucketed kernel of the same function on the same inputs
@@ -94,9 +98,10 @@ imports nothing of JAX and nothing of ``openvqe_tpu``.  Phases:
    after), a 4-operator ansatz against the exact sparse oracle
    (``sim/oracle.py``, energy and amplitudes), the peak device memory of
    one energy call and the wall time of each.  The host set-up (SCF,
-   Jordan-Wigner, taper, grouping; minutes) runs in a child process
-   started right after the build, beside phases 2-13, and is kept in
-   ``chiprun_out/`` for the next run of the same sources.
+   Jordan-Wigner, taper, grouping; about half a minute on an 8-core host,
+   most of it the SCF) runs in a child process started right after the
+   build, beside phases 2-13, and is kept in ``chiprun_out/`` for the next
+   run of the same sources.
 
 The last three lines of standard output are the card's name and power
 limit, a JSON ``{"kernels": [...]}`` line (one row per kernel, each
@@ -875,6 +880,18 @@ def phase_stream_parity(h10, ref, card):
         print(f"time {name} at H10 shapes ({card}): kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({by}; "
               f"{nbytes} B, {flops} f32 ops)")
+    for name, ops in (("rot_fused", fwd), ("adjoint_fused", adj)):
+        at = K.sweep_attributes(name, ops)
+        r = rows[name]
+        print(f"{name} at H10 shapes ({card}): K {ops.K} compiled as "
+              f"{at['k_compiled']} (padded {at['k_padded']}), chunk "
+              f"2^{ops.chunk_bits}, {at['threads']} threads, "
+              f"{at['registers']} registers and {at['spill_bytes']} B of "
+              f"local memory a thread, {at['smem_bytes']} B of shared "
+              f"memory, {at['blocks_per_sm']} resident blocks per SM; "
+              f"{ops.B} launches of {1 << (ops.n - ops.chunk_bits - 1)} "
+              f"blocks; {r['ms']:.4f} ms against a bound of "
+              f"{r['bound_ms']:.6f} ms ({r['ms'] / r['bound_ms']:.2f}x)")
     return rows
 
 

@@ -131,10 +131,17 @@ def transform_term(term: FermionTerm, nbqbits: int, kind: str = "JW") -> PauliSu
 def transform_operator(op: FermionOperator, kind: str = "JW",
                        tol: float = 1e-12) -> PauliSum:
     """Transform a fermionic operator to a qubit PauliSum (the reference's
-    ``transform_to_jw_basis`` etc., generator_excitations.py:16-36)."""
+    ``transform_to_jw_basis`` etc., generator_excitations.py:16-36).  The
+    terms are added into one sum in place, in the order ``out = out +
+    term`` would add them (the same coefficients, bit for bit), without
+    copying the growing sum once per fermion term: that copy made the
+    Jordan-Wigner of a 32-orbital H quadratic (minutes)."""
     out = PauliSum.identity(op.nbqbits, op.constant_coeff)
     for t in op.terms:
-        out = out + transform_term(t, op.nbqbits, kind)
+        term = transform_term(t, op.nbqbits, kind)
+        out.constant_coeff += term.constant_coeff
+        for key, c in term._terms.items():
+            out._iadd_term(key, c)
     return out.prune(tol)
 
 

@@ -15,17 +15,38 @@
 //
 // What bounds these kernels: at n = 20 the state is 8 MB and stays in the
 // 50 MB L2, so device memory is read about once per call and the bytes
-// bound is microseconds.  What remains is (1) the field arithmetic (one
-// popcount + select + FMA per live term per amplitude and group), (2) for
-// the sweeps, one launch per run instead of one per group, and (3) for the
-// two H kernels, re-staging a source chunk per distinct x_hi.  The designs:
+// bound is microseconds.  What remains is (1) the field arithmetic (in
+// the H kernels one popcount + select + FMA per live term, amplitude and
+// group), (2) for the sweeps, one launch per run instead of one per group,
+// and (3) for the two H kernels, re-staging a source chunk per distinct
+// x_hi.  The designs:
 //
-// * rot_fused / adjoint_fused: one launch per run (runs do not commute),
-//   one block of SW_THREADS per chunk pair, both chunks of every state
-//   staged with coalesced loads, the run's groups applied in order with a
-//   __syncthreads() between groups, written back once.  With x_hi = 0 the
-//   block stages chunks {c, c ^ 1} and the pairs stay inside each.  The
-//   per-group angle terms are computed once per group (rot_angle).
+// * rot_fused / adjoint_fused (redesigned for Hopper): one launch per run
+//   (runs do not commute), one block per chunk pair, both chunks of every
+//   state staged in shared memory (float4 loads where aligned), the run's
+//   groups applied in order with one __syncthreads() per group, written
+//   back once.  With x_hi = 0 the block stages chunks {c, c ^ 1} and the
+//   pairs stay inside each.  The field is the cost: computed at both ends
+//   of a pair from global z_k and c_k, it takes a popcount, a select and
+//   an FMA per term, end and group.  So (see the note above sweep_tables):
+//   - one field per pair: every rotation group is odd-Y (popcount(x & z_k)
+//     odd for every live term; the host certifies it,
+//     streaming.Buckets.odd_y, and the wrapper refuses operands without
+//     it), so F(j ^ x) = -F(j) exactly: cos - 1 is even in F and sin odd,
+//     and the partner takes (cm, -s);
+//   - signs hoisted out of the amplitude loop: the chunk's sign is folded
+//     into the coefficients and the pair index split into a thread part
+//     and a loop part, so a thread pays K popcounts per group and each of
+//     its SW_PER pairs K FMAs against a table in shared memory;
+//   - K known at compile time (KT in 1, 2, 4, 8, 16, tiles of 16 above),
+//     the operands read into shared memory once per block;
+//   - 2^(cb - 3) threads: at 2^12 amplitudes a rotation block takes 512
+//     threads, 64 registers and ~70 KB, so two share an SM and one
+//     block's staging overlaps the other's arithmetic (the adjoint's 128
+//     KB of states leave one per SM);
+//   - the adjoint's gradient shares are reduced inside each warp per group
+//     and across warps once per run, in a fixed order, so every entry
+//     repeats bit for bit.
 // * ham_bucketed / expect_bucketed: one launch per K class (the sum is
 //   order-free).  A block owns one output chunk with its accumulators in
 //   registers (PER amplitudes per thread, float64 so the ~1300 group terms
@@ -48,14 +69,18 @@
 //   coefficients in shared memory once per block and row.  The real path
 //   (c) skips W_im.  Hermitian only (herm is implied).
 //
-// TMA double-buffering, hoisting the high-bit signs per block and a
-// persistent kernel over all runs are later work.  Every entry point
-// launches on the caller's stream, never synchronises, allocates nothing,
-// and returns a CUDA error code (0 on success).
+// TMA double-buffering and a persistent kernel over all runs are later
+// work.  Every entry point launches on the caller's stream, never
+// synchronises, allocates nothing, and returns a CUDA error code (0 on
+// success).
+
+#include <cstdint>
 
 #include "common.cuh"
 
-#define SW_THREADS 1024         // rotation / adjoint blocks (one per SM)
+#define SW_PER 8                // pairs per thread and group of A3 / C9
+#define SW_MAX_THREADS 512      // 2^(ST_MAX_CB - 3): threads = chunk / 8
+#define SW_KTILE 16             // largest compile-time K; tiles above it
 #define ST_THREADS 256          // H-apply / expectation blocks
 #define ST_MIN_CB 8             // PER = 2^(cb - 8) amplitudes per thread
 #define ST_MAX_CB 12            // 2 states x 2 planes x 2 chunks = 128 KB
@@ -77,13 +102,38 @@ __device__ __forceinline__ unsigned glob(unsigned l, int cb, unsigned cA,
   return (((l >> cb) ? cB : cA) << cb) | (l & ((1u << cb) - 1u));
 }
 
+__device__ __forceinline__ unsigned parity(unsigned v) {
+  return (unsigned)__popc(v) & 1u;
+}
+
 // Move the chunk pair of nst states between global and shared memory, laid
-// out as sm[(state * 2 + plane) * 2C + l].
+// out as sm[(state * 2 + plane) * 2C + l].  vec: every state is 16-byte
+// aligned, so a thread moves 4 consecutive floats (a chunk holds 2^cb >=
+// 256 of them, so four never straddle two chunks).
 __device__ __forceinline__ void stage(float* sm, float* const* st, int nst,
                                       unsigned N, int cb, unsigned cA,
-                                      unsigned cB, bool load) {
+                                      unsigned cB, bool load, bool vec) {
   const unsigned C2 = 2u << cb;
-  for (unsigned l = threadIdx.x; l < C2; l += SW_THREADS) {
+  if (vec) {
+    for (unsigned v = threadIdx.x; v < C2 / 4; v += blockDim.x) {
+      const unsigned j = glob(4 * v, cb, cA, cB);
+      for (int s = 0; s < nst; ++s) {
+        float4* re = reinterpret_cast<float4*>(sm + (2 * s) * C2) + v;
+        float4* im = reinterpret_cast<float4*>(sm + (2 * s + 1) * C2) + v;
+        float4* gre = reinterpret_cast<float4*>(st[s] + j);
+        float4* gim = reinterpret_cast<float4*>(st[s] + N + j);
+        if (load) {
+          *re = *gre;
+          *im = *gim;
+        } else {
+          *gre = *re;
+          *gim = *im;
+        }
+      }
+    }
+    return;
+  }
+  for (unsigned l = threadIdx.x; l < C2; l += blockDim.x) {
     const unsigned j = glob(l, cb, cA, cB);
     for (int s = 0; s < nst; ++s) {
       float* re = sm + (2 * s) * C2;
@@ -99,115 +149,243 @@ __device__ __forceinline__ void stage(float* sm, float* const* st, int nst,
   }
 }
 
+// ------------------------------------------------- the sweeps' sign algebra
+// A block stages chunks cA and cB = cA ^ d (d = x_hi, or 1 when x_hi = 0)
+// as one local space l < 2C, bit cb of l choosing cB.  For a term z_k the
+// global sign splits over disjoint bit fields:
+//     (-1)^popcount(j & z_k) = (-1)^popcount((cA << cb) & z_k)
+//                              (-1)^popcount(l & ze_k),
+//     ze_k = (z_k & (C - 1)) | parity((d << cb) & z_k) << cb,
+// so the chunk's sign is folded into the coefficient once per block (cs_k)
+// and the effective mask ze_k covers both chunks of an x_hi = 0 run.  A
+// group's pairs are l = insert_zero(t, h), t < C, h the highest bit of the
+// local mask.  With T = C / SW_PER threads and t = q T + tid, insert_zero
+// is linear over the disjoint bits of q T and tid, so
+//     F(l) = sum_k [cs_k (-1)^popcount(insert_zero(q T, h) & ze_k)]
+//                  (-1)^popcount(insert_zero(tid, h) & ze_k).
+// The bracket is tab[g2][k][q], built once per block for the run's groups;
+// the second factor is one popcount per thread, term and group.  The
+// partner l ^ xloc needs no field: F(j ^ x) = -F(j) on odd-Y operands.
+
+// Per-slot data of a run, in shared memory.
+struct SweepGroup {
+  unsigned xloc;        // local mask; 0: a padding slot (or x = 0)
+  int h;                // its highest bit
+  RotAngle ra;
+};
+
+// Shared memory of a sweep block: nst states of 2 planes x 2C floats, the
+// tables (gcap Kp SW_PER floats), the masks ze (gcap Kp), the slots'
+// SweepGroup and, for the adjoint, one gradient share per slot and warp.
+__host__ __device__ inline size_t sweep_smem(int nst, int cb, int gcap,
+                                             int Kp) {
+  const size_t C = (size_t)1 << cb, warps = (C / SW_PER) / 32;
+  return (4 * C * nst + (size_t)gcap * Kp * SW_PER) * sizeof(float) +
+         (size_t)gcap * Kp * sizeof(unsigned) +
+         (size_t)gcap * sizeof(SweepGroup) +
+         (nst == 2 ? (size_t)gcap * warps * sizeof(float) : 0);
+}
+
+// Fill the run's slot data and sign tables (the note above).  K is the
+// operands' K; terms K .. Kp - 1 are zero coefficients.
+__device__ __forceinline__ void sweep_tables(
+    float* tab, unsigned* zt, SweepGroup* grp, const int* __restrict__ xl,
+    const int* __restrict__ act, const int* __restrict__ z,
+    const float* __restrict__ s, const float* __restrict__ ang, int b,
+    int gcap, int K, int Kp, int fmode, int cb, unsigned xhb, unsigned cA) {
+  const unsigned C = 1u << cb, T = blockDim.x;
+  const unsigned d = xhb ? xhb : 1u;
+  for (int i = threadIdx.x; i < gcap * Kp; i += T) {
+    const int g2 = i / Kp, k = i - g2 * Kp;
+    const size_t slot = (size_t)b * gcap + g2;
+    const unsigned xloc =
+        act[slot] ? ((xhb ? C : 0u) | (unsigned)xl[slot]) : 0u;
+    const int h = xloc ? 31 - __clz(xloc) : 0;
+    if (k == 0) grp[g2] = SweepGroup{xloc, h, rot_angle(ang[slot], fmode)};
+    unsigned zk = 0u;
+    float c = 0.f;
+    if (k < K) {
+      zk = (unsigned)z[slot * K + k];
+      c = s[slot * K + k];
+    }
+    const unsigned ze = (zk & (C - 1u)) | (parity((d << cb) & zk) << cb);
+    if (parity((cA << cb) & zk)) c = -c;
+    zt[i] = ze;
+    float* row = tab + (size_t)i * SW_PER;
+#pragma unroll
+    for (int q = 0; q < SW_PER; ++q)
+      row[q] = parity(insert_zero(q * T, h) & ze) ? -c : c;
+  }
+}
+
+// Fields F[q] of a thread's SW_PER pairs of one group (thread part lf):
+// per term one popcount, then SW_PER FMAs against the group's table.  The
+// terms add in the order k = 0 .. Kp - 1; padding adds exact zeros.
+template <int KT>
+__device__ __forceinline__ void sweep_fields(float (&F)[SW_PER], unsigned lf,
+                                             const float* tab,
+                                             const unsigned* zt, int Kp) {
+#pragma unroll
+  for (int q = 0; q < SW_PER; ++q) F[q] = 0.f;
+  for (int k0 = 0; k0 < Kp; k0 += KT) {
+#pragma unroll
+    for (int k = 0; k < KT; ++k) {
+      const float sg = parity(lf & zt[k0 + k]) ? -1.f : 1.f;
+      const float4* row =
+          reinterpret_cast<const float4*>(tab + (k0 + k) * SW_PER);
+#pragma unroll
+      for (int q4 = 0; q4 < SW_PER / 4; ++q4) {
+        const float4 v = row[q4];
+        F[4 * q4] = fmaf(sg, v.x, F[4 * q4]);
+        F[4 * q4 + 1] = fmaf(sg, v.y, F[4 * q4 + 1]);
+        F[4 * q4 + 2] = fmaf(sg, v.z, F[4 * q4 + 2]);
+        F[4 * q4 + 3] = fmaf(sg, v.w, F[4 * q4 + 3]);
+      }
+    }
+  }
+}
+
+// Shared-memory carve-up common to both sweeps, after the nst states.
+struct SweepSmem {
+  float* tab;
+  unsigned* zt;
+  SweepGroup* grp;
+  float* red;
+};
+
+__device__ __forceinline__ SweepSmem sweep_carve(float* after_states,
+                                                 int gcap, int Kp) {
+  SweepSmem m;
+  m.tab = after_states;
+  m.zt = reinterpret_cast<unsigned*>(m.tab + (size_t)gcap * Kp * SW_PER);
+  m.grp = reinterpret_cast<SweepGroup*>(m.zt + gcap * Kp);
+  m.red = reinterpret_cast<float*>(m.grp + gcap);
+  return m;
+}
+
 // ---------------------------------------------------------------- kernel 1
 // rot_fused: bucket b of a rotation sequence, one launch per run in order.
 // Replaces openvqe_tpu/sim/streaming.py::_rot_fused_kernel.  Local mask
-// xloc = (x_hi ? 1 << cb : 0) | x_lo; pairs of the 2C-element local space
-// are l = insert_zero(t, msb(xloc)), t < C, so each pair is one thread's
-// for the group: both ends of both planes are read before either is
-// written (the order of streaming.py:1239-1251), and the fields come from
-// the global indices.
-__global__ void __launch_bounds__(SW_THREADS)
+// xloc = (x_hi ? 1 << cb : 0) | x_lo; each pair {l, l ^ xloc} is one
+// thread's for the group: both ends of both planes are read before either
+// is written (the order of streaming.py:1239-1251).  vec: psi is 16-byte
+// aligned.
+template <int KT>
+__global__ void __launch_bounds__(SW_MAX_THREADS, 2)
 rot_fused_kernel(float* __restrict__ psi, unsigned N, int cb,
                  const int* __restrict__ xh, const int* __restrict__ xl,
                  const int* __restrict__ act, const int* __restrict__ z,
                  const float* __restrict__ s, const float* __restrict__ ang,
-                 int b, int gcap, int K, int fmode) {
-  extern __shared__ float sm[];
-  const unsigned C = 1u << cb, xhb = (unsigned)xh[b];
+                 int b, int gcap, int K, int Kp, int fmode, int vec) {
+  extern __shared__ float4 sw_sm[];
+  float* sm = reinterpret_cast<float*>(sw_sm);
+  const unsigned C = 1u << cb, T = blockDim.x, xhb = (unsigned)xh[b];
   unsigned cA, cB;
   chunk_pair(xhb, cA, cB);
-  float* states[1] = {psi};
-  stage(sm, states, 1, N, cb, cA, cB, true);
-  __syncthreads();
   float* re = sm;
   float* im = sm + 2 * C;
+  const SweepSmem m = sweep_carve(sm + 4 * C, gcap, Kp);
+  float* states[1] = {psi};
+  stage(sm, states, 1, N, cb, cA, cB, true, vec);
+  sweep_tables(m.tab, m.zt, m.grp, xl, act, z, s, ang, b, gcap, K, Kp, fmode,
+               cb, xhb, cA);
+  __syncthreads();
   for (int g2 = 0; g2 < gcap; ++g2) {
-    const size_t slot = (size_t)b * gcap + g2;
-    const unsigned xloc = (xhb ? C : 0u) | (unsigned)xl[slot];
-    if (!act[slot] || xloc == 0u) continue;
-    const int h = 31 - __clz(xloc);
-    const int* zg = z + slot * K;
-    const float* sg = s + slot * K;
-    const RotAngle ra = rot_angle(ang[slot], fmode);
-    for (unsigned t = threadIdx.x; t < C; t += SW_THREADS) {
-      const unsigned l = insert_zero(t, h), ll = l ^ xloc;
-      float Fj, Fjj, cj, sj, ck, sk;            // cj, ck: cos - 1
-      field2(glob(l, cb, cA, cB), glob(ll, cb, cA, cB), zg, sg, K, Fj, Fjj);
-      rot_cm(ra, Fj, fmode, cj, sj);
-      rot_cm(ra, Fjj, fmode, ck, sk);
+    const SweepGroup g = m.grp[g2];
+    if (!g.xloc) continue;
+    const unsigned lf = insert_zero(threadIdx.x, g.h);
+    float F[SW_PER];
+    sweep_fields<KT>(F, lf, m.tab + (size_t)g2 * Kp * SW_PER,
+                     m.zt + g2 * Kp, Kp);
+#pragma unroll
+    for (int q = 0; q < SW_PER; ++q) {
+      const unsigned l = insert_zero(q * T, g.h) | lf, ll = l ^ g.xloc;
+      float cm, sn;                       // cm: cos - 1; the partner: -sn
+      rot_cm(g.ra, F[q], fmode, cm, sn);
       const float a0 = re[l], a1 = im[l], b0 = re[ll], b1 = im[ll];
-      re[l] = a0 + (cj * a0 + sj * b0);
-      im[l] = a1 + (cj * a1 + sj * b1);
-      re[ll] = b0 + (ck * b0 + sk * a0);
-      im[ll] = b1 + (ck * b1 + sk * a1);
+      re[l] = a0 + (cm * a0 + sn * b0);
+      im[l] = a1 + (cm * a1 + sn * b1);
+      re[ll] = b0 + (cm * b0 - sn * a0);
+      im[ll] = b1 + (cm * b1 - sn * a1);
     }
     __syncthreads();
   }
-  stage(sm, states, 1, N, cb, cA, cB, false);
+  stage(sm, states, 1, N, cb, cA, cB, false, vec);
 }
 
 // ---------------------------------------------------------------- kernel 2
 // adjoint_fused: bucket b of the REVERSED sequence, one launch per run in
 // order.  Replaces openvqe_tpu/sim/streaming.py::_adj_fused_kernel.  p and
-// lambda are staged together; per group each pair-thread first takes its
-// share of -2 sum_j F(j) (lam_j . p_{j^x}) from the current states, then
-// un-rotates both: p'(j) = c(j) p(j) - s(j) p(j ^ x).  The block's share of
-// slot (b, g2) goes to partials[slot][blockIdx.x] (zero for a padding
-// slot); row_reduce_kernel finishes the (B, gcap) entries.
-__global__ void __launch_bounds__(SW_THREADS)
+// lambda are staged together; per group each pair first adds its share of
+// -2 sum_j F(j) (lam_j . p_{j^x}), with F(j ^ x) = -F(j) the share
+// F(l) (lam_l . p_ll - lam_ll . p_l), then un-rotates both states:
+// p'(j) = p(j) + (cm(j) p(j) - s(j) p(j ^ x)).  The shares are summed in
+// each warp (shuffles, fixed order) into red[slot][warp]; after the run
+// the block adds its warps in order into partials[slot][blockIdx.x] (zero
+// for a padding slot), and row_reduce_kernel finishes the (B, gcap)
+// entries.
+template <int KT>
+__global__ void __launch_bounds__(SW_MAX_THREADS, 1)
 adjoint_fused_kernel(float* __restrict__ p, float* __restrict__ l,
                      unsigned N, int cb, const int* __restrict__ xh,
                      const int* __restrict__ xl, const int* __restrict__ act,
                      const int* __restrict__ z, const float* __restrict__ s,
                      const float* __restrict__ ang, int b, int gcap, int K,
-                     int fmode, float* __restrict__ partials) {
-  extern __shared__ float sm[];
-  const unsigned C = 1u << cb, C2 = 2u * C, xhb = (unsigned)xh[b];
+                     int Kp, int fmode, int vec,
+                     float* __restrict__ partials) {
+  extern __shared__ float4 sw_sm[];
+  float* sm = reinterpret_cast<float*>(sw_sm);
+  const unsigned C = 1u << cb, C2 = 2u * C, T = blockDim.x;
+  const unsigned xhb = (unsigned)xh[b], warps = T / 32;
   unsigned cA, cB;
   chunk_pair(xhb, cA, cB);
-  float* states[2] = {p, l};
-  stage(sm, states, 2, N, cb, cA, cB, true);
-  __syncthreads();
   float* pre = sm;
   float* pim = sm + C2;
   float* lre = sm + 2 * C2;
   float* lim = sm + 3 * C2;
+  const SweepSmem m = sweep_carve(sm + 4 * C2, gcap, Kp);
+  float* states[2] = {p, l};
+  stage(sm, states, 2, N, cb, cA, cB, true, vec);
+  sweep_tables(m.tab, m.zt, m.grp, xl, act, z, s, ang, b, gcap, K, Kp, fmode,
+               cb, xhb, cA);
+  __syncthreads();
   for (int g2 = 0; g2 < gcap; ++g2) {
-    const size_t slot = (size_t)b * gcap + g2;
-    const unsigned xloc = (xhb ? C : 0u) | (unsigned)xl[slot];
+    const SweepGroup g = m.grp[g2];
+    if (!g.xloc) continue;
+    const unsigned lf = insert_zero(threadIdx.x, g.h);
+    float F[SW_PER];
+    sweep_fields<KT>(F, lf, m.tab + (size_t)g2 * Kp * SW_PER,
+                     m.zt + g2 * Kp, Kp);
     float contrib = 0.f;
-    if (act[slot] && xloc != 0u) {
-      const int h = 31 - __clz(xloc);
-      const int* zg = z + slot * K;
-      const float* sg = s + slot * K;
-      const RotAngle ra = rot_angle(ang[slot], fmode);
-      for (unsigned t = threadIdx.x; t < C; t += SW_THREADS) {
-        const unsigned i = insert_zero(t, h), ii = i ^ xloc;
-        float Fj, Fjj, cj, sj, ck, sk;          // cj, ck: cos - 1
-        field2(glob(i, cb, cA, cB), glob(ii, cb, cA, cB), zg, sg, K, Fj,
-               Fjj);
-        rot_cm(ra, Fj, fmode, cj, sj);
-        rot_cm(ra, Fjj, fmode, ck, sk);
-        const float p0j = pre[i], p1j = pim[i], p0k = pre[ii], p1k = pim[ii];
-        const float l0j = lre[i], l1j = lim[i], l0k = lre[ii], l1k = lim[ii];
-        contrib +=
-            Fj * (l0j * p0k + l1j * p1k) + Fjj * (l0k * p0j + l1k * p1j);
-        pre[i] = p0j + (cj * p0j - sj * p0k);
-        pim[i] = p1j + (cj * p1j - sj * p1k);
-        pre[ii] = p0k + (ck * p0k - sk * p0j);
-        pim[ii] = p1k + (ck * p1k - sk * p1j);
-        lre[i] = l0j + (cj * l0j - sj * l0k);
-        lim[i] = l1j + (cj * l1j - sj * l1k);
-        lre[ii] = l0k + (ck * l0k - sk * l0j);
-        lim[ii] = l1k + (ck * l1k - sk * l1j);
-      }
+#pragma unroll
+    for (int q = 0; q < SW_PER; ++q) {
+      const unsigned i = insert_zero(q * T, g.h) | lf, ii = i ^ g.xloc;
+      float cm, sn;                       // cm: cos - 1; the partner: -sn
+      rot_cm(g.ra, F[q], fmode, cm, sn);
+      const float p0j = pre[i], p1j = pim[i], p0k = pre[ii], p1k = pim[ii];
+      const float l0j = lre[i], l1j = lim[i], l0k = lre[ii], l1k = lim[ii];
+      contrib += F[q] * ((l0j * p0k + l1j * p1k) - (l0k * p0j + l1k * p1j));
+      pre[i] = p0j + (cm * p0j - sn * p0k);
+      pim[i] = p1j + (cm * p1j - sn * p1k);
+      pre[ii] = p0k + (cm * p0k + sn * p0j);
+      pim[ii] = p1k + (cm * p1k + sn * p1j);
+      lre[i] = l0j + (cm * l0j - sn * l0k);
+      lim[i] = l1j + (cm * l1j - sn * l1k);
+      lre[ii] = l0k + (cm * l0k + sn * l0j);
+      lim[ii] = l1k + (cm * l1k + sn * l1j);
     }
-    const float tot = block_sum<SW_THREADS>(contrib);
-    if (threadIdx.x == 0) partials[slot * gridDim.x + blockIdx.x] = tot;
+    for (int o = 16; o > 0; o >>= 1)
+      contrib += __shfl_down_sync(0xffffffffu, contrib, o);
+    if ((threadIdx.x & 31) == 0) m.red[g2 * warps + threadIdx.x / 32] = contrib;
     __syncthreads();
   }
-  stage(sm, states, 2, N, cb, cA, cB, false);
+  for (int g2 = threadIdx.x; g2 < gcap; g2 += T) {
+    float tot = 0.f;
+    if (m.grp[g2].xloc)
+      for (unsigned w = 0; w < warps; ++w) tot += m.red[g2 * warps + w];
+    partials[((size_t)b * gcap + g2) * gridDim.x + blockIdx.x] = tot;
+  }
+  stage(sm, states, 2, N, cb, cA, cB, false, vec);
 }
 
 // Stage source chunk src (both planes) into sm[0 .. 2C).
@@ -498,6 +676,84 @@ int launch_hoist(const float* psi, long long N, int cb, int B,
   return (int)cudaGetLastError();
 }
 
+// The compile-time K of a sweep: the operands' K rounded up to a power of
+// two, at most SW_KTILE; above it, tiles of SW_KTILE.  Kp counts the terms
+// the kernel adds (K plus zero padding).
+void sweep_k(int K, int& KT, int& Kp) {
+  KT = 1;
+  while (KT < K && KT < SW_KTILE) KT *= 2;
+  Kp = (K + KT - 1) / KT * KT;
+}
+
+unsigned sweep_threads(int cb) { return (1u << cb) / SW_PER; }
+
+template <int KT>
+int launch_rot(float* psi, long long N, int cb, const int* xh, const int* xl,
+               const int* act, const int* z, const float* s,
+               const float* ang, int B, int gcap, int K, int Kp, int fmode,
+               cudaStream_t st) {
+  const size_t smem = sweep_smem(1, cb, gcap, Kp);
+  int e = set_smem(rot_fused_kernel<KT>, smem);
+  if (e) return e;
+  const unsigned nblk = (unsigned)(N >> (cb + 1));
+  const int vec = ((uintptr_t)psi & 15u) == 0;
+  for (int b = 0; b < B; ++b) {
+    rot_fused_kernel<KT><<<nblk, sweep_threads(cb), smem, st>>>(
+        psi, (unsigned)N, cb, xh, xl, act, z, s, ang, b, gcap, K, Kp, fmode,
+        vec);
+    e = (int)cudaGetLastError();
+    if (e) return e;
+  }
+  return 0;
+}
+
+template <int KT>
+int launch_adjoint(float* p, float* l, long long N, int cb, const int* xh,
+                   const int* xl, const int* act, const int* z,
+                   const float* s, const float* ang, int B, int gcap, int K,
+                   int Kp, int fmode, float* partials, cudaStream_t st) {
+  const size_t smem = sweep_smem(2, cb, gcap, Kp);
+  int e = set_smem(adjoint_fused_kernel<KT>, smem);
+  if (e) return e;
+  const unsigned nblk = (unsigned)(N >> (cb + 1));
+  const int vec = (((uintptr_t)p | (uintptr_t)l) & 15u) == 0;
+  for (int b = 0; b < B; ++b) {
+    adjoint_fused_kernel<KT><<<nblk, sweep_threads(cb), smem, st>>>(
+        p, l, (unsigned)N, cb, xh, xl, act, z, s, ang, b, gcap, K, Kp, fmode,
+        vec, partials);
+    e = (int)cudaGetLastError();
+    if (e) return e;
+  }
+  return 0;
+}
+
+// Registers, spills and resident blocks of one sweep kernel as a launch of
+// these operands would configure it.
+template <int KT>
+int sweep_attrs(int adjoint, int cb, int gcap, int Kp, int* out) {
+  const void* fn = adjoint ? (const void*)adjoint_fused_kernel<KT>
+                           : (const void*)rot_fused_kernel<KT>;
+  const size_t smem = sweep_smem(adjoint ? 2 : 1, cb, gcap, Kp);
+  int e = (int)cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e) return e;
+  cudaFuncAttributes a;
+  e = (int)cudaFuncGetAttributes(&a, fn);
+  if (e) return e;
+  int blocks = 0;
+  e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, fn, (int)sweep_threads(cb), smem);
+  if (e) return e;
+  out[0] = blocks;
+  out[1] = a.numRegs;
+  out[2] = (int)a.localSizeBytes;
+  out[3] = (int)smem;
+  out[4] = (int)sweep_threads(cb);
+  out[5] = KT;
+  out[6] = Kp;
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -508,17 +764,20 @@ int ovqe_rot_fused(float* psi, long long N, int cb, const int* xh,
                    int fmode, void* stream) {
   if (!cb_ok(N, cb)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = ((size_t)4 << cb) * sizeof(float);
-  int e = set_smem(rot_fused_kernel, smem);
-  if (e) return e;
-  const unsigned nblk = (unsigned)(N >> (cb + 1));
-  for (int b = 0; b < B; ++b) {
-    rot_fused_kernel<<<nblk, SW_THREADS, smem, st>>>(
-        psi, (unsigned)N, cb, xh, xl, act, z, s, ang, b, gcap, K, fmode);
-    e = (int)cudaGetLastError();
-    if (e) return e;
+  int KT, Kp;
+  sweep_k(K, KT, Kp);
+  switch (KT) {
+    case 1: return launch_rot<1>(psi, N, cb, xh, xl, act, z, s, ang, B, gcap,
+                                 K, Kp, fmode, st);
+    case 2: return launch_rot<2>(psi, N, cb, xh, xl, act, z, s, ang, B, gcap,
+                                 K, Kp, fmode, st);
+    case 4: return launch_rot<4>(psi, N, cb, xh, xl, act, z, s, ang, B, gcap,
+                                 K, Kp, fmode, st);
+    case 8: return launch_rot<8>(psi, N, cb, xh, xl, act, z, s, ang, B, gcap,
+                                 K, Kp, fmode, st);
+    default: return launch_rot<SW_KTILE>(psi, N, cb, xh, xl, act, z, s, ang,
+                                         B, gcap, K, Kp, fmode, st);
   }
-  return 0;
 }
 
 int ovqe_adjoint_fused(float* p, float* l, long long N, int cb,
@@ -528,20 +787,42 @@ int ovqe_adjoint_fused(float* p, float* l, long long N, int cb,
                        float* gts, void* stream) {
   if (!cb_ok(N, cb)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = ((size_t)8 << cb) * sizeof(float);
-  int e = set_smem(adjoint_fused_kernel, smem);
-  if (e) return e;
-  const unsigned nblk = (unsigned)(N >> (cb + 1));
-  for (int b = 0; b < B; ++b) {
-    adjoint_fused_kernel<<<nblk, SW_THREADS, smem, st>>>(
-        p, l, (unsigned)N, cb, xh, xl, act, z, s, ang, b, gcap, K, fmode,
-        partials);
-    e = (int)cudaGetLastError();
-    if (e) return e;
+  int KT, Kp, e;
+  sweep_k(K, KT, Kp);
+  switch (KT) {
+    case 1: e = launch_adjoint<1>(p, l, N, cb, xh, xl, act, z, s, ang, B,
+                                  gcap, K, Kp, fmode, partials, st); break;
+    case 2: e = launch_adjoint<2>(p, l, N, cb, xh, xl, act, z, s, ang, B,
+                                  gcap, K, Kp, fmode, partials, st); break;
+    case 4: e = launch_adjoint<4>(p, l, N, cb, xh, xl, act, z, s, ang, B,
+                                  gcap, K, Kp, fmode, partials, st); break;
+    case 8: e = launch_adjoint<8>(p, l, N, cb, xh, xl, act, z, s, ang, B,
+                                  gcap, K, Kp, fmode, partials, st); break;
+    default: e = launch_adjoint<SW_KTILE>(p, l, N, cb, xh, xl, act, z, s,
+                                          ang, B, gcap, K, Kp, fmode,
+                                          partials, st); break;
   }
-  row_reduce_kernel<ST_THREADS, float>
-      <<<B * gcap, ST_THREADS, 0, st>>>(partials, (int)nblk, -2.f, gts);
+  if (e) return e;
+  row_reduce_kernel<ST_THREADS, float><<<B * gcap, ST_THREADS, 0, st>>>(
+      partials, (int)(N >> (cb + 1)), -2.f, gts);
   return (int)cudaGetLastError();
+}
+
+// out[7]: resident blocks per SM, registers per thread, local (spill)
+// bytes per thread, dynamic shared memory bytes, threads per block, the
+// compile-time K and the padded K of rot_fused (adjoint 0) or
+// adjoint_fused (1) for operands of this K, chunk and run capacity.
+int ovqe_sweep_attrs(int adjoint, int K, int cb, int gcap, int* out) {
+  if (cb < ST_MIN_CB || cb > ST_MAX_CB) return (int)cudaErrorInvalidValue;
+  int KT, Kp;
+  sweep_k(K, KT, Kp);
+  switch (KT) {
+    case 1: return sweep_attrs<1>(adjoint, cb, gcap, Kp, out);
+    case 2: return sweep_attrs<2>(adjoint, cb, gcap, Kp, out);
+    case 4: return sweep_attrs<4>(adjoint, cb, gcap, Kp, out);
+    case 8: return sweep_attrs<8>(adjoint, cb, gcap, Kp, out);
+    default: return sweep_attrs<SW_KTILE>(adjoint, cb, gcap, Kp, out);
+  }
 }
 
 int ovqe_ham_bucketed(const float* psi, const float* acc_in, float* out,

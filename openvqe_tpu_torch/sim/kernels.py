@@ -43,7 +43,11 @@ float32; pool-overlap rows are (G, 2) or (B, gcap, 2) float32 (re, im);
 state planes are (2, 2^n) float32, all contiguous and on one device.
 Outputs are allocated with ``torch.empty`` and the kernels run on the
 current stream.  ``LAUNCHES`` counts, per wrapper, the calls that launched
-the kernel.
+the kernel.  ``rot_fused`` and ``adjoint_fused`` compute one field per
+pair and take only operands that carry the odd-Y certificate
+(``BucketOperands.odd_y``), on either device: without it they raise
+``ValueError``.  ``sweep_attributes`` reports how those two launch
+(registers, spills, shared memory, resident blocks per SM).
 """
 
 from __future__ import annotations
@@ -150,6 +154,7 @@ _SIGNATURES = {
         "ovqe_ham_bucketed": "PPPLIPPPPPPIIIIP",
         "ovqe_expect_bucketed": "PLIPPPPPPIIIIIPPP",
         "ovqe_expect_hoisted": "PLIPPPPPPPIIIIIPPP",
+        "ovqe_sweep_attrs": "IIIIP",
     },
     "stream_group": {
         "ovqe_rot_stream": "PLPPPPPIIIP",
@@ -336,11 +341,21 @@ def _in_place(psi, out, inplace: bool):
     return psi.copy_(out) if inplace else out
 
 
+def _odd_y(bo: st.BucketOperands) -> None:
+    if not bo.odd_y:
+        raise ValueError(
+            "rotation operands without the odd-Y certificate "
+            "(streaming.Buckets.odd_y): the fused sweeps compute one field "
+            "per pair and need F(j ^ x) = -F(j)")
+
+
 def rot_fused(psi, ang, bo: st.BucketOperands, fmode: int,
               inplace: bool = False):
     """The rotation sweep over the runs of ``bo`` in order (one launch per
     run); ang (B, gcap) holds -theta[op] per slot.  ``inplace`` rotates
-    psi itself and returns it (no second state)."""
+    psi itself and returns it (no second state).  ``bo`` must carry the
+    odd-Y certificate (``bo.odd_y``) on either device."""
+    _odd_y(bo)
     if psi.device.type == "cpu":
         return _in_place(psi, st.rot_fused_ref(psi, ang, bo, fmode), inplace)
     N = _buckets(psi, bo, (bo.coef,))
@@ -356,7 +371,9 @@ def rot_fused(psi, ang, bo: st.BucketOperands, fmode: int,
 def adjoint_fused(p, lam, ang, bo: st.BucketOperands, fmode: int):
     """Reversible adjoint over the runs of the REVERSED sequence in ``bo``;
     returns (p_prev, lam_prev, gts) with gts (B, gcap) the per-slot
-    gradient entries (0 in padding slots)."""
+    gradient entries (0 in padding slots).  ``bo`` must carry the odd-Y
+    certificate (``bo.odd_y``) on either device."""
+    _odd_y(bo)
     if p.device.type == "cpu":
         return st.adjoint_fused_ref(p, lam, ang, bo, fmode)
     N = _buckets(p, bo, (bo.coef,))
@@ -374,6 +391,28 @@ def adjoint_fused(p, lam, ang, bo: st.BucketOperands, fmode: int):
             bo.chunk_bits, bo.x_hi, bo.x_lo, bo.act, bo.z, bo.coef, ang,
             bo.B, bo.gcap, bo.K, _fmode(fmode), partials, gts, _stream(p))
     return p_out, l_out, gts
+
+
+SWEEP_PER = 8           # SW_PER of csrc/streaming_kernels.cu: pairs per
+                        # thread and group of A3 and C9, 2^cb / 8 threads
+
+
+def sweep_attributes(name: str, bo: st.BucketOperands) -> Dict[str, int]:
+    """How ``rot_fused`` or ``adjoint_fused`` launches on ``bo``: resident
+    blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+    registers and local (spill) bytes per thread, dynamic shared memory
+    per block, threads per block, and the compile-time and padded K."""
+    if name not in ("rot_fused", "adjoint_fused"):
+        raise ValueError(f"not a sweep kernel: {name}")
+    out = (ctypes.c_int * 7)()
+    rc = _load("streaming").ovqe_sweep_attrs(
+        int(name == "adjoint_fused"), bo.K, bo.chunk_bits, bo.gcap,
+        ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"sweep_attributes({name}): CUDA error {rc}")
+    keys = ("blocks_per_sm", "registers", "spill_bytes", "smem_bytes",
+            "threads", "k_compiled", "k_padded")
+    return dict(zip(keys, list(out)))
 
 
 def ham_bucketed(psi, acc, bo: st.BucketOperands):

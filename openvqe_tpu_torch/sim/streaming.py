@@ -10,7 +10,9 @@ share x_hi can share one residency of that chunk pair:
 
 * rotation sequences run in **runs** of at most ``ROT_BUCKET_CAP``
   consecutive groups with equal x_hi (``build_seq_buckets``); order is
-  kept exactly, since rotations do not commute;
+  kept exactly, since rotations do not commute.  ``Buckets.odd_y``
+  certifies every live term odd-Y, so F(j ^ x) = -F(j) and the fused
+  sweeps compute one field per pair;
 * Hamiltonian groups are order-free and are **bucketed** by x_hi after a
   stable sort (``build_ham_buckets``), split into two K classes by the
   last live coefficient column (``build_ham_buckets_split``): most
@@ -264,6 +266,23 @@ class Buckets:
         """All imaginary coefficients zero: the kernels skip W_im."""
         return self.coef_im is None or not self.coef_im.any()
 
+    @property
+    def odd_y(self) -> bool:
+        """The odd-Y certificate of a rotation sweep: every live term of
+        every live slot has popcount(x & z_k) odd, x = x_hi << chunk_bits |
+        x_lo.  Then (-1)^popcount((j ^ x) & z_k) = -(-1)^popcount(j & z_k)
+        term by term, so a group's field obeys F(j ^ x) = -F(j) exactly (in
+        any precision: the two sums differ by sign only), which kernels A3
+        and C9 rely on to compute one field per pair."""
+        x = (self.x_hi.astype(np.int64)[:, None] << self.chunk_bits) \
+            | self.x_lo
+        live = self.coef != 0
+        if self.coef_im is not None:
+            live |= self.coef_im != 0
+        live &= (self.act != 0)[..., None]
+        odd = _popcount(x[..., None] & self.z) & 1 == 1
+        return bool(np.all(odd | ~live))
+
 
 def _lay_out(sd: StreamGroupData, buckets: List[np.ndarray], gcap: int,
              K: Optional[int] = None) -> Buckets:
@@ -455,7 +474,9 @@ class BucketOperands:
     """Buckets as the kernels take them: x_hi (B,) int32, x_lo, act (B,
     gcap) int32, z (B, gcap, K) int32, coefficients (B, gcap, K) in the
     objective's dtype (a_im is zeros for a real sum), all contiguous on one
-    device.  ``op`` stays on the host: angles are built there."""
+    device.  ``op`` stays on the host: angles are built there.  ``real``
+    and ``odd_y`` are the host certificates of ``Buckets``, computed once
+    here."""
     n: int
     chunk_bits: int
     x_hi: torch.Tensor
@@ -468,6 +489,7 @@ class BucketOperands:
     op: Optional[np.ndarray]
     act_host: np.ndarray
     fmode: int = 0
+    odd_y: bool = False       # Buckets.odd_y: kernels A3 and C9 need it
 
     @property
     def B(self) -> int:
@@ -502,7 +524,8 @@ def bucket_operands(bk: Buckets, device, dtype=torch.float32
         x_lo=dev(bk.x_lo, torch.int32), act=dev(bk.act, torch.int32),
         z=dev(bk.z, torch.int32), coef=dev(bk.coef, dtype),
         coef_im=dev(np.zeros_like(cim) if real else cim, dtype), real=real,
-        op=bk.op, act_host=np.asarray(bk.act, bool), fmode=bk.fmode)
+        op=bk.op, act_host=np.asarray(bk.act, bool), fmode=bk.fmode,
+        odd_y=bk.odd_y)
 
 
 @dataclass

@@ -1,9 +1,10 @@
-"""The fourteen CUDA kernels of openvqe_tpu_torch/sim/kernels.py against
+"""The fifteen CUDA kernels of openvqe_tpu_torch/sim/kernels.py against
 their plain PyTorch versions, on the card: the four per-group kernels, the
-four bucketed (streaming) ones, the four per-group streaming ones
-(OVQE_STREAM_FUSE=0) and the two pool-overlap kernels.  A CUDA kernel has
-no CPU mode, so these tests are marked ``cuda`` and skip on a machine
-without a card; on one they run with
+four bucketed (streaming) ones with the fused sweeps at every compile-time
+K and the odd-Y refusal, the hoisted expectation, the four per-group
+streaming ones (OVQE_STREAM_FUSE=0) and the two pool-overlap kernels.  A
+CUDA kernel has no CPU mode, so these tests are marked ``cuda`` and skip
+on a machine without a card; on one they run with
 ``python -m pytest tests/test_torch_kernels.py -q``.
 ``chip_smoke.py`` holds the same kernels at the main paths' shapes.
 """
@@ -67,8 +68,8 @@ def _problem(fmode, seed=4):
     return ham, gens
 
 
-def _state(dev, seed):
-    v = np.random.default_rng(seed).normal(size=(2, 1 << N))
+def _state(dev, seed, n=N):
+    v = np.random.default_rng(seed).normal(size=(2, 1 << n))
     return torch.as_tensor(v / np.linalg.norm(v), dtype=torch.float32,
                            device=dev)
 
@@ -162,11 +163,12 @@ def _stream_problem(n, cb, fmode, seed=6):
     return ham, gens
 
 
-@pytest.mark.parametrize("cb", [8, 11])
+@pytest.mark.parametrize("cb", [8, 11, 12])
 @pytest.mark.parametrize("fmode", [0, 1, 2])
 def test_streaming_kernels_match_plain_versions(dev, fmode, cb):
-    ham, gens = _stream_problem(N, cb, fmode)
-    obj = VQEObjective(ham, n=N, device=dev, stream=True, chunk_bits=cb)
+    n = max(N, cb + 2)
+    ham, gens = _stream_problem(n, cb, fmode)
+    obj = VQEObjective(ham, n=n, device=dev, stream=True, chunk_bits=cb)
     b = obj.bind(gens, 0)
     assert isinstance(b, StreamBoundAnsatz) and b._fmode == fmode
     fwd, adj = b._fwd, b._adj
@@ -175,18 +177,24 @@ def test_streaming_kernels_match_plain_versions(dev, fmode, cb):
     assert fwd.act_host.sum(1).max() == st.ROT_BUCKET_CAP
     assert [hc.K for hc in obj.hclasses] == [st.K_SMALL, 16]
     assert not all(hc.real for hc in obj.hclasses)
+    assert fwd.odd_y and adj.odd_y
     theta = np.random.default_rng(1).normal(size=len(gens))
     af = st.bucket_angles(fwd, theta, torch.float32, dev)
     aa = st.bucket_angles(adj, theta, torch.float32, dev)
-    psi = _state(dev, 2)
+    psi = _state(dev, 2, n)
     counts = dict(K.LAUNCHES)
 
     a = K.rot_fused(psi, af, fwd, fmode)
     assert float((a - st.rot_fused_ref(psi, af, fwd, fmode)).abs().max()) \
         <= TOL
+    # in place: the same state, written into psi itself
+    q = psi.clone()
+    assert K.rot_fused(q, af, fwd, fmode, inplace=True).data_ptr() == \
+        q.data_ptr()
+    assert torch.equal(q, a)
     # the same sequence through the per-group kernel
     o = convert.seq_operands(gr.group_op_sequence(compile_op_sequence(
-        gens, N)), dev)
+        gens, n)), dev)
     ang = -torch.as_tensor(theta[o.op], dtype=torch.float32, device=dev)
     assert float((a - K.rot_sweep(psi, ang, o.x, o.z, o.s, o.fmode)
                   ).abs().max()) <= TOL
@@ -208,15 +216,105 @@ def test_streaming_kernels_match_plain_versions(dev, fmode, cb):
     assert float((l - lr).abs().max()) <= TOL
     assert float((g - grf).abs().max()) <= TOL
     assert float((p - psi).abs().max()) <= TOL
+    assert torch.equal(g, K.adjoint_fused(a, lam, aa, adj, fmode)[2])
     _, _, gs = K.adjoint_sweep(a, lam, ang, o.x, o.z, o.s, o.fmode)
     np.testing.assert_allclose(
         st.bucket_grad(g, adj, len(theta)).numpy(),
         gr.segment_grad(gs, o.op, len(theta)).numpy(), atol=TOL)
     torch.cuda.synchronize()
-    want = {"rot_fused": 1, "adjoint_fused": 1, "ham_bucketed": 2,
+    want = {"rot_fused": 2, "adjoint_fused": 2, "ham_bucketed": 2,
             "expect_bucketed": 4, "rot_sweep": 1, "adjoint_sweep": 1}
     assert {k: K.LAUNCHES[k] - counts[k] for k in K.KERNELS} == \
         {k: want.get(k, 0) for k in K.KERNELS}
+
+
+def _sweep_gens(n, cb, K, seed=11):
+    """Generators for the sweeps at one K: 18 with x_hi = 0, 18 with
+    x_hi = 1 (full 16-group runs), 6 free.  K = 8: JW images of double
+    excitations (field mode 1, the K of H10's UCCSD); K = 16 and 24: sums
+    of K odd-Y strings on one x mask with random weights (field mode 0;
+    24 terms are grouped at k_cap 32, so the kernel adds two tiles)."""
+    from openvqe_tpu_torch.ops.transforms import transform_operator
+    from openvqe_tpu_torch.ops.uccsd import double_op
+    rng = np.random.default_rng(seed)
+    hi = n - cb
+
+    def qubits(high, count):
+        low = list(rng.choice(np.arange(hi, n), size=count, replace=False))
+        if high == "one":
+            low[0] = hi - 1
+        elif high == "free":
+            low = list(rng.choice(n, size=count, replace=False))
+        return sorted(int(v) for v in low)
+
+    gens = []
+    for high in ["zero"] * 18 + ["one"] * 18 + ["free"] * 6:
+        if K == 8:
+            i, j, a, b = qubits(high, 4)
+            gens.append(transform_operator(double_op(i, j, a, b, n), "JW")
+                        * 1j)
+            continue
+        P = qubits(high, 3)                   # the x mask: X or Y there
+        rest = [v for v in range(n) if v not in P][:3]
+        odd = [m for m in range(8) if bin(m).count("1") % 2]
+        g = None
+        for t in range(K):
+            s = ["I"] * n
+            for bit, v in enumerate(P):
+                s[v] = "Y" if odd[t % 4] >> bit & 1 else "X"
+            for bit, v in enumerate(rest):
+                s[v] = "Z" if (t // 4) >> bit & 1 else "I"
+            q = [v for v in range(n) if s[v] != "I"]
+            term = PauliSum.from_term(n, float(rng.normal()),
+                                      "".join(s[v] for v in q), q)
+            g = term if g is None else g + term
+        gens.append(g)
+    return gens
+
+
+@pytest.mark.parametrize("cb", [8, 12])
+@pytest.mark.parametrize("k", [1, 8, 16, 24])
+def test_sweeps_match_plain_versions_at_each_k(dev, k, cb):
+    """A3 and C9 at the K of each compile-time instance (1, H10's 8, the
+    objective's largest 16, and 24 in two tiles of 16) against their plain
+    versions: runs with x_hi = 0 and != 0, full and padded runs, in place,
+    gradient entries bit-identical when repeated."""
+    n = cb + 2
+    ham, gens = _stream_problem(n, cb, 1)
+    if k != 1:
+        gens = _sweep_gens(n, cb, k)
+    gseq = gr.group_op_sequence(compile_op_sequence(gens, n), k_cap=32)
+    assert gseq.z.shape[1] == (32 if k == 24 else k)
+    assert gseq.fmode == (1 if k in (1, 8) else 0)
+    obj = VQEObjective(ham, n=n, device=dev, stream=True, chunk_bits=cb)
+    b = obj.bind_grouped(gseq, 0)
+    fwd, adj, fm = b._fwd, b._adj, b._fmode
+    xh = fwd.x_hi.cpu().numpy()
+    runs = fwd.act_host.sum(1)
+    assert (xh == 0).any() and (xh != 0).any()
+    assert runs.max() == st.ROT_BUCKET_CAP and runs.min() < st.ROT_BUCKET_CAP
+    assert fwd.odd_y and adj.odd_y
+    for name, ops in (("rot_fused", fwd), ("adjoint_fused", adj)):
+        at = K.sweep_attributes(name, ops)
+        assert at["k_padded"] >= ops.K and at["blocks_per_sm"] >= 1
+        assert at["threads"] == (1 << cb) // K.SWEEP_PER
+    theta = np.random.default_rng(3).normal(size=len(gens))
+    af = st.bucket_angles(fwd, theta, torch.float32, dev)
+    aa = st.bucket_angles(adj, theta, torch.float32, dev)
+    psi = _state(dev, 5, n)
+    a = K.rot_fused(psi, af, fwd, fm)
+    assert float((a - st.rot_fused_ref(psi, af, fwd, fm)).abs().max()) <= TOL
+    q = psi.clone()
+    K.rot_fused(q, af, fwd, fm, inplace=True)
+    assert torch.equal(q, a)
+    lam = _state(dev, 6, n)
+    p, l, g = K.adjoint_fused(a, lam, aa, adj, fm)
+    pr, lr, grf = st.adjoint_fused_ref(a, lam, aa, adj, fm)
+    assert float((p - pr).abs().max()) <= TOL
+    assert float((l - lr).abs().max()) <= TOL
+    assert float((g - grf).abs().max()) <= TOL
+    assert float((p - psi).abs().max()) <= TOL
+    assert torch.equal(g, K.adjoint_fused(a, lam, aa, adj, fm)[2])
 
 
 def test_streaming_wrappers_reject_what_the_kernels_do_not_take(dev):
@@ -235,6 +333,16 @@ def test_streaming_wrappers_reject_what_the_kernels_do_not_take(dev):
                          chunk_bits=6).bind(gens, 0)
     with pytest.raises(ValueError):              # chunk below 2^8
         K.rot_fused(psi, ang, small._fwd, 1)
+    # one live term with popcount(x & z) even: no odd-Y certificate
+    bk = st.build_seq_buckets(st.stream_seq_data(gr.group_op_sequence(
+        compile_op_sequence(gens, N)), 8))
+    bk.z[0, 0, 0] = 0
+    bo = st.bucket_operands(bk, dev)
+    assert not bo.odd_y
+    with pytest.raises(ValueError, match="odd-Y"):
+        K.rot_fused(psi, ang, bo, 1)
+    with pytest.raises(ValueError, match="odd-Y"):
+        K.adjoint_fused(psi, psi.clone(), ang, bo, 1)
 
 
 # ---------------- the expectation with herm (D12) and hoisted (D13)
