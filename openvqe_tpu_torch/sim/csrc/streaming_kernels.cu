@@ -23,12 +23,13 @@
 //
 // * rot_fused / adjoint_fused (redesigned for Hopper): one launch per run
 //   (runs do not commute), one block per chunk pair, both chunks of every
-//   state staged in shared memory (float4 loads where aligned), the run's
-//   groups applied in order with one __syncthreads() per group, written
-//   back once.  With x_hi = 0 the block stages chunks {c, c ^ 1} and the
-//   pairs stay inside each.  The field is the cost: computed at both ends
-//   of a pair from global z_k and c_k, it takes a popcount, a select and
-//   an FMA per term, end and group.  So (see the note above sweep_tables):
+//   state staged in shared memory (float4 loads; the wrappers refuse a
+//   state that is not 16-byte aligned), the run's groups applied in order
+//   with one __syncthreads() per group, written back once.  With x_hi = 0
+//   the block stages chunks {c, c ^ 1} and the pairs stay inside each.
+//   The field is the cost: computed at both ends of a pair from global z_k
+//   and c_k, it takes a popcount, a select and an FMA per term, end and
+//   group.  So (see the note above sweep_tables):
 //   - one field per pair: every rotation group is odd-Y (popcount(x & z_k)
 //     odd for every live term; the host certifies it,
 //     streaming.Buckets.odd_y, and the wrapper refuses operands without
@@ -74,8 +75,6 @@
 // synchronises, allocates nothing, and returns a CUDA error code (0 on
 // success).
 
-#include <cstdint>
-
 #include "common.cuh"
 
 #define SW_PER 8                // pairs per thread and group of A3 / C9
@@ -107,43 +106,31 @@ __device__ __forceinline__ unsigned parity(unsigned v) {
 }
 
 // Move the chunk pair of nst states between global and shared memory, laid
-// out as sm[(state * 2 + plane) * 2C + l].  vec: every state is 16-byte
-// aligned, so a thread moves 4 consecutive floats (a chunk holds 2^cb >=
-// 256 of them, so four never straddle two chunks).
+// out as sm[(state * 2 + plane) * 2C + l].  Every state is 16-byte aligned
+// (the wrappers check it), so a thread moves 4 consecutive floats (a chunk
+// holds 2^cb >= 256 of them, so four never straddle two chunks).  A sweep
+// block has C / SW_PER threads, so each moves SW_PER / 2 float4 per plane:
+// a fixed trip count, unrolled (on an H100 at H10's shapes C9 went from
+// 2.86 to 2.62 ms; PERF.md).
 __device__ __forceinline__ void stage(float* sm, float* const* st, int nst,
                                       unsigned N, int cb, unsigned cA,
-                                      unsigned cB, bool load, bool vec) {
+                                      unsigned cB, bool load) {
   const unsigned C2 = 2u << cb;
-  if (vec) {
-    for (unsigned v = threadIdx.x; v < C2 / 4; v += blockDim.x) {
+  for (int s = 0; s < nst; ++s) {
+#pragma unroll
+    for (int r = 0; r < SW_PER / 2; ++r) {
+      const unsigned v = r * blockDim.x + threadIdx.x;
       const unsigned j = glob(4 * v, cb, cA, cB);
-      for (int s = 0; s < nst; ++s) {
-        float4* re = reinterpret_cast<float4*>(sm + (2 * s) * C2) + v;
-        float4* im = reinterpret_cast<float4*>(sm + (2 * s + 1) * C2) + v;
-        float4* gre = reinterpret_cast<float4*>(st[s] + j);
-        float4* gim = reinterpret_cast<float4*>(st[s] + N + j);
-        if (load) {
-          *re = *gre;
-          *im = *gim;
-        } else {
-          *gre = *re;
-          *gim = *im;
-        }
-      }
-    }
-    return;
-  }
-  for (unsigned l = threadIdx.x; l < C2; l += blockDim.x) {
-    const unsigned j = glob(l, cb, cA, cB);
-    for (int s = 0; s < nst; ++s) {
-      float* re = sm + (2 * s) * C2;
-      float* im = re + C2;
+      float4* re = reinterpret_cast<float4*>(sm + (2 * s) * C2) + v;
+      float4* im = reinterpret_cast<float4*>(sm + (2 * s + 1) * C2) + v;
+      float4* gre = reinterpret_cast<float4*>(st[s] + j);
+      float4* gim = reinterpret_cast<float4*>(st[s] + N + j);
       if (load) {
-        re[l] = st[s][j];
-        im[l] = st[s][N + j];
+        *re = *gre;
+        *im = *gim;
       } else {
-        st[s][j] = re[l];
-        st[s][N + j] = im[l];
+        *gre = *re;
+        *gim = *im;
       }
     }
   }
@@ -268,15 +255,14 @@ __device__ __forceinline__ SweepSmem sweep_carve(float* after_states,
 // Replaces openvqe_tpu/sim/streaming.py::_rot_fused_kernel.  Local mask
 // xloc = (x_hi ? 1 << cb : 0) | x_lo; each pair {l, l ^ xloc} is one
 // thread's for the group: both ends of both planes are read before either
-// is written (the order of streaming.py:1239-1251).  vec: psi is 16-byte
-// aligned.
+// is written (the order of streaming.py:1239-1251).
 template <int KT>
 __global__ void __launch_bounds__(SW_MAX_THREADS, 2)
 rot_fused_kernel(float* __restrict__ psi, unsigned N, int cb,
                  const int* __restrict__ xh, const int* __restrict__ xl,
                  const int* __restrict__ act, const int* __restrict__ z,
                  const float* __restrict__ s, const float* __restrict__ ang,
-                 int b, int gcap, int K, int Kp, int fmode, int vec) {
+                 int b, int gcap, int K, int Kp, int fmode) {
   extern __shared__ float4 sw_sm[];
   float* sm = reinterpret_cast<float*>(sw_sm);
   const unsigned C = 1u << cb, T = blockDim.x, xhb = (unsigned)xh[b];
@@ -286,7 +272,7 @@ rot_fused_kernel(float* __restrict__ psi, unsigned N, int cb,
   float* im = sm + 2 * C;
   const SweepSmem m = sweep_carve(sm + 4 * C, gcap, Kp);
   float* states[1] = {psi};
-  stage(sm, states, 1, N, cb, cA, cB, true, vec);
+  stage(sm, states, 1, N, cb, cA, cB, true);
   sweep_tables(m.tab, m.zt, m.grp, xl, act, z, s, ang, b, gcap, K, Kp, fmode,
                cb, xhb, cA);
   __syncthreads();
@@ -310,7 +296,7 @@ rot_fused_kernel(float* __restrict__ psi, unsigned N, int cb,
     }
     __syncthreads();
   }
-  stage(sm, states, 1, N, cb, cA, cB, false, vec);
+  stage(sm, states, 1, N, cb, cA, cB, false);
 }
 
 // ---------------------------------------------------------------- kernel 2
@@ -331,7 +317,7 @@ adjoint_fused_kernel(float* __restrict__ p, float* __restrict__ l,
                      const int* __restrict__ xl, const int* __restrict__ act,
                      const int* __restrict__ z, const float* __restrict__ s,
                      const float* __restrict__ ang, int b, int gcap, int K,
-                     int Kp, int fmode, int vec,
+                     int Kp, int fmode,
                      float* __restrict__ partials) {
   extern __shared__ float4 sw_sm[];
   float* sm = reinterpret_cast<float*>(sw_sm);
@@ -345,7 +331,7 @@ adjoint_fused_kernel(float* __restrict__ p, float* __restrict__ l,
   float* lim = sm + 3 * C2;
   const SweepSmem m = sweep_carve(sm + 4 * C2, gcap, Kp);
   float* states[2] = {p, l};
-  stage(sm, states, 2, N, cb, cA, cB, true, vec);
+  stage(sm, states, 2, N, cb, cA, cB, true);
   sweep_tables(m.tab, m.zt, m.grp, xl, act, z, s, ang, b, gcap, K, Kp, fmode,
                cb, xhb, cA);
   __syncthreads();
@@ -376,7 +362,8 @@ adjoint_fused_kernel(float* __restrict__ p, float* __restrict__ l,
     }
     for (int o = 16; o > 0; o >>= 1)
       contrib += __shfl_down_sync(0xffffffffu, contrib, o);
-    if ((threadIdx.x & 31) == 0) m.red[g2 * warps + threadIdx.x / 32] = contrib;
+    if ((threadIdx.x & 31) == 0)
+      m.red[g2 * warps + threadIdx.x / 32] = contrib;
     __syncthreads();
   }
   for (int g2 = threadIdx.x; g2 < gcap; g2 += T) {
@@ -385,7 +372,7 @@ adjoint_fused_kernel(float* __restrict__ p, float* __restrict__ l,
       for (unsigned w = 0; w < warps; ++w) tot += m.red[g2 * warps + w];
     partials[((size_t)b * gcap + g2) * gridDim.x + blockIdx.x] = tot;
   }
-  stage(sm, states, 2, N, cb, cA, cB, false, vec);
+  stage(sm, states, 2, N, cb, cA, cB, false);
 }
 
 // Stage source chunk src (both planes) into sm[0 .. 2C).
@@ -696,11 +683,9 @@ int launch_rot(float* psi, long long N, int cb, const int* xh, const int* xl,
   int e = set_smem(rot_fused_kernel<KT>, smem);
   if (e) return e;
   const unsigned nblk = (unsigned)(N >> (cb + 1));
-  const int vec = ((uintptr_t)psi & 15u) == 0;
   for (int b = 0; b < B; ++b) {
     rot_fused_kernel<KT><<<nblk, sweep_threads(cb), smem, st>>>(
-        psi, (unsigned)N, cb, xh, xl, act, z, s, ang, b, gcap, K, Kp, fmode,
-        vec);
+        psi, (unsigned)N, cb, xh, xl, act, z, s, ang, b, gcap, K, Kp, fmode);
     e = (int)cudaGetLastError();
     if (e) return e;
   }
@@ -716,11 +701,10 @@ int launch_adjoint(float* p, float* l, long long N, int cb, const int* xh,
   int e = set_smem(adjoint_fused_kernel<KT>, smem);
   if (e) return e;
   const unsigned nblk = (unsigned)(N >> (cb + 1));
-  const int vec = (((uintptr_t)p | (uintptr_t)l) & 15u) == 0;
   for (int b = 0; b < B; ++b) {
     adjoint_fused_kernel<KT><<<nblk, sweep_threads(cb), smem, st>>>(
         p, l, (unsigned)N, cb, xh, xl, act, z, s, ang, b, gcap, K, Kp, fmode,
-        vec, partials);
+        partials);
     e = (int)cudaGetLastError();
     if (e) return e;
   }

@@ -349,12 +349,21 @@ def _odd_y(bo: st.BucketOperands) -> None:
             "per pair and need F(j ^ x) = -F(j)")
 
 
+def _aligned(*states: torch.Tensor) -> None:
+    """The sweeps stage states with 16-byte (float4) loads."""
+    for t in states:
+        if t.data_ptr() % 16:
+            raise ValueError("the fused sweeps take states whose data is "
+                             "16-byte aligned")
+
+
 def rot_fused(psi, ang, bo: st.BucketOperands, fmode: int,
               inplace: bool = False):
     """The rotation sweep over the runs of ``bo`` in order (one launch per
     run); ang (B, gcap) holds -theta[op] per slot.  ``inplace`` rotates
-    psi itself and returns it (no second state).  ``bo`` must carry the
-    odd-Y certificate (``bo.odd_y``) on either device."""
+    psi itself (16-byte aligned on the card) and returns it (no second
+    state).  ``bo`` must carry the odd-Y certificate (``bo.odd_y``) on
+    either device."""
     _odd_y(bo)
     if psi.device.type == "cpu":
         return _in_place(psi, st.rot_fused_ref(psi, ang, bo, fmode), inplace)
@@ -362,6 +371,7 @@ def rot_fused(psi, ang, bo: st.BucketOperands, fmode: int,
     _check("ang", ang, torch.float32, (bo.B, bo.gcap), psi.device)
     lib = _load("streaming")
     out = psi if inplace else torch.empty_like(psi).copy_(psi)
+    _aligned(out)
     _launch("rot_fused", lib.ovqe_rot_fused, out, N, bo.chunk_bits, bo.x_hi,
             bo.x_lo, bo.act, bo.z, bo.coef, ang, bo.B, bo.gcap, bo.K,
             _fmode(fmode), _stream(psi))
@@ -383,6 +393,7 @@ def adjoint_fused(p, lam, ang, bo: st.BucketOperands, fmode: int):
     p_out, l_out = torch.empty_like(p), torch.empty_like(lam)
     p_out.copy_(p)
     l_out.copy_(lam)
+    _aligned(p_out, l_out)
     nblk = N >> (bo.chunk_bits + 1)
     partials = torch.empty((bo.B * bo.gcap, nblk), dtype=torch.float32,
                            device=p.device)

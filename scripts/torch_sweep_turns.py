@@ -3,12 +3,13 @@
 ``rot_fused``, C9 ``adjoint_fused``) and the paths that run them.
 
     python3 scripts/torch_sweep_turns.py --trees PARENT CHANGE \\
-        [--order 0,1,1,0] [--h16 PICKLE] [--quick]
+        [--h16 PICKLE] [--quick]
 
 Each tree is a checkout of the repository (for example unpacked with
 ``git archive``) that holds ``chip_smoke.py`` and ``openvqe_tpu_torch``.
-For each entry of ``--order`` a child process measures, with that tree's
-modules and kernels (built into the tree's own ``build/``):
+The turns run parent, change, change, parent; in each a child process
+(at most 900 s) measures, with that tree's modules and kernels (built
+into the tree's own ``build/``):
 
 * A3 and C9 at H10's shapes (the UCCSD runs of ``chip_smoke.py`` phase 5
   at theta1): CUDA events over 20 calls after 3 warm-ups;
@@ -119,19 +120,19 @@ def measure(tree: Path, h16: str, quick: bool) -> dict:
     return out
 
 
+ORDER = (0, 1, 1, 0)    # the turns: indices into --trees
+CHILD_TIMEOUT_S = 900.0
+
 METRICS = ("a3_ms", "c9_ms", "h10_energy_and_grad_ms", "h10_adapt_s",
            "h16_sweep_s", "h16_expectation_s", "h16_energy_s")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--trees", nargs="+", help="checkouts, in index order")
-    ap.add_argument("--order", default="0,1,1,0",
-                    help="tree indices, one child each (default 0,1,1,0)")
+    ap.add_argument("--trees", nargs=2, metavar=("PARENT", "CHANGE"),
+                    help="the two checkouts")
     ap.add_argument("--h16", default="", help="H16 set-up pickle")
     ap.add_argument("--measure", default="", help=argparse.SUPPRESS)
-    ap.add_argument("--timeout", type=float, default=900.0,
-                    help="seconds a child may take")
     ap.add_argument("--quick", action="store_true",
                     help="A3, C9 and energy_and_grad only")
     args = ap.parse_args()
@@ -140,22 +141,21 @@ def main() -> int:
                                            args.h16, args.quick)),
               flush=True)
         return 0
-    trees = [Path(t).resolve() for t in args.trees or []]
-    order = [int(i) for i in args.order.split(",")]
-    if not trees or any(not 0 <= i < len(trees) for i in order):
-        ap.error("--trees and --order disagree")
+    if not args.trees:
+        ap.error("--trees PARENT CHANGE is required")
+    trees = [Path(t).resolve() for t in args.trees]
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
     h16 = str(Path(args.h16).resolve()) if args.h16 else ""
     turns = []
-    for i in order:
+    for i in ORDER:
         cmd = [sys.executable, str(Path(__file__).resolve()), "--measure",
                str(trees[i])] + (["--h16", h16] if h16 else []) \
             + (["--quick"] if args.quick else [])
         t = time.time()
         proc = subprocess.run(cmd, cwd=str(trees[i]), capture_output=True,
-                              text=True, timeout=args.timeout)
+                              text=True, timeout=CHILD_TIMEOUT_S)
         lines = [ln for ln in proc.stdout.splitlines()
                  if ln.startswith("TURN ")]
         if proc.returncode != 0 or not lines:

@@ -166,7 +166,7 @@ def _stream_problem(n, cb, fmode, seed=6):
 @pytest.mark.parametrize("cb", [8, 11, 12])
 @pytest.mark.parametrize("fmode", [0, 1, 2])
 def test_streaming_kernels_match_plain_versions(dev, fmode, cb):
-    n = max(N, cb + 2)
+    n = max(N, cb + 1)
     ham, gens = _stream_problem(n, cb, fmode)
     obj = VQEObjective(ham, n=n, device=dev, stream=True, chunk_bits=cb)
     b = obj.bind(gens, 0)
@@ -329,6 +329,10 @@ def test_streaming_wrappers_reject_what_the_kernels_do_not_take(dev):
         K.rot_fused(psi[:, :1 << (N - 1)].contiguous(), ang, b._fwd, 1)
     with pytest.raises(ValueError):
         K.rot_fused(psi, ang[:, :1].contiguous(), b._fwd, 1)
+    off = torch.empty(psi.numel() + 1, device=dev)[1:].view(2, -1)
+    off.copy_(psi)                                   # 4 bytes off 16
+    with pytest.raises(ValueError, match="aligned"):
+        K.rot_fused(off, ang, b._fwd, 1, inplace=True)
     small = VQEObjective(ham, n=N, device=dev, stream=True,
                          chunk_bits=6).bind(gens, 0)
     with pytest.raises(ValueError):              # chunk below 2^8
