@@ -31,10 +31,11 @@ imports nothing of JAX and nothing of ``openvqe_tpu``.  Phases:
    sequence, on H10's own bucket operands and on a synthetic problem
    (field modes 0, 1, 2, non-real coefficients, runs with x_hi = 0 and
    x_hi != 0, full 16-group runs, both K classes); timed at H10's shapes;
-   for the two fused sweeps (A3, C9) the registers, spills and shared
-   memory of the instance H10 runs (``kernels.sweep_attributes``; phase 1
-   prints every kernel's ``nvcc -Xptxas -v`` lines), its resident blocks
-   per SM and its time against its bound;
+   for the two fused sweeps (A3, C9) and for the H-apply (B6) the
+   registers, spills and shared memory of the instances H10 runs
+   (``kernels.sweep_attributes``, ``kernels.bucket_attributes``; phase 1
+   prints every kernel's ``nvcc -Xptxas -v`` lines), their resident
+   blocks per SM and their times against their bounds;
 6. per-group streaming kernel parity at n = 20 (the kernels of
    OVQE_STREAM_FUSE=0): each of the four against its plain version and
    against the bucketed kernel of the same function on the same inputs
@@ -82,7 +83,11 @@ imports nothing of JAX and nothing of ``openvqe_tpu``.  Phases:
    groups), on H10's H with the diagonal and the constant and on
    synthetic sets (complex and real coefficients, x_hi = 0 and != 0);
    on a non-Hermitian set ``herm`` must change D12's value; timed at
-   H10's shapes;
+   H10's shapes, with the registers, spills, shared memory and resident
+   blocks of the D12 instances H10 runs, and the largest and the mean
+   bucket count a block walks under ``herm`` at H10's geometry, for the
+   rule the kernels use (``streaming.herm_counts``) and for counting from
+   the lower chunk of each pair;
 13. the 30-qubit energy entry point (``streaming.
    build_streaming_energy_xl_fn``) at H10's 20 qubits, on its three
    routes (fused, OVQE_STREAM_FUSE=0, OVQE_EXP_HOIST=1), against the JAX
@@ -97,7 +102,9 @@ imports nothing of JAX and nothing of ``openvqe_tpu``.  Phases:
    OVQE_EXP_HOIST=1 (D13, counters set to 0 just before and read just
    after), a 4-operator ansatz against the exact sparse oracle
    (``sim/oracle.py``, energy and amplitudes), the peak device memory of
-   one energy call and the wall time of each.  The host set-up (SCF,
+   one energy call, the wall time of each beside the bound of its
+   function (``work()``, ``bound()``) and how its D12 instances launch
+   (``kernels.bucket_attributes``).  The host set-up (SCF,
    Jordan-Wigner, taper, grouping; about half a minute on an 8-core host,
    most of it the SCF) runs in a child process started right after the
    build, beside phases 2-13, and is kept in ``chiprun_out/`` for the next
@@ -892,7 +899,39 @@ def phase_stream_parity(h10, ref, card):
               f"{ops.B} launches of {1 << (ops.n - ops.chunk_bits - 1)} "
               f"blocks; {r['ms']:.4f} ms against a bound of "
               f"{r['bound_ms']:.6f} ms ({r['ms'] / r['bound_ms']:.2f}x)")
+    print_bucket_attributes("ham_bucketed", hcl, "H10", card)
     return rows
+
+
+def print_bucket_attributes(name, classes, label, card):
+    """How B6 or D12 launches on each K class (kernels.bucket_attributes)."""
+    from openvqe_tpu_torch.sim import kernels as K
+    for hc in classes:
+        at = K.bucket_attributes(name, hc)
+        print(f"{name} on {label}'s K {hc.K} class ({card}): term tile "
+              f"{at['k_tile']}, {'real' if hc.real else 'complex'}, chunk "
+              f"2^{hc.chunk_bits}, {at['threads']} threads, "
+              f"{at['registers']} registers and {at['spill_bytes']} B of "
+              f"local memory a thread, {at['smem_bytes']} B of shared "
+              f"memory, {at['blocks_per_sm']} resident blocks per SM; "
+              f"{1 << (hc.n - hc.chunk_bits)} blocks")
+
+
+def herm_walks(x_hi, nb, rule):
+    """Buckets each of nb chunk blocks walks under herm: every x_hi = 0
+    bucket, and the cross-chunk ones the rule gives it."""
+    import numpy as np
+    from openvqe_tpu_torch.sim import streaming as st
+    c = np.arange(nb)
+    out = np.zeros(nb, np.int64)
+    for xh in map(int, x_hi):
+        if not xh:
+            out += 1
+        elif rule == "lower chunk":
+            out += c < (c ^ xh)
+        else:
+            out += st.herm_counts(c, xh)
+    return out
 
 
 # ------------------------------- per-group streaming route (OVQE_STREAM_FUSE=0)
@@ -1693,6 +1732,17 @@ def phase_expect_parity(h10, card, rows):
     print(f"time expect_bucketed herm=False at H10 shapes ({card}): "
           f"{ms_nh:.4f} ms (the row's time is herm=True: H10's H is "
           f"Hermitian as an operator)")
+    print_bucket_attributes("expect_bucketed", hcl, "H10", card)
+    x_hi = np.concatenate([hc.x_hi.cpu().numpy() for hc in hcl])
+    nb = 1 << (h10.n - obj.chunk_bits)
+    for rule in ("herm_counts", "lower chunk"):
+        w = herm_walks(x_hi, nb, rule)
+        print(f"D12 herm at H10's geometry ({nb} chunk blocks, {len(x_hi)} "
+              f"buckets, {int((x_hi != 0).sum())} across chunks), rule "
+              f"{rule}: a block walks at most {int(w.max())} buckets, "
+              f"{float(w.mean()):.2f} on average ({w.max() / w.mean():.3f}x)")
+        if rule == "herm_counts":
+            check(w.max() <= 1.5 * w.mean(), "herm_counts is not balanced")
     n_b = sum(bk.B for bk in st.build_ham_buckets_split(
         view, chunk_bits=obj.chunk_bits))
     per_row = torch.cat([(h.ux >= 0).sum(1) for h in hoisted]).float()
@@ -1984,7 +2034,23 @@ def phase_h16(setup, card):
                             psi.device, torch.float32, False,
                             with_const=True)
     e_nh, t_nh = timed(lambda: float(st.expect_sum(psi, nh, herm=False)))
+    # the bounds of the 30-qubit functions (work() / bound(), as for the
+    # kernel rows): the sweep, and the Hermitian expectation that D12 herm
+    # and D13 both compute
+    fwd = st.bucket_operands(st.build_seq_buckets(st.stream_seq_data(
+        gseq, cb)), "cpu")
+    for name, ops, hops, t in (
+            ("rot_fused", fwd, None, t_fwd),
+            ("expect_bucketed", None, [o for _, o in nh], t_e12),
+            ("expect_hoisted", None, [o for _, o in nh], t_e13)):
+        nbytes, flops = work(name, psi, ops=ops, hops=hops, herm=True)
+        b_ms, by = bound(nbytes, flops)
+        print(f"H16 30q {name}: {t:.2f} s against a bound of "
+              f"{b_ms / 1e3:.4f} s ({by}; {nbytes} B, {flops} f32 ops; "
+              f"{card})")
     del psi
+    print_bucket_attributes("expect_bucketed", [o for _, o in nh], "H16",
+                            card)
     print(f"H16 30q expectation alone on that state ({card}): D12 herm "
           f"{t_e12:.2f} s, D13 {t_e13:.2f} s ({e13 - e1:+.3e} Ha), D12 "
           f"without herm {t_nh:.2f} s ({e_nh - e1:+.3e} Ha)")

@@ -59,7 +59,9 @@ __device__ __forceinline__ void wfield(unsigned j, const int* __restrict__ z,
 }
 
 // Weight fields of one group at a thread's PER amplitudes of a chunk
-// (amplitude base | (threadIdx.x + q * THREADS)); real skips W_im.
+// (amplitude base | (threadIdx.x + q * THREADS)); real skips W_im.  A
+// popcount per term and amplitude: B6 and D12 hoist the signs instead
+// (bucket_fields in streaming_kernels.cu).
 template <int PER, int THREADS>
 __device__ __forceinline__ void wfields(unsigned base, const int* zg,
                                         const float* rg, const float* ig,

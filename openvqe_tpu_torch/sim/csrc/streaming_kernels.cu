@@ -15,11 +15,11 @@
 //
 // What bounds these kernels: at n = 20 the state is 8 MB and stays in the
 // 50 MB L2, so device memory is read about once per call and the bytes
-// bound is microseconds.  What remains is (1) the field arithmetic (in
-// the H kernels one popcount + select + FMA per live term, amplitude and
-// group), (2) for the sweeps, one launch per run instead of one per group,
-// and (3) for the two H kernels, re-staging a source chunk per distinct
-// x_hi.  The designs:
+// bound is microseconds.  What remains is (1) the field arithmetic (a
+// popcount + select + FMA per live term, amplitude and group, before the
+// redesigns below), (2) for the sweeps, one launch per run instead of one
+// per group, and (3) for the two H kernels, re-staging a source chunk per
+// distinct x_hi (at 30 qubits from HBM).  The designs:
 //
 // * rot_fused / adjoint_fused (redesigned for Hopper): one launch per run
 //   (runs do not commute), one block per chunk pair, both chunks of every
@@ -48,16 +48,26 @@
 //   - the adjoint's gradient shares are reduced inside each warp per group
 //     and across warps once per run, in a fixed order, so every entry
 //     repeats bit for bit.
-// * ham_bucketed / expect_bucketed: one launch per K class (the sum is
-//   order-free).  A block owns one output chunk with its accumulators in
-//   registers (PER amplitudes per thread, float64 so the ~1300 group terms
-//   of a molecular H add without float32 drift), walks the buckets (sorted
-//   by x_hi), stages the source chunk c ^ x_hi once per distinct x_hi, and
-//   adds every group of the bucket.  No scatter, no atomics; sums across
-//   blocks go through per-block partials and one fixed-order block, so
-//   every number is reproducible.  With herm (every group Hermitian as an
-//   operator), a bucket with x_hi != 0 is counted only by the block of
-//   the lower chunk of each pair {c, c ^ x_hi}, doubled.
+// * ham_bucketed / expect_bucketed (redesigned for Hopper): one launch per
+//   K class (the sum is order-free).  A block owns one output chunk with
+//   its accumulators in registers (PER amplitudes per thread; B6 adds in
+//   float64 so the ~1300 group terms of a molecular H add without float32
+//   drift), walks the buckets (sorted by x_hi), stages the source chunk
+//   c ^ x_hi once per distinct x_hi (float4 loads; the wrappers refuse a
+//   state that is not 16-byte aligned), and adds every group of the
+//   bucket.  No scatter, no atomics; sums across blocks go through
+//   per-block partials and one fixed-order block, so every number is
+//   reproducible.  The field (see the note above sign_table):
+//   - signs hoisted out of the amplitude loop: one popcount per live term,
+//     group and thread gives the chunk's and the thread's sign, a fixed
+//     PER x PER table the loop part, so each of a thread's PER amplitudes
+//     pays one FMA per live term;
+//   - the term tile KT and REAL known at compile time (a real H computes
+//     no W_im); a slot adds its k_live terms (host-computed,
+//     BucketOperands.k_live) and skips nothing inside them.
+//   With herm (every group Hermitian as an operator), a bucket with
+//   x_hi != 0 is counted by one block of each pair {c, c ^ x_hi}, doubled,
+//   chosen by herm_counts so that the blocks walk equal shares.
 // * expect_hoist: the expectation over the rows of
 //   streaming.hoist_bucket_args (a bucket's groups sorted by x_lo, at most
 //   cap distinct x_lo per row).  The TPU kernel shares a permutation matmul
@@ -68,7 +78,8 @@
 //   the block's base, so (-1)^popcount(z & j) = (-1)^popcount(z & base)
 //   (-1)^popcount(z & l), and the first factor is folded into the row's
 //   coefficients in shared memory once per block and row.  The real path
-//   (c) skips W_im.  Hermitian only (herm is implied).
+//   (c) skips W_im.  Hermitian only (herm is implied; herm_counts picks
+//   the block that counts a row with x_hi != 0).
 //
 // TMA double-buffering and a persistent kernel over all runs are later
 // work.  Every entry point launches on the caller's stream, never
@@ -375,16 +386,106 @@ adjoint_fused_kernel(float* __restrict__ p, float* __restrict__ l,
   stage(sm, states, 2, N, cb, cA, cB, false);
 }
 
-// Stage source chunk src (both planes) into sm[0 .. 2C).
+// ------------------------------------ the bucket kernels' sign algebra
+// Thread tid of a B6 or D12 block (output chunk c, base = c << cb) owns the
+// amplitudes j = base | l, l = tid + q T with T = ST_THREADS = 2^8 and
+// q < PER = 2^(cb - 8): three disjoint bit fields, so for every term
+//     (-1)^popcount(j & z_k) = (-1)^popcount((base | tid) & z_k)
+//                              S[m_k][q],  m_k = (z_k >> 8) & (PER - 1),
+// with S[m][q] = (-1)^popcount(m & q) one fixed PER x PER table in shared
+// memory.  The first factor holds the chunk's sign and the thread's in one
+// popcount (base and tid share no bit), paid once per term, group and
+// thread; the loop part is a broadcast row of S.  So a thread's PER
+// fields of a group cost, per live term, one popcount and PER FMAs
+// c'_k S[m_k][q] with c'_k = +-c_k: each product is exact, and the terms
+// add in the order k = 0 .. k_live - 1, so every field is the one the
+// per-amplitude popcount gave (wfields in common.cuh), bit for bit.
+
+// S[m][q] for m, q < PER, built once per block (read after a barrier).
+template <int PER>
+__device__ __forceinline__ void sign_table(float* S) {
+  for (int i = threadIdx.x; i < PER * PER; i += ST_THREADS)
+    S[i] = parity((unsigned)(i / PER) & (unsigned)(i % PER)) ? -1.f : 1.f;
+}
+
+// The fields W_re (and W_im unless REAL) of one slot at the thread's PER
+// amplitudes: terms 0 .. nl - 1 of (z, ar, ai), in tiles of KT (KT divides
+// K; terms of the last tile past nl are zero coefficients and add exact
+// zeros), jt = base | tid.
+template <int PER, int KT, bool REAL>
+__device__ __forceinline__ void bucket_fields(
+    float (&wr)[PER], float (&wi)[PER], unsigned jt,
+    const int* __restrict__ z, const float* __restrict__ ar,
+    const float* __restrict__ ai, int nl, const float* S) {
+#pragma unroll
+  for (int q = 0; q < PER; ++q) wr[q] = wi[q] = 0.f;
+  for (int k0 = 0; k0 < nl; k0 += KT) {
+#pragma unroll
+    for (int k = 0; k < KT; ++k) {
+      const unsigned zk = (unsigned)z[k0 + k];
+      const bool neg = parity(jt & zk);
+      const float c = neg ? -ar[k0 + k] : ar[k0 + k];
+      const float* row = S + ((zk >> 8) & (PER - 1)) * PER;
+      float ci = 0.f;
+      if (!REAL) ci = neg ? -ai[k0 + k] : ai[k0 + k];
+      if constexpr (PER >= 4) {
+#pragma unroll
+        for (int q4 = 0; q4 < PER / 4; ++q4) {
+          const float4 v = reinterpret_cast<const float4*>(row)[q4];
+          wr[4 * q4] = fmaf(c, v.x, wr[4 * q4]);
+          wr[4 * q4 + 1] = fmaf(c, v.y, wr[4 * q4 + 1]);
+          wr[4 * q4 + 2] = fmaf(c, v.z, wr[4 * q4 + 2]);
+          wr[4 * q4 + 3] = fmaf(c, v.w, wr[4 * q4 + 3]);
+          if (!REAL) {
+            wi[4 * q4] = fmaf(ci, v.x, wi[4 * q4]);
+            wi[4 * q4 + 1] = fmaf(ci, v.y, wi[4 * q4 + 1]);
+            wi[4 * q4 + 2] = fmaf(ci, v.z, wi[4 * q4 + 2]);
+            wi[4 * q4 + 3] = fmaf(ci, v.w, wi[4 * q4 + 3]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < PER; ++q) {
+          wr[q] = fmaf(c, row[q], wr[q]);
+          if (!REAL) wi[q] = fmaf(ci, row[q], wi[q]);
+        }
+      }
+    }
+  }
+}
+
+// Stage source chunk src (both planes) into sm[0 .. 2C), 16 bytes a load
+// (the wrappers refuse a state that is not 16-byte aligned; N + j is a
+// multiple of 4).  Every thread of the block must call it.
+template <int PER>
 __device__ __forceinline__ void stage_src(float* sm, const float* psi,
                                           unsigned N, int cb, unsigned src) {
-  const unsigned C = 1u << cb;
-  __syncthreads();
-  for (unsigned o = threadIdx.x; o < C; o += ST_THREADS) {
-    sm[o] = psi[(src << cb) | o];
-    sm[C + o] = psi[N + ((src << cb) | o)];
+  constexpr unsigned C4 = PER * ST_THREADS / 4;
+  const float4* g0 = reinterpret_cast<const float4*>(psi + (src << cb));
+  const float4* g1 = reinterpret_cast<const float4*>(psi + N + (src << cb));
+  float4* s0 = reinterpret_cast<float4*>(sm);
+  float4* s1 = s0 + C4;
+  __syncthreads();                        // the previous chunk's reads
+#pragma unroll
+  for (int r = 0; r < (PER + 3) / 4; ++r) {
+    const unsigned v = r * ST_THREADS + threadIdx.x;
+    if (v < C4) {
+      s0[v] = g0[v];
+      s1[v] = g1[v];
+    }
   }
   __syncthreads();
+}
+
+// herm: which block counts the pairs of a bucket with x_hi != 0 (doubled).
+// Of the chunks {c, c ^ x_hi} exactly one has the bit at the highest set
+// bit h of x_hi equal to popcount(x_hi) & 1; at every h the buckets then
+// split between the chunks with that bit 0 and those with it 1 as their
+// x_hi's parities split, so the blocks walk nearly equal bucket counts
+// (counting from the lower chunk sends every bucket to block 0).  The
+// plain versions use the same rule (streaming.herm_counts).
+__device__ __forceinline__ bool herm_counts(unsigned c, unsigned xh) {
+  return ((c >> (31 - __clz(xh))) & 1u) == parity(xh);
 }
 
 // ---------------------------------------------------------------- kernel 3
@@ -392,17 +493,22 @@ __device__ __forceinline__ void stage_src(float* sm, const float* psi,
 // openvqe_tpu/sim/streaming.py::_ham_bucket_kernel.  Block c owns output
 // chunk c: out = acc_in + sum over buckets b, groups g of
 // W_g(j) psi[j ^ x_g], with psi[j ^ x_g] read from the staged source chunk
-// c ^ x_hi[b] at local index (j & (C-1)) ^ x_lo.  real skips W_im.
-template <int PER>
-__global__ void __launch_bounds__(ST_THREADS)
+// c ^ x_hi[b] at local index (j & (C-1)) ^ x_lo; a slot adds its first
+// k_live terms (0: a padding slot).  REAL computes no W_im.
+template <int PER, int KT, bool REAL>
+__global__ void __launch_bounds__(ST_THREADS, 2)
 ham_bucket_kernel(const float* __restrict__ psi,
                   const float* __restrict__ acc_in, float* __restrict__ out,
                   unsigned N, int cb, int B, const int* __restrict__ xh,
-                  const int* __restrict__ xl, const int* __restrict__ act,
+                  const int* __restrict__ xl, const int* __restrict__ kl,
                   const int* __restrict__ z, const float* __restrict__ ar,
-                  const float* __restrict__ ai, int gcap, int K, int real) {
-  extern __shared__ float sm[];
-  const unsigned C = 1u << cb, c = blockIdx.x, base = c << cb;
+                  const float* __restrict__ ai, int gcap, int K) {
+  extern __shared__ float4 bk_sm[];
+  float* sm = reinterpret_cast<float*>(bk_sm);
+  constexpr unsigned C = PER * ST_THREADS;       // 2^cb, known to the compiler
+  const unsigned c = blockIdx.x, base = c << cb, jt = base | threadIdx.x;
+  float* S = sm + 2 * C;
+  sign_table<PER>(S);
   double acc0[PER], acc1[PER];
 #pragma unroll
   for (int q = 0; q < PER; ++q) {
@@ -414,21 +520,22 @@ ham_bucket_kernel(const float* __restrict__ psi,
   for (int b = 0; b < B; ++b) {
     const unsigned src = c ^ (unsigned)xh[b];
     if (src != staged) {
-      stage_src(sm, psi, N, cb, src);
+      stage_src<PER>(sm, psi, N, cb, src);
       staged = src;
     }
     for (int g2 = 0; g2 < gcap; ++g2) {
       const size_t slot = (size_t)b * gcap + g2;
-      if (!act[slot]) continue;
+      const int nl = kl[slot];
+      if (!nl) continue;
       const unsigned x = (unsigned)xl[slot];
       float wre[PER], wim[PER];
-      wfields<PER, ST_THREADS>(base, z + slot * K, ar + slot * K,
-                               ai + slot * K, K, real, wre, wim);
+      bucket_fields<PER, KT, REAL>(wre, wim, jt, z + slot * K, ar + slot * K,
+                                   ai + slot * K, nl, S);
 #pragma unroll
       for (int q = 0; q < PER; ++q) {
         const unsigned o = (threadIdx.x + q * ST_THREADS) ^ x;
         const float b0 = sm[o], b1 = sm[C + o];
-        if (real) {
+        if (REAL) {
           acc0[q] += wre[q] * b0;
           acc1[q] += wre[q] * b1;
         } else {
@@ -454,19 +561,23 @@ ham_bucket_kernel(const float* __restrict__ psi,
 // each group's share over the thread's amplitudes added to a float64 sum,
 // then a block sum into partials[blockIdx.x]; stage 2 is row_reduce_kernel
 // with one block.  herm: a pair across chunks (x_hi != 0) is counted once,
-// by the block of the lower chunk, and doubled (the two ends give equal
+// by the block herm_counts names, and doubled (the two ends give equal
 // terms for a Hermitian group); a pair inside a chunk is summed from both
 // ends, as in the TPU kernel.
-template <int PER>
-__global__ void __launch_bounds__(ST_THREADS)
+template <int PER, int KT, bool REAL>
+__global__ void __launch_bounds__(ST_THREADS, REAL ? 3 : 2)
 expect_bucket_kernel(const float* __restrict__ psi, unsigned N, int cb,
                      int B, const int* __restrict__ xh,
-                     const int* __restrict__ xl, const int* __restrict__ act,
+                     const int* __restrict__ xl, const int* __restrict__ kl,
                      const int* __restrict__ z, const float* __restrict__ ar,
-                     const float* __restrict__ ai, int gcap, int K, int real,
+                     const float* __restrict__ ai, int gcap, int K,
                      int herm, double* __restrict__ partials) {
-  extern __shared__ float sm[];
-  const unsigned C = 1u << cb, c = blockIdx.x, base = c << cb;
+  extern __shared__ float4 bk_sm[];
+  float* sm = reinterpret_cast<float*>(bk_sm);
+  constexpr unsigned C = PER * ST_THREADS;       // 2^cb, known to the compiler
+  const unsigned c = blockIdx.x, base = c << cb, jt = base | threadIdx.x;
+  float* S = sm + 2 * C;
+  sign_table<PER>(S);
   float a0[PER], a1[PER];
 #pragma unroll
   for (int q = 0; q < PER; ++q) {
@@ -478,26 +589,27 @@ expect_bucket_kernel(const float* __restrict__ psi, unsigned N, int cb,
   unsigned staged = 0xffffffffu;
   for (int b = 0; b < B; ++b) {
     const unsigned xhb = (unsigned)xh[b], src = c ^ xhb;
-    if (herm && src < c) continue;        // the lower chunk's block counts it
+    if (herm && xhb && !herm_counts(c, xhb)) continue;
     if (src != staged) {
-      stage_src(sm, psi, N, cb, src);
+      stage_src<PER>(sm, psi, N, cb, src);
       staged = src;
     }
     const double w = (herm && xhb) ? 2.0 : 1.0;
     for (int g2 = 0; g2 < gcap; ++g2) {
       const size_t slot = (size_t)b * gcap + g2;
-      if (!act[slot]) continue;
+      const int nl = kl[slot];
+      if (!nl) continue;
       const unsigned x = (unsigned)xl[slot];
       float wre[PER], wim[PER];
-      wfields<PER, ST_THREADS>(base, z + slot * K, ar + slot * K,
-                               ai + slot * K, K, real, wre, wim);
+      bucket_fields<PER, KT, REAL>(wre, wim, jt, z + slot * K, ar + slot * K,
+                                   ai + slot * K, nl, S);
       float part = 0.f;
 #pragma unroll
       for (int q = 0; q < PER; ++q) {
         const unsigned o = (threadIdx.x + q * ST_THREADS) ^ x;
         const float b0 = sm[o], b1 = sm[C + o];
         part += wre[q] * (a0[q] * b0 + a1[q] * b1);
-        if (!real) part -= wim[q] * (a0[q] * b1 - a1[q] * b0);
+        if (!REAL) part -= wim[q] * (a0[q] * b1 - a1[q] * b0);
       }
       acc += w * part;
     }
@@ -510,7 +622,7 @@ expect_bucket_kernel(const float* __restrict__ psi, unsigned N, int cb,
 // expect_hoist: all hoisted rows, one launch; stage 2 is row_reduce_kernel.
 // Replaces openvqe_tpu/sim/streaming.py::_expect_hoist_kernel.  Block c
 // owns chunk c and walks the rows (sorted by x_hi): a row with x_hi != 0
-// is counted by the block of the lower chunk of {c, c ^ x_hi} and doubled,
+// is counted by the block herm_counts names of {c, c ^ x_hi} and doubled,
 // a row with x_hi == 0 (pairs inside the chunk, or x = 0) is summed from
 // every amplitude.  Per row: stage the source chunk when it changes, fold
 // the high-bit signs into the row's coefficients (wr, wi in shared
@@ -542,7 +654,7 @@ expect_hoist_kernel(const float* __restrict__ psi, unsigned N, int cb,
   unsigned staged = 0xffffffffu;
   for (int b = 0; b < B; ++b) {
     const unsigned xhb = (unsigned)xh[b], src = c ^ xhb;
-    if (src < c) continue;                // the lower chunk's block counts it
+    if (xhb && !herm_counts(c, xhb)) continue;   // the other block counts it
     __syncthreads();                      // the previous row's reads are done
     if (src != staged) {
       for (unsigned o = threadIdx.x; o < C; o += ST_THREADS) {
@@ -618,33 +730,61 @@ int set_smem(F* kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <int PER>
-int launch_ham(const float* psi, const float* acc_in, float* out,
-               long long N, int cb, int B, const int* xh, const int* xl,
-               const int* act, const int* z, const float* ar,
-               const float* ai, int gcap, int K, int real,
-               cudaStream_t st) {
-  const size_t smem = ((size_t)2 << cb) * sizeof(float);
-  int e = set_smem(ham_bucket_kernel<PER>, smem);
-  if (e) return e;
-  ham_bucket_kernel<PER><<<(unsigned)(N >> cb), ST_THREADS, smem, st>>>(
-      psi, acc_in, out, (unsigned)N, cb, B, xh, xl, act, z, ar, ai, gcap, K,
-      real);
-  return (int)cudaGetLastError();
+// The bucket kernels' compile-time parameters: PER = 2^(cb - 8) amplitudes
+// a thread, the term tile KT (2, or 1 for an odd K) and REAL.  A slot adds
+// its live terms in whole tiles, so the tile is small: H10's K = 8 class
+// holds 4 or 6 live terms a group, which tiles of 8 would pad by 84 % and
+// tiles of 4 by 8 % (tiles of 4 were 2.5 % slower on an H100; PERF.md).
+// f.run<PER, KT, REAL>().
+template <int PER, int KT, typename F>
+int with_real(int real, const F& f) {
+  return real ? f.template run<PER, KT, true>()
+              : f.template run<PER, KT, false>();
 }
 
-template <int PER>
-int launch_expect(const float* psi, long long N, int cb, int B,
-                  const int* xh, const int* xl, const int* act, const int* z,
-                  const float* ar, const float* ai, int gcap, int K,
-                  int real, int herm, double* partials, cudaStream_t st) {
-  const size_t smem = ((size_t)2 << cb) * sizeof(float);
-  int e = set_smem(expect_bucket_kernel<PER>, smem);
+template <int PER, typename F>
+int with_kt(int K, int real, const F& f) {
+  if (K % 2 == 0) return with_real<PER, 2>(real, f);
+  return with_real<PER, 1>(real, f);
+}
+
+template <typename F>
+int bucket_dispatch(int cb, int K, int real, const F& f) {
+  switch (cb) {
+    case 8: return with_kt<1>(K, real, f);
+    case 9: return with_kt<2>(K, real, f);
+    case 10: return with_kt<4>(K, real, f);
+    case 11: return with_kt<8>(K, real, f);
+    default: return with_kt<16>(K, real, f);
+  }
+}
+
+// Dynamic shared memory of a bucket block: the source chunk (2C floats)
+// and the sign table (PER^2 floats).
+size_t bucket_smem(int cb) {
+  const size_t per = (size_t)1 << (cb - 8);
+  return (((size_t)2 << cb) + per * per) * sizeof(float);
+}
+
+// Resident blocks per SM, registers and local (spill) bytes per thread,
+// dynamic shared memory and threads of a kernel launched with these.
+int kernel_attrs(const void* fn, int threads, size_t smem, int* out) {
+  int e = (int)cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e) return e;
-  expect_bucket_kernel<PER><<<(unsigned)(N >> cb), ST_THREADS, smem, st>>>(
-      psi, (unsigned)N, cb, B, xh, xl, act, z, ar, ai, gcap, K, real, herm,
-      partials);
-  return (int)cudaGetLastError();
+  cudaFuncAttributes a;
+  e = (int)cudaFuncGetAttributes(&a, fn);
+  if (e) return e;
+  int blocks = 0;
+  e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn,
+                                                         threads, smem);
+  if (e) return e;
+  out[0] = blocks;
+  out[1] = a.numRegs;
+  out[2] = (int)a.localSizeBytes;
+  out[3] = (int)smem;
+  out[4] = threads;
+  return 0;
 }
 
 template <int PER>
@@ -662,6 +802,64 @@ int launch_hoist(const float* psi, long long N, int cb, int B,
       real, partials);
   return (int)cudaGetLastError();
 }
+
+// Launches of B6 and D12 for bucket_dispatch.
+struct HamLaunch {
+  const float *psi, *acc_in;
+  float* out;
+  long long N;
+  int cb, B;
+  const int *xh, *xl, *kl, *z;
+  const float *ar, *ai;
+  int gcap, K;
+  cudaStream_t st;
+  template <int PER, int KT, bool REAL>
+  int run() const {
+    const size_t smem = bucket_smem(cb);
+    int e = set_smem(ham_bucket_kernel<PER, KT, REAL>, smem);
+    if (e) return e;
+    ham_bucket_kernel<PER, KT, REAL>
+        <<<(unsigned)(N >> cb), ST_THREADS, smem, st>>>(
+            psi, acc_in, out, (unsigned)N, cb, B, xh, xl, kl, z, ar, ai,
+            gcap, K);
+    return (int)cudaGetLastError();
+  }
+};
+
+struct ExpectLaunch {
+  const float* psi;
+  long long N;
+  int cb, B;
+  const int *xh, *xl, *kl, *z;
+  const float *ar, *ai;
+  int gcap, K, herm;
+  double* partials;
+  cudaStream_t st;
+  template <int PER, int KT, bool REAL>
+  int run() const {
+    const size_t smem = bucket_smem(cb);
+    int e = set_smem(expect_bucket_kernel<PER, KT, REAL>, smem);
+    if (e) return e;
+    expect_bucket_kernel<PER, KT, REAL>
+        <<<(unsigned)(N >> cb), ST_THREADS, smem, st>>>(
+            psi, (unsigned)N, cb, B, xh, xl, kl, z, ar, ai, gcap, K, herm,
+            partials);
+    return (int)cudaGetLastError();
+  }
+};
+
+struct BucketAttrs {
+  int expect, cb;
+  int* out;
+  template <int PER, int KT, bool REAL>
+  int run() const {
+    const void* fn =
+        expect ? (const void*)expect_bucket_kernel<PER, KT, REAL>
+               : (const void*)ham_bucket_kernel<PER, KT, REAL>;
+    out[5] = KT;
+    return kernel_attrs(fn, ST_THREADS, bucket_smem(cb), out);
+  }
+};
 
 // The compile-time K of a sweep: the operands' K rounded up to a power of
 // two, at most SW_KTILE; above it, tiles of SW_KTILE.  Kp counts the terms
@@ -717,25 +915,10 @@ template <int KT>
 int sweep_attrs(int adjoint, int cb, int gcap, int Kp, int* out) {
   const void* fn = adjoint ? (const void*)adjoint_fused_kernel<KT>
                            : (const void*)rot_fused_kernel<KT>;
-  const size_t smem = sweep_smem(adjoint ? 2 : 1, cb, gcap, Kp);
-  int e = (int)cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e) return e;
-  cudaFuncAttributes a;
-  e = (int)cudaFuncGetAttributes(&a, fn);
-  if (e) return e;
-  int blocks = 0;
-  e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, fn, (int)sweep_threads(cb), smem);
-  if (e) return e;
-  out[0] = blocks;
-  out[1] = a.numRegs;
-  out[2] = (int)a.localSizeBytes;
-  out[3] = (int)smem;
-  out[4] = (int)sweep_threads(cb);
   out[5] = KT;
   out[6] = Kp;
-  return 0;
+  return kernel_attrs(fn, (int)sweep_threads(cb),
+                      sweep_smem(adjoint ? 2 : 1, cb, gcap, Kp), out);
 }
 
 }  // namespace
@@ -811,49 +994,38 @@ int ovqe_sweep_attrs(int adjoint, int K, int cb, int gcap, int* out) {
 
 int ovqe_ham_bucketed(const float* psi, const float* acc_in, float* out,
                       long long N, int cb, const int* xh, const int* xl,
-                      const int* act, const int* z, const float* ar,
+                      const int* kl, const int* z, const float* ar,
                       const float* ai, int B, int gcap, int K, int real,
                       void* stream) {
   if (!cb_ok(N, cb)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  switch (cb) {
-    case 8: return launch_ham<1>(psi, acc_in, out, N, cb, B, xh, xl, act, z,
-                                 ar, ai, gcap, K, real, st);
-    case 9: return launch_ham<2>(psi, acc_in, out, N, cb, B, xh, xl, act, z,
-                                 ar, ai, gcap, K, real, st);
-    case 10: return launch_ham<4>(psi, acc_in, out, N, cb, B, xh, xl, act,
-                                  z, ar, ai, gcap, K, real, st);
-    case 11: return launch_ham<8>(psi, acc_in, out, N, cb, B, xh, xl, act,
-                                  z, ar, ai, gcap, K, real, st);
-    default: return launch_ham<16>(psi, acc_in, out, N, cb, B, xh, xl, act,
-                                   z, ar, ai, gcap, K, real, st);
-  }
+  return bucket_dispatch(
+      cb, K, real, HamLaunch{psi, acc_in, out, N, cb, B, xh, xl, kl, z, ar,
+                             ai, gcap, K, (cudaStream_t)stream});
 }
 
 int ovqe_expect_bucketed(const float* psi, long long N, int cb,
-                         const int* xh, const int* xl, const int* act,
+                         const int* xh, const int* xl, const int* kl,
                          const int* z, const float* ar, const float* ai,
                          int B, int gcap, int K, int real, int herm,
                          double* partials, float* out, void* stream) {
   if (!cb_ok(N, cb)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  int e;
-  switch (cb) {
-    case 8: e = launch_expect<1>(psi, N, cb, B, xh, xl, act, z, ar, ai,
-                                 gcap, K, real, herm, partials, st); break;
-    case 9: e = launch_expect<2>(psi, N, cb, B, xh, xl, act, z, ar, ai,
-                                 gcap, K, real, herm, partials, st); break;
-    case 10: e = launch_expect<4>(psi, N, cb, B, xh, xl, act, z, ar, ai,
-                                  gcap, K, real, herm, partials, st); break;
-    case 11: e = launch_expect<8>(psi, N, cb, B, xh, xl, act, z, ar, ai,
-                                  gcap, K, real, herm, partials, st); break;
-    default: e = launch_expect<16>(psi, N, cb, B, xh, xl, act, z, ar, ai,
-                                   gcap, K, real, herm, partials, st); break;
-  }
+  const int e = bucket_dispatch(
+      cb, K, real, ExpectLaunch{psi, N, cb, B, xh, xl, kl, z, ar, ai, gcap,
+                                K, herm, partials, st});
   if (e) return e;
   row_reduce_kernel<ST_THREADS, double><<<1, ST_THREADS, 0, st>>>(
       partials, (int)(N >> cb), 1.f, out);
   return (int)cudaGetLastError();
+}
+
+// out[6]: resident blocks per SM, registers per thread, local (spill)
+// bytes per thread, dynamic shared memory bytes, threads per block and the
+// term tile KT of ham_bucketed (expect 0) or expect_bucketed (1) for
+// operands of this K, chunk and realness.
+int ovqe_bucket_attrs(int expect, int K, int real, int cb, int* out) {
+  if (cb < ST_MIN_CB || cb > ST_MAX_CB) return (int)cudaErrorInvalidValue;
+  return bucket_dispatch(cb, K, real, BucketAttrs{expect, cb, out});
 }
 
 int ovqe_expect_hoisted(const float* psi, long long N, int cb,

@@ -46,8 +46,11 @@ current stream.  ``LAUNCHES`` counts, per wrapper, the calls that launched
 the kernel.  ``rot_fused`` and ``adjoint_fused`` compute one field per
 pair and take only operands that carry the odd-Y certificate
 (``BucketOperands.odd_y``), on either device: without it they raise
-``ValueError``.  ``sweep_attributes`` reports how those two launch
-(registers, spills, shared memory, resident blocks per SM).
+``ValueError``.  The kernels that stage states with 16-byte loads
+(``rot_fused``, ``adjoint_fused``, ``ham_bucketed``, ``expect_bucketed``)
+refuse a state on the card whose data is not 16-byte aligned.
+``sweep_attributes`` and ``bucket_attributes`` report how A3 / C9 and B6 /
+D12 launch (registers, spills, shared memory, resident blocks per SM).
 """
 
 from __future__ import annotations
@@ -155,6 +158,7 @@ _SIGNATURES = {
         "ovqe_expect_bucketed": "PLIPPPPPPIIIIIPPP",
         "ovqe_expect_hoisted": "PLIPPPPPPPIIIIIPPP",
         "ovqe_sweep_attrs": "IIIIP",
+        "ovqe_bucket_attrs": "IIIIP",
     },
     "stream_group": {
         "ovqe_rot_stream": "PLPPPPPIIIP",
@@ -330,6 +334,7 @@ def _buckets(psi: torch.Tensor, bo: st.BucketOperands,
     _check("x_hi", bo.x_hi, torch.int32, (B,), psi.device)
     _check("x_lo", bo.x_lo, torch.int32, (B, gcap), psi.device)
     _check("act", bo.act, torch.int32, (B, gcap), psi.device)
+    _check("k_live", bo.k_live, torch.int32, (B, gcap), psi.device)
     _check("z", bo.z, torch.int32, (B, gcap, Kc), psi.device)
     for i, c in enumerate(coefs):
         _check(f"coef{i}", c, torch.float32, (B, gcap, Kc), psi.device)
@@ -350,11 +355,12 @@ def _odd_y(bo: st.BucketOperands) -> None:
 
 
 def _aligned(*states: torch.Tensor) -> None:
-    """The sweeps stage states with 16-byte (float4) loads."""
+    """The fused sweeps and the bucketed H kernels stage states with
+    16-byte (float4) loads."""
     for t in states:
         if t.data_ptr() % 16:
-            raise ValueError("the fused sweeps take states whose data is "
-                             "16-byte aligned")
+            raise ValueError("the bucketed kernels take states whose data "
+                             "is 16-byte aligned")
 
 
 def rot_fused(psi, ang, bo: st.BucketOperands, fmode: int,
@@ -426,6 +432,24 @@ def sweep_attributes(name: str, bo: st.BucketOperands) -> Dict[str, int]:
     return dict(zip(keys, list(out)))
 
 
+def bucket_attributes(name: str, bo: st.BucketOperands) -> Dict[str, int]:
+    """How ``ham_bucketed`` or ``expect_bucketed`` launches on ``bo``:
+    resident blocks per SM, registers and local (spill) bytes per thread,
+    dynamic shared memory per block, threads per block and the compiled
+    term tile (the instance is chosen by chunk, K and ``bo.real``)."""
+    if name not in ("ham_bucketed", "expect_bucketed"):
+        raise ValueError(f"not a bucketed H kernel: {name}")
+    out = (ctypes.c_int * 6)()
+    rc = _load("streaming").ovqe_bucket_attrs(
+        int(name == "expect_bucketed"), bo.K, int(bo.real), bo.chunk_bits,
+        ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"bucket_attributes({name}): CUDA error {rc}")
+    keys = ("blocks_per_sm", "registers", "spill_bytes", "smem_bytes",
+            "threads", "k_tile")
+    return dict(zip(keys, list(out)))
+
+
 def ham_bucketed(psi, acc, bo: st.BucketOperands):
     """acc + (the groups of one K class) |psi> in one launch; acc None
     counts as zero."""
@@ -434,10 +458,11 @@ def ham_bucketed(psi, acc, bo: st.BucketOperands):
     N = _buckets(psi, bo, (bo.coef, bo.coef_im))
     if acc is not None:
         _check("acc", acc, torch.float32, (2, N), psi.device)
+    _aligned(psi)
     lib = _load("streaming")
     out = torch.empty_like(psi)
     _launch("ham_bucketed", lib.ovqe_ham_bucketed, psi, acc, out, N,
-            bo.chunk_bits, bo.x_hi, bo.x_lo, bo.act, bo.z, bo.coef,
+            bo.chunk_bits, bo.x_hi, bo.x_lo, bo.k_live, bo.z, bo.coef,
             bo.coef_im, bo.B, bo.gcap, bo.K, int(bo.real), _stream(psi))
     return out
 
@@ -450,12 +475,13 @@ def expect_bucketed(psi, bo: st.BucketOperands, herm: bool = False):
     if psi.device.type == "cpu":
         return st.expect_bucketed_ref(psi, bo, herm)
     N = _buckets(psi, bo, (bo.coef, bo.coef_im))
+    _aligned(psi)
     lib = _load("streaming")
     partials = torch.empty(N >> bo.chunk_bits, dtype=torch.float64,
                            device=psi.device)
     out = torch.empty(1, dtype=torch.float32, device=psi.device)
     _launch("expect_bucketed", lib.ovqe_expect_bucketed, psi, N,
-            bo.chunk_bits, bo.x_hi, bo.x_lo, bo.act, bo.z, bo.coef,
+            bo.chunk_bits, bo.x_hi, bo.x_lo, bo.k_live, bo.z, bo.coef,
             bo.coef_im, bo.B, bo.gcap, bo.K, int(bo.real), int(bool(herm)),
             partials, out, _stream(psi))
     return out[0]

@@ -473,10 +473,12 @@ def diag_buckets(gham, chunk_bits: int = CHUNK_BITS,
 class BucketOperands:
     """Buckets as the kernels take them: x_hi (B,) int32, x_lo, act (B,
     gcap) int32, z (B, gcap, K) int32, coefficients (B, gcap, K) in the
-    objective's dtype (a_im is zeros for a real sum), all contiguous on one
-    device.  ``op`` stays on the host: angles are built there.  ``real``
-    and ``odd_y`` are the host certificates of ``Buckets``, computed once
-    here."""
+    objective's dtype (a_im is zeros for a real sum), k_live (B, gcap)
+    int32, one past each slot's last live term (0 in padding slots: the
+    bucketed H kernels B6 and D12 add only those terms), all contiguous on
+    one device.  ``op`` stays on the host: angles are built there.
+    ``real`` and ``odd_y`` are the host certificates of ``Buckets``,
+    computed once here."""
     n: int
     chunk_bits: int
     x_hi: torch.Tensor
@@ -485,6 +487,7 @@ class BucketOperands:
     z: torch.Tensor
     coef: torch.Tensor
     coef_im: torch.Tensor
+    k_live: torch.Tensor
     real: bool
     op: Optional[np.ndarray]
     act_host: np.ndarray
@@ -519,11 +522,14 @@ def bucket_operands(bk: Buckets, device, dtype=torch.float32
 
     cim = bk.coef_im if bk.coef_im is not None else np.zeros_like(bk.coef)
     real = bk.real
+    live = ((bk.coef != 0) | (cim != 0)) & (bk.act != 0)[..., None]
+    k_live = np.where(live.any(-1), bk.K - np.argmax(live[..., ::-1], -1), 0)
     return BucketOperands(
         n=bk.n, chunk_bits=cb, x_hi=dev(bk.x_hi, torch.int32),
         x_lo=dev(bk.x_lo, torch.int32), act=dev(bk.act, torch.int32),
         z=dev(bk.z, torch.int32), coef=dev(bk.coef, dtype),
-        coef_im=dev(np.zeros_like(cim) if real else cim, dtype), real=real,
+        coef_im=dev(np.zeros_like(cim) if real else cim, dtype),
+        k_live=dev(k_live, torch.int32), real=real,
         op=bk.op, act_host=np.asarray(bk.act, bool), fmode=bk.fmode,
         odd_y=bk.odd_y)
 
@@ -815,10 +821,17 @@ def _contract(psi, px, z, cre, cim, idx, real: bool):
     return t
 
 
-def _cross_half(idx, cb: int, x_hi: int):
-    """The amplitudes of a pair across chunks (x_hi != 0) whose chunk is the
-    lower of the two: those where bit msb(x_hi) of the chunk index is 0."""
-    return (idx & (1 << (cb + x_hi.bit_length() - 1))) == 0
+def herm_counts(c, x_hi: int):
+    """Under ``herm``, whether chunk c counts the pairs of a bucket with
+    high mask x_hi != 0 (doubled): its bit at the highest set bit of x_hi
+    equals popcount(x_hi) & 1.  Exactly one chunk of {c, c ^ x_hi} does,
+    and over the chunks the buckets split evenly where their x_hi's
+    parities do (counting from the lower chunk gives chunk 0 every
+    bucket).  c is
+    an int, a numpy array or a tensor of chunk indices; the rule of
+    ``herm_counts`` in ``csrc/streaming_kernels.cu`` (kernels D12, D13)."""
+    h = int(x_hi).bit_length() - 1
+    return ((c >> h) & 1) == (bin(int(x_hi)).count("1") & 1)
 
 
 def expect_bucketed_ref(psi, bo: BucketOperands, herm: bool = False):
@@ -826,10 +839,10 @@ def expect_bucketed_ref(psi, bo: BucketOperands, herm: bool = False):
     psi_{j^x}) - W_im Im(conj(psi_j) psi_{j^x}), a 0-dim tensor.  ``herm``
     (the caller certifies every group Hermitian as an operator,
     ``grouped_hermitian_operator``) counts each pair across chunks (x_hi
-    != 0) once, from the lower chunk, and doubles it; pairs inside a chunk
-    are summed from both ends, as in the JAX package's
-    ``_expect_bucket_kernel``.  Both give the herm=False value on
-    Hermitian groups."""
+    != 0) once, from the chunk ``herm_counts`` names, and doubles it;
+    pairs inside a chunk are summed from both ends, as in the JAX
+    package's ``_expect_bucket_kernel`` (which counts from the lower
+    chunk).  Both give the herm=False value on Hermitian groups."""
     idx = gr._indices(psi.shape[-1], psi.device)
     tot = torch.zeros((), dtype=psi.dtype, device=psi.device)
     xh = bo.x_hi.tolist()
@@ -837,7 +850,7 @@ def expect_bucketed_ref(psi, bo: BucketOperands, herm: bool = False):
         t = _contract(psi, psi[:, idx ^ x], bo.z[b, g2], bo.coef[b, g2],
                       bo.coef_im[b, g2], idx, bo.real)
         if herm and xh[b]:
-            t = 2.0 * t[_cross_half(idx, bo.chunk_bits, xh[b])]
+            t = 2.0 * t[herm_counts(idx >> bo.chunk_bits, xh[b])]
         tot = tot + torch.sum(t)
     return tot
 
@@ -848,14 +861,15 @@ def expect_hoisted_ref(psi, ho: "HoistOperands"):
     computed as the kernel computes it.  Per row, the partner amplitudes
     psi[j ^ (x_hi << cb | u)] are formed once per distinct x_lo u
     (``ho.ux``) and every slot with that u (``ho.ix``) is contracted with
-    them; a row with x_hi != 0 is counted from its lower chunk and
-    doubled."""
+    them; a row with x_hi != 0 is counted from the chunk ``herm_counts``
+    names and doubled."""
     bo = ho.bo
     idx = gr._indices(psi.shape[-1], psi.device)
     tot = torch.zeros((), dtype=psi.dtype, device=psi.device)
     xh, ux, ix = bo.x_hi.tolist(), ho.ux.tolist(), ho.ix.tolist()
     for b in range(bo.B):
-        half = _cross_half(idx, bo.chunk_bits, xh[b]) if xh[b] else None
+        half = (herm_counts(idx >> bo.chunk_bits, xh[b]) if xh[b]
+                else None)
         for u, xu in enumerate(ux[b]):
             if xu < 0:
                 break

@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """Two checkouts of the port on one card, in turns: the fused sweeps (A3
-``rot_fused``, C9 ``adjoint_fused``) and the paths that run them.
+``rot_fused``, C9 ``adjoint_fused``), the bucketed H-apply and
+expectation (B6 ``ham_bucketed``, D12 ``expect_bucketed``) and the paths
+that run them.
 
     python3 scripts/torch_sweep_turns.py --trees PARENT CHANGE \\
         [--h16 PICKLE] [--quick]
@@ -12,17 +14,21 @@ The turns run parent, change, change, parent; in each a child process
 into the tree's own ``build/``):
 
 * A3 and C9 at H10's shapes (the UCCSD runs of ``chip_smoke.py`` phase 5
-  at theta1): CUDA events over 20 calls after 3 warm-ups;
+  at theta1), B6 over both K classes of H10's H and each class alone, D12
+  with ``herm`` over both classes: CUDA events over 20 calls after 3
+  warm-ups;
 * the H10 fused ``energy_and_grad`` at theta0 (host clock, median of 20
-  calls, each returning host numbers);
+  calls, each returning host numbers), and its energy and gradient at
+  theta0 and theta1 (the gradient as a SHA-256 of its float64 entries),
+  which the table compares across the turns bit for bit;
 * unless ``--quick``, the H10 fermionic ADAPT run of ``chip_smoke.py``
   phase 10 (3 outer iterations, the float32 Lanczos reference included;
   host clock);
 * unless ``--quick``, with ``--h16`` (a pickle written by
   ``chip_smoke.py --h16-setup PATH``): the 30-qubit entry point on H16
   tapered to 30 qubits at the MP2 guess,
-  the in-place A3 sweep and the expectation timed apart (host clock, each
-  ending in a device sync).
+  the in-place A3 sweep and the expectation (D12 ``herm``) timed apart
+  (host clock, each ending in a device sync).
 
 The card's name and power limit come first, then one ``TURN`` JSON line
 per child and a table of the turns.  Needs one CUDA card.
@@ -30,6 +36,7 @@ per child and a table of the turns.  Needs one CUDA card.
 
 import argparse
 import contextlib
+import hashlib
 import importlib.util
 import io
 import json
@@ -83,15 +90,31 @@ def measure(tree: Path, h16: str, quick: bool) -> dict:
     out["a3_ms"] = cs.cuda_ms(lambda: K.rot_fused(psi, af, fwd, fm))
     out["c9_ms"] = cs.cuda_ms(lambda: K.adjoint_fused(psi, lam, aa, adj,
                                                       fm))
+
+    def ham(classes):
+        acc = None
+        for hc in classes:
+            acc = K.ham_bucketed(psi, acc, hc)
+        return acc
+
+    out["b6_ms"] = cs.cuda_ms(lambda: ham(obj.hclasses))
+    for hc in obj.hclasses:
+        out[f"b6_k{hc.K}_ms"] = cs.cuda_ms(lambda: ham([hc]))
+    out["d12_herm_ms"] = cs.cuda_ms(
+        lambda: [K.expect_bucketed(psi, hc, True) for hc in obj.hclasses])
     b.energy_and_grad(theta0)
     torch.cuda.synchronize()
     ts = []
     for _ in range(20):
         t = time.perf_counter()
-        e, _ = b.energy_and_grad(theta0)
+        e, g = b.energy_and_grad(theta0)
         ts.append(time.perf_counter() - t)
     out["h10_energy_and_grad_ms"] = 1e3 * median(ts)
-    out["h10_energy_theta0"] = e
+    e1, g1 = b.energy_and_grad(theta1)
+    for name, (en, gr) in (("theta0", (e, g)), ("theta1", (e1, g1))):
+        out[f"h10_energy_{name}"] = en
+        out[f"h10_grad_{name}_sha256"] = hashlib.sha256(
+            np.ascontiguousarray(gr, dtype=np.float64).tobytes()).hexdigest()
     if quick:
         return out
 
@@ -123,8 +146,10 @@ def measure(tree: Path, h16: str, quick: bool) -> dict:
 ORDER = (0, 1, 1, 0)    # the turns: indices into --trees
 CHILD_TIMEOUT_S = 900.0
 
-METRICS = ("a3_ms", "c9_ms", "h10_energy_and_grad_ms", "h10_adapt_s",
-           "h16_sweep_s", "h16_expectation_s", "h16_energy_s")
+METRICS = ("a3_ms", "c9_ms", "b6_ms", "b6_k8_ms", "b6_k64_ms", "d12_herm_ms",
+           "h10_energy_and_grad_ms", "h10_adapt_s", "h16_sweep_s",
+           "h16_expectation_s", "h16_energy_s", "h10_energy_theta0",
+           "h10_energy_theta1", "h16_energy")
 
 
 def main() -> int:
@@ -134,7 +159,7 @@ def main() -> int:
     ap.add_argument("--h16", default="", help="H16 set-up pickle")
     ap.add_argument("--measure", default="", help=argparse.SUPPRESS)
     ap.add_argument("--quick", action="store_true",
-                    help="A3, C9 and energy_and_grad only")
+                    help="the kernels and energy_and_grad only")
     args = ap.parse_args()
     if args.measure:
         print("TURN " + json.dumps(measure(Path(args.measure).resolve(),
@@ -170,7 +195,14 @@ def main() -> int:
     print("metric " + " ".join(f"tree{r['index']}" for r in turns))
     for m in METRICS:
         if all(m in r for r in turns):
-            print(f"{m} " + " ".join(f"{r[m]:.6g}" for r in turns))
+            print(f"{m} " + " ".join(f"{r[m]!r}" if "energy" in m
+                                     and not m.endswith("_ms")
+                                     else f"{r[m]:.6g}" for r in turns))
+    for m in ("h10_grad_theta0_sha256", "h10_grad_theta1_sha256",
+              "h10_adapt_indices", "h10_adapt_energies"):
+        if all(m in r for r in turns):
+            print(f"{m} the same in every turn: "
+                  f"{all(r[m] == turns[0][m] for r in turns)}")
     return 0
 
 

@@ -1,6 +1,7 @@
-"""The port stands alone: openvqe_tpu_torch and chip_smoke.py import
-neither JAX nor anything of openvqe_tpu (not even its numpy-only modules,
-which the port keeps its own copies of)."""
+"""The port stands alone: openvqe_tpu_torch, chip_smoke.py and the port's
+scripts (scripts/torch_*.py) import neither JAX nor anything of
+openvqe_tpu (not even its numpy-only modules, which the port keeps its own
+copies of)."""
 
 import os
 import re
@@ -70,7 +71,10 @@ def test_port_imports_without_jax_or_reference():
 
 
 def test_port_sources_do_not_import_jax_or_reference():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] \
+        + sorted((ROOT / "scripts").glob("torch_*.py"))
+    assert len(files) > 40 and ROOT / "scripts" / "torch_sweep_turns.py" \
+        in files
     bad = []
     for f in files:
         for m in FORBIDDEN.finditer(f.read_text()):

@@ -1,7 +1,9 @@
 """The fifteen CUDA kernels of openvqe_tpu_torch/sim/kernels.py against
 their plain PyTorch versions, on the card: the four per-group kernels, the
 four bucketed (streaming) ones with the fused sweeps at every compile-time
-K and the odd-Y refusal, the hoisted expectation, the four per-group
+K and the odd-Y refusal, the bucketed H-apply and expectation at every
+compiled term tile (real and complex, herm off and on), the hoisted
+expectation, the four per-group
 streaming ones (OVQE_STREAM_FUSE=0) and the two pool-overlap kernels.  A
 CUDA kernel has no CPU mode, so these tests are marked ``cuda`` and skip
 on a machine without a card; on one they run with
@@ -349,6 +351,99 @@ def test_streaming_wrappers_reject_what_the_kernels_do_not_take(dev):
         K.adjoint_fused(psi, psi.clone(), ang, bo, 1)
 
 
+# ------------------ B6 and D12 at every compiled tile, real and complex
+
+def _bucket_set(cb, k, real, hermitian, seed=12):
+    """Hand-made H buckets at n = cb + 3 (8 chunks): 6 buckets of 4 slots
+    with x_hi 0, 0, 1, 3, 5, 6, an x = 0 slot (a diagonal row), padding
+    slots, a slot whose live terms stop at k // 2 and one whose last term
+    is zero (k_live < K), so every compiled tile pads with zeros somewhere.
+    ``hermitian`` keeps every group Hermitian as an operator (the real
+    part where popcount(x & z_k) is even, the imaginary part where odd);
+    ``real`` drops the imaginary part."""
+    rng = np.random.default_rng(seed)
+    n = cb + 3
+    x_hi = np.array([0, 0, 1, 3, 5, 6], np.int32)
+    B, gcap = len(x_hi), 4
+    x_lo = rng.integers(0, 1 << cb, size=(B, gcap)).astype(np.int32)
+    x_lo[0, 0] = 0
+    act = np.ones((B, gcap), np.int32)
+    act[1, 3] = act[4, 2] = act[4, 3] = 0
+    z = rng.integers(0, 1 << n, size=(B, gcap, k)).astype(np.int32)
+    cre = rng.normal(size=(B, gcap, k))
+    cim = np.zeros_like(cre) if real else rng.normal(size=(B, gcap, k))
+    cre[:, 1, k // 2:] = cim[:, 1, k // 2:] = 0.0
+    cre[:, 2, -1] = cim[:, 2, -1] = 0.0
+    if hermitian:
+        x = (x_hi.astype(np.int64)[:, None] << cb) | x_lo
+        odd = st._popcount(x[..., None] & z) & 1 == 1
+        cre, cim = np.where(odd, 0.0, cre), np.where(odd, cim, 0.0)
+    cre, cim = cre * act[..., None], cim * act[..., None]
+    return st.Buckets(n=n, chunk_bits=cb, x_hi=x_hi, x_lo=x_lo, act=act,
+                      z=z, coef=cre, coef_im=cim, op=None)
+
+
+@pytest.mark.parametrize("real", [False, True])
+@pytest.mark.parametrize("k", [1, 2, 6, 8, 64])
+@pytest.mark.parametrize("cb", [8, 12])
+def test_bucket_kernels_match_plain_versions_at_each_k(dev, cb, k, real):
+    """B6 and D12 (herm off and on) against their plain versions at every
+    compiled term tile (K = 1: 1; 2, 6, 8, 64: 2), real and complex,
+    on a Hermitian and a non-Hermitian set; every value repeats bit for
+    bit, and on the Hermitian set herm does not change D12's value."""
+    tile = 2 if k % 2 == 0 else 1
+    for hermitian in (True, False):
+        bk = _bucket_set(cb, k, real, hermitian)
+        bo = st.bucket_operands(bk, dev)
+        assert bo.real == real and bo.K == k
+        kl = bo.k_live.cpu().numpy()
+        assert (kl[bk.act == 0] == 0).all() and (kl < k).any()
+        for name in ("ham_bucketed", "expect_bucketed"):
+            at = K.bucket_attributes(name, bo)
+            assert at["k_tile"] == tile and at["blocks_per_sm"] >= 1
+            assert at["threads"] == 256
+        psi, acc = _state(dev, 7, bk.n), _state(dev, 8, bk.n)
+        for a in (None, acc):
+            h = K.ham_bucketed(psi, a, bo)
+            assert float((h - st.ham_bucketed_ref(psi, a, bo)).abs().max()) \
+                <= TOL
+            assert torch.equal(h, K.ham_bucketed(psi, a, bo))
+        e = {}
+        for herm in (False, True):
+            e[herm] = float(K.expect_bucketed(psi, bo, herm))
+            e_ref = float(st.expect_bucketed_ref(psi, bo, herm))
+            assert abs(e[herm] - e_ref) <= TOL * max(1.0, abs(e_ref))
+            assert float(K.expect_bucketed(psi, bo, herm)) == e[herm]
+        if hermitian:
+            assert abs(e[True] - e[False]) <= TOL * max(1.0, abs(e[False]))
+        else:
+            assert abs(e[True] - e[False]) > 1e-4
+    torch.cuda.synchronize()
+
+
+def test_bucket_wrappers_reject_what_the_kernels_do_not_take(dev):
+    bo = st.bucket_operands(_bucket_set(8, 8, False, True), dev)
+    psi = _state(dev, 3, bo.n)
+    off = torch.empty(psi.numel() + 1, device=dev)[1:].view(2, -1)
+    off.copy_(psi)                                   # 4 bytes off 16
+    for fn in (lambda s: K.ham_bucketed(s, None, bo),
+               lambda s: K.expect_bucketed(s, bo, True)):
+        with pytest.raises(ValueError, match="aligned"):
+            fn(off)
+        with pytest.raises(TypeError):
+            fn(psi.double())
+        with pytest.raises(ValueError):
+            fn(psi[:, :1 << (bo.n - 1)].contiguous())
+    with pytest.raises(ValueError):
+        K.ham_bucketed(psi, psi[:, ::2].contiguous(), bo)
+    bad = st.bucket_operands(_bucket_set(8, 8, False, True), dev)
+    bad.k_live = bad.k_live[:, :2].contiguous()
+    with pytest.raises(ValueError):
+        K.expect_bucketed(psi, bad)
+    with pytest.raises(ValueError):
+        K.bucket_attributes("rot_fused", bo)
+
+
 # ---------------- the expectation with herm (D12) and hoisted (D13)
 
 def _expect_classes(ham, cb, dev, real):
@@ -400,11 +495,10 @@ def test_expect_herm_and_hoisted_match_plain_versions(dev, cb, real):
         {k: want.get(k, 0) for k in K.KERNELS}
     # not Hermitian: herm halves pairs whose two ends now differ
     bk = max(classes, key=lambda b: int(b.x_hi.astype(bool).sum()))
-    bo = st.bucket_operands(bk, dev)
-    bo.coef_im = torch.as_tensor(
-        np.random.default_rng(5).normal(size=bo.coef_im.shape)
-        * bk.act[..., None], dtype=torch.float32, device=dev)
-    bo.real = False
+    bo = st.bucket_operands(st.Buckets(**{
+        **bk.__dict__, "coef_im": np.random.default_rng(5).normal(
+            size=bk.coef.shape) * bk.act[..., None]}), dev)
+    assert not bo.real
     e0, e1 = (float(K.expect_bucketed(psi, bo, h)) for h in (False, True))
     assert abs(e1 - float(st.expect_bucketed_ref(psi, bo, True))) <= TOL
     assert abs(e1 - e0) > 1e-3
