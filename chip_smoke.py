@@ -43,8 +43,13 @@ imports nothing of JAX and nothing of ``openvqe_tpu``.  Phases:
    with the diagonal against D12, with herm off and on), gradient entries
    bit-identical when repeated, on H10's own operands and on the
    synthetic problems of phase 5 with inert groups added; timed at H10's
-   shapes.  No entry point reaches B5 and D11 (the JAX package's H passes
-   stay bucketed on that route too), so their launches are this phase's;
+   shapes (C8 also at 4, 8 and 16 pairs a thread), with the registers,
+   spills, shared memory and resident blocks of the C8 instance H10 runs
+   (``kernels.adjoint_stream_attributes``), the card's L2 rate (copies of
+   buffers that stay in L2, ``l2_rate``) and each kernel's L2 floor (one
+   pass of its states per group at that rate).  No entry point
+   reaches B5 and D11 (the JAX package's H passes stay bucketed on that
+   route too), so their launches are this phase's;
 7. the H10 main path (the streaming route), counters set to 0 just before
    and read just after: ``energy(0)`` against HF, ``energy_and_grad`` and
    ``energy`` at theta0 (MP2) and theta1 against the JAX package's float64
@@ -57,8 +62,8 @@ imports nothing of JAX and nothing of ``openvqe_tpu``.  Phases:
    streaming route), the variable set only for it: the same checks, the
    sweeps through ``rot_stream`` and ``adjoint_stream`` and the H through
    the bucketed kernels only.  Then |psi|^2 - 1 of both streaming routes,
-   the per-call time of all three routes at H10 and the device busy share
-   of the new one;
+   the per-call time of all three routes at H10, the device busy share
+   of the new one and how its C8 instance launches;
 9. pool-kernel parity at n = 20: the two pool-overlap kernels (E14
    per-group, E15 bucketed) against their plain versions on H10's own
    pool operands (875 groups, K = 8) and on a synthetic pool (non-real
@@ -84,10 +89,10 @@ imports nothing of JAX and nothing of ``openvqe_tpu``.  Phases:
    synthetic sets (complex and real coefficients, x_hi = 0 and != 0);
    on a non-Hermitian set ``herm`` must change D12's value; timed at
    H10's shapes, with the registers, spills, shared memory and resident
-   blocks of the D12 instances H10 runs, and the largest and the mean
-   bucket count a block walks under ``herm`` at H10's geometry, for the
-   rule the kernels use (``streaming.herm_counts``) and for counting from
-   the lower chunk of each pair;
+   blocks of the D12 and D13 instances H10 runs, and the largest and the
+   mean bucket count a block walks under ``herm`` at H10's geometry, for
+   the rule the kernels use (``streaming.herm_counts``) and for counting
+   from the lower chunk of each pair;
 13. the 30-qubit energy entry point (``streaming.
    build_streaming_energy_xl_fn``) at H10's 20 qubits, on its three
    routes (fused, OVQE_STREAM_FUSE=0, OVQE_EXP_HOIST=1), against the JAX
@@ -103,8 +108,8 @@ imports nothing of JAX and nothing of ``openvqe_tpu``.  Phases:
    after), a 4-operator ansatz against the exact sparse oracle
    (``sim/oracle.py``, energy and amplitudes), the peak device memory of
    one energy call, the wall time of each beside the bound of its
-   function (``work()``, ``bound()``) and how its D12 instances launch
-   (``kernels.bucket_attributes``).  The host set-up (SCF,
+   function (``work()``, ``bound()``) and how its D12 and D13 instances
+   launch (``kernels.bucket_attributes``).  The host set-up (SCF,
    Jordan-Wigner, taper, grouping; about half a minute on an 8-core host,
    most of it the SCF) runs in a child process started right after the
    build, beside phases 2-13, and is kept in ``chiprun_out/`` for the next
@@ -904,7 +909,8 @@ def phase_stream_parity(h10, ref, card):
 
 
 def print_bucket_attributes(name, classes, label, card):
-    """How B6 or D12 launches on each K class (kernels.bucket_attributes)."""
+    """How B6, D12 or D13 launches on each K class (or hoisted row set;
+    kernels.bucket_attributes)."""
     from openvqe_tpu_torch.sim import kernels as K
     for hc in classes:
         at = K.bucket_attributes(name, hc)
@@ -915,6 +921,38 @@ def print_bucket_attributes(name, classes, label, card):
               f"local memory a thread, {at['smem_bytes']} B of shared "
               f"memory, {at['blocks_per_sm']} resident blocks per SM; "
               f"{1 << (hc.n - hc.chunk_bits)} blocks")
+
+
+def print_adjoint_stream_attributes(go, label, card):
+    """How C8 launches on ``go`` (kernels.adjoint_stream_attributes)."""
+    from openvqe_tpu_torch.sim import kernels as K
+    at = K.adjoint_stream_attributes(go)
+    nb = max(1, (1 << (go.n - 1)) // (at["threads"] * at["per"]))
+    print(f"adjoint_stream on {label}'s {go.G} groups ({card}): "
+          f"{at['per']} pairs a thread, term tile {at['k_tile']}, "
+          f"{at['threads']} threads, {at['registers']} registers and "
+          f"{at['spill_bytes']} B of local memory a thread, "
+          f"{at['smem_bytes']} B of shared memory, {at['blocks_per_sm']} "
+          f"resident blocks per SM; {nb} blocks a group")
+
+
+def l2_rate(small=4 << 20, large=12 << 20, reps=200):
+    """Bytes per second of device copies whose source and destination stay
+    in the 50 MB L2 (2 x 4 MB and 2 x 12 MB; H10's p and lambda are 16 MB),
+    read and written bytes both counted: the bytes the larger copy adds
+    over the time it adds, so that the fixed cost of a launch (a few us, as
+    long as a 16 MB copy itself) drops out.  A yardstick for the per-group
+    kernels, which pass their states once per group; not used by the
+    port.  Returns (rate, ms of the small copy, ms of the large one)."""
+    import torch
+    ms = []
+    for nbytes in (small, large):
+        src = torch.rand(nbytes // 4, device=DEVICE)
+        dst = torch.empty_like(src)
+        ms.append(cuda_ms(lambda: dst.copy_(src), reps=reps, warmup=20))
+    check(ms[1] > ms[0], f"L2 copies of 2 x {small} B and 2 x {large} B "
+          f"took {ms} ms")
+    return 2 * (large - small) / ((ms[1] - ms[0]) * 1e-3), ms[0], ms[1]
 
 
 def herm_walks(x_hi, nb, rule):
@@ -1135,6 +1173,29 @@ def phase_stream_group_parity(h10, ref, card):
     print(f"time expect_stream herm=False at H10 shapes ({card}): "
           f"{ms_nh:.4f} ms (the row's time is herm=True, the certificate "
           f"holds for H10)")
+    for per in (4, 8, 16):
+        ms = cuda_ms(lambda: K.adjoint_stream(psi, lam, aa, adj, fm,
+                                              per=per), reps=10, warmup=2)
+        print(f"time adjoint_stream at {per} pairs a thread, H10 shapes "
+              f"({card}): {ms:.4f} ms")
+    print_adjoint_stream_attributes(adj, "H10", card)
+    rate, ms_s, ms_l = l2_rate()
+    state = psi.numel() * 4
+    print(f"L2 rate ({card}): {rate / 1e12:.3f} TB/s (copies within L2 of "
+          f"2 x 4 MB in {1e3 * ms_s:.3f} us and 2 x 12 MB in "
+          f"{1e3 * ms_l:.3f} us; the difference)")
+    # the states one pass per group must move (read and written, or read)
+    per_group = {"rot_stream": (fwd.G, 2 * state),
+                 "adjoint_stream": (adj.G, 4 * state),
+                 "ham_stream": (hgo.G, state), "expect_stream": (hgo.G,
+                                                                 state)}
+    for name, (G, nbytes) in per_group.items():
+        floor = 1e3 * G * nbytes / rate
+        rows[name]["l2_floor_ms"] = floor
+        print(f"L2 floor {name} at H10 ({card}): {G} groups x {nbytes} B "
+              f"/ L2 rate = {floor:.4f} ms (kernel "
+              f"{rows[name]['ms']:.4f} ms, bound "
+              f"{rows[name]['bound_ms']:.6f} ms)")
     return rows, counts
 
 
@@ -1308,6 +1369,8 @@ def phase_h10_group_main(h10, ref, card, routes):
         print(f"energy_and_grad H10 {label} route on {card}: median "
               f"{1e3 * sorted(ts)[10]:.3f} ms over 20 calls")
     device_share(b, theta0, card, "H10 UCCSD (OVQE_STREAM_FUSE=0 route)")
+    print_adjoint_stream_attributes(b._adj, "H10 (OVQE_STREAM_FUSE=0 route)",
+                                    card)
     return launches
 
 
@@ -1733,6 +1796,8 @@ def phase_expect_parity(h10, card, rows):
           f"{ms_nh:.4f} ms (the row's time is herm=True: H10's H is "
           f"Hermitian as an operator)")
     print_bucket_attributes("expect_bucketed", hcl, "H10", card)
+    print_bucket_attributes("expect_hoisted", [ho.bo for ho in hoisted],
+                            "H10 (hoisted rows)", card)
     x_hi = np.concatenate([hc.x_hi.cpu().numpy() for hc in hcl])
     nb = 1 << (h10.n - obj.chunk_bits)
     for rule in ("herm_counts", "lower chunk"):
@@ -1979,6 +2044,8 @@ def phase_h16(setup, card):
     cb = st.chunk_bits_for(h.n)
     view = st.ham_view(gham, h.n)
     runs = st.build_seq_buckets(st.stream_seq_data(gseq, cb)).act.sum(1)
+    hoist_rows = [st.hoist_bucket_args(c) for c in
+                  st.build_ham_buckets_split(view, chunk_bits=cb)]
     print(f"H16 geometry at chunk 2^{cb}: {len(runs)} rotation runs of "
           f"{runs.mean():.2f} groups; H with the diagonal and the constant: "
           + ", ".join(f"K {c.K}: {int(c.act.sum())} groups in {c.B} buckets"
@@ -1988,9 +2055,9 @@ def phase_h16(setup, card):
                           chunk_bits=cb))
           + "; hoisted at cap 8: " + ", ".join(
               f"{hb.rows.B} rows, {float((hb.ux >= 0).sum(1).mean()):.2f} "
-              f"distinct x_lo a row" for hb in (
-                  st.hoist_bucket_args(c) for c in
-                  st.build_ham_buckets_split(view, chunk_bits=cb))))
+              f"distinct x_lo a row, {int(hb.rows.act.sum())} slots for "
+              f"{int((hb.ux >= 0).sum())} distinct x_lo"
+              for hb in hoist_rows))
     e0, t0 = timed(energy, np.zeros(gseq.n_ops))
     print(f"H16 30q energy(0) {e0!r} HF {h.HF!r} delta {e0 - h.HF:+.3e}; "
           f"{t0:.2f} s (host clock, ends in a device sync; first call)")
@@ -2051,6 +2118,8 @@ def phase_h16(setup, card):
     del psi
     print_bucket_attributes("expect_bucketed", [o for _, o in nh], "H16",
                             card)
+    print_bucket_attributes("expect_hoisted", [hb.rows for hb in hoist_rows],
+                            "H16 (hoisted rows)", card)
     print(f"H16 30q expectation alone on that state ({card}): D12 herm "
           f"{t_e12:.2f} s, D13 {t_e13:.2f} s ({e13 - e1:+.3e} Ha), D12 "
           f"without herm {t_nh:.2f} s ({e_nh - e1:+.3e} Ha)")

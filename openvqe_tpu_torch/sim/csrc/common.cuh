@@ -11,6 +11,8 @@
 
 #include <cuda_runtime.h>
 
+#define ST_THREADS 256          // H-apply / expectation blocks
+
 namespace {
 
 // t-th index with bit h cleared: pairs {j, j ^ x} with h the highest set bit
@@ -22,6 +24,10 @@ __device__ __forceinline__ unsigned insert_zero(unsigned t, int h) {
 
 __device__ __forceinline__ float sgn(unsigned j, unsigned zk) {
   return (__popc(j & zk) & 1) ? -1.f : 1.f;
+}
+
+__device__ __forceinline__ unsigned parity(unsigned v) {
+  return (unsigned)__popc(v) & 1u;
 }
 
 // Fields of one group at both ends of a pair.
@@ -61,7 +67,7 @@ __device__ __forceinline__ void wfield(unsigned j, const int* __restrict__ z,
 // Weight fields of one group at a thread's PER amplitudes of a chunk
 // (amplitude base | (threadIdx.x + q * THREADS)); real skips W_im.  A
 // popcount per term and amplitude: B6 and D12 hoist the signs instead
-// (bucket_fields in streaming_kernels.cu).
+// (bucket_fields below).
 template <int PER, int THREADS>
 __device__ __forceinline__ void wfields(unsigned base, const int* zg,
                                         const float* rg, const float* ig,
@@ -78,6 +84,76 @@ __device__ __forceinline__ void wfields(unsigned base, const int* zg,
       const float sg = sgn(base | (threadIdx.x + q * THREADS), zk);
       wre[q] += sg * r;
       wim[q] += sg * i;
+    }
+  }
+}
+
+// --------------------------- the sign algebra of the bucket kernels
+// (B6, D12 and D13 in streaming_kernels.cu; C8 in stream_group_kernels.cu
+// splits its pair index the same way).  Thread tid of a bucket block
+// (output chunk c, base = c << cb) owns the amplitudes j = base | l,
+// l = tid + q T with T = ST_THREADS = 2^8 and q < PER = 2^(cb - 8): three
+// disjoint bit fields, so for every term
+//     (-1)^popcount(j & z_k) = (-1)^popcount((base | tid) & z_k)
+//                              S[m_k][q],  m_k = (z_k >> 8) & (PER - 1),
+// with S[m][q] = (-1)^popcount(m & q) one fixed PER x PER table in shared
+// memory.  The first factor holds the chunk's sign and the thread's in one
+// popcount (base and tid share no bit), paid once per term, group and
+// thread; the loop part is a broadcast row of S.  So a thread's PER
+// fields of a group cost, per live term, one popcount and PER FMAs
+// c'_k S[m_k][q] with c'_k = +-c_k: each product is exact, and the terms
+// add in the order k = 0 .. k_live - 1, so every field is the one the
+// per-amplitude popcount gave (wfields above), bit for bit.
+
+// S[m][q] for m, q < PER, built once per block (read after a barrier).
+template <int PER>
+__device__ __forceinline__ void sign_table(float* S) {
+  for (int i = threadIdx.x; i < PER * PER; i += ST_THREADS)
+    S[i] = parity((unsigned)(i / PER) & (unsigned)(i % PER)) ? -1.f : 1.f;
+}
+
+// The fields W_re (and W_im unless REAL) of one slot at the thread's PER
+// amplitudes: terms 0 .. nl - 1 of (z, ar, ai), in tiles of KT (KT divides
+// K; terms of the last tile past nl are zero coefficients and add exact
+// zeros), jt = base | tid.
+template <int PER, int KT, bool REAL>
+__device__ __forceinline__ void bucket_fields(
+    float (&wr)[PER], float (&wi)[PER], unsigned jt,
+    const int* __restrict__ z, const float* __restrict__ ar,
+    const float* __restrict__ ai, int nl, const float* S) {
+#pragma unroll
+  for (int q = 0; q < PER; ++q) wr[q] = wi[q] = 0.f;
+  for (int k0 = 0; k0 < nl; k0 += KT) {
+#pragma unroll
+    for (int k = 0; k < KT; ++k) {
+      const unsigned zk = (unsigned)z[k0 + k];
+      const bool neg = parity(jt & zk);
+      const float c = neg ? -ar[k0 + k] : ar[k0 + k];
+      const float* row = S + ((zk >> 8) & (PER - 1)) * PER;
+      float ci = 0.f;
+      if (!REAL) ci = neg ? -ai[k0 + k] : ai[k0 + k];
+      if constexpr (PER >= 4) {
+#pragma unroll
+        for (int q4 = 0; q4 < PER / 4; ++q4) {
+          const float4 v = reinterpret_cast<const float4*>(row)[q4];
+          wr[4 * q4] = fmaf(c, v.x, wr[4 * q4]);
+          wr[4 * q4 + 1] = fmaf(c, v.y, wr[4 * q4 + 1]);
+          wr[4 * q4 + 2] = fmaf(c, v.z, wr[4 * q4 + 2]);
+          wr[4 * q4 + 3] = fmaf(c, v.w, wr[4 * q4 + 3]);
+          if (!REAL) {
+            wi[4 * q4] = fmaf(ci, v.x, wi[4 * q4]);
+            wi[4 * q4 + 1] = fmaf(ci, v.y, wi[4 * q4 + 1]);
+            wi[4 * q4 + 2] = fmaf(ci, v.z, wi[4 * q4 + 2]);
+            wi[4 * q4 + 3] = fmaf(ci, v.w, wi[4 * q4 + 3]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < PER; ++q) {
+          wr[q] = fmaf(c, row[q], wr[q]);
+          if (!REAL) wi[q] = fmaf(ci, row[q], wi[q]);
+        }
+      }
     }
   }
 }

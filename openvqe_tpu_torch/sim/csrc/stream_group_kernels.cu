@@ -22,16 +22,39 @@
 //
 // * rot_stream (A2) / adjoint_stream (C8): groups do not commute, so the
 //   barrier between two groups is the launch boundary: one C entry point
-//   loops G launches on the host (875 per call at H10, a few us each).
-//   One thread per pair {j, j ^ x} (j with bit msb(x) clear), updated in
-//   place, so each pair has one owner.  The rotation is applied in the
-//   norm-keeping form psi + ((cos - 1) psi + sin psi_x) of rot_cm (the
-//   JAX kernels apply cos psi + sin psi_x, whose float32 norm drifts over
-//   875 groups by 2e-6).  The adjoint first takes the pair's share of the
-//   group's gradient entry -2 sum_j F(j) (lam_j . p_{j^x}) from both ends,
-//   before the un-rotation; block shares go to float64 partials (G, nb)
-//   and one row_reduce_kernel launch sums each row in a fixed order, so
-//   the entries repeat bit for bit.
+//   loops G launches on the host (875 per call at H10, a few us each);
+//   C8's loop is captured once per operand set into a CUDA graph, which
+//   closes most of the card's gaps between its launches (PERF.md).
+//   The rotation is applied in the norm-keeping form
+//   psi + ((cos - 1) psi + sin psi_x) of rot_cm (the JAX kernels apply
+//   cos psi + sin psi_x, whose float32 norm drifts over 875 groups by
+//   2e-6).  A2: one thread per pair {j, j ^ x} (j with bit msb(x) clear),
+//   updated in place, so each pair has one owner; both ends' fields.
+//   C8 (redesigned for Hopper) takes the pairs apart along the bit fields
+//   of the pair index t (j = insert_zero(t, h), h = msb(x)):
+//   - t = (block base) | q 2^8 | tid, PER pairs per thread, so a group's
+//     launch has 2^(n-1) / (256 PER) blocks (256 at H10, PER = 8);
+//   - parity(j & z_k) = parity(t & z'_k), z'_k = z_k with bit h taken out
+//     (GroupOperands.z_pair, host-computed), so the sign splits as in the
+//     bucket kernels: one popcount of ((block base) | tid) & z'_k per live
+//     term and thread, the loop part a row of the fixed PER x PER table
+//     (bucket_fields, common.cuh), each product exact and the terms added
+//     in order, so F(j) is field2's (common.cuh) bit for bit;
+//   - one field per pair: every rotation group is odd-Y (the host
+//     certifies it, GroupOperands.odd_y, and the wrapper refuses operands
+//     without it), so F(j ^ x) = -F(j) exactly, and the partner takes
+//     (cos - 1, -sin); the angle terms (rot_angle) once per thread;
+//   - the states are updated with the expressions of the one-pair design
+//     (A2's, and C8's before this one) on the same numbers, so p and
+//     lambda are that design's bit for bit; the pair's
+//     share of the group's entry -2 sum_j F(j) (lam_j . p_{j^x}) is
+//     F(j) (lam_j . p_jj - lam_jj . p_j), taken before the un-rotation,
+//     summed over the thread's pairs in float32 and over the block in
+//     float64 into partials (G, nb); one adjoint_reduce_kernel launch
+//     sums each row in a fixed order, so the entries repeat bit for bit.
+//   A state of fewer than 2^9 amplitudes, or too few for the PER asked
+//   for, takes the largest PER whose blocks it fills (PER = 1 and idle
+//   threads below 2^9 amplitudes).
 // * ham_stream (B5): the sum is order-free, so one launch for all groups,
 //   output-stationary: one thread per output amplitude loops over the
 //   groups and their live rows, with both weight fields (the JAX kernel
@@ -44,14 +67,15 @@
 //   end with bit msb(x) clear, doubled; the JAX kernel halves only the
 //   pairs that cross chunks, which gives the same value on such groups.
 //
-// CUDA graphs for the 2 x 875 sweep launches and staging of the state in
-// shared memory are later work.  Every entry point launches on the
-// caller's stream, never synchronises, allocates nothing, and returns a
-// CUDA error code (0 on success).
+// A CUDA graph for A2's 875 launches, and A2 on C8's design, are later
+// work.  Every entry point launches on the caller's stream, never
+// synchronises, allocates no device memory (C8's graph is the driver's
+// object, made by ovqe_adjoint_stream_graph and freed by
+// ovqe_graph_destroy), and returns a CUDA error code (0 on success).
 
 #include "common.cuh"
 
-#define SG_THREADS 256
+#define SG_THREADS ST_THREADS      // 256: C8 splits t like a bucket block
 
 namespace {
 
@@ -85,40 +109,80 @@ rot_stream_kernel(float* __restrict__ psi, unsigned N,
 // ---------------------------------------------------------------- kernel 2
 // adjoint_stream, one launch per group of the REVERSED sequence, in the
 // operands' order.  Replaces
-// openvqe_tpu/sim/streaming.py::_adj_stream_kernel.  The block's share of
-// group g's entry goes to partials[g][blockIdx.x] (zero for x == 0).
+// openvqe_tpu/sim/streaming.py::_adj_stream_kernel.  Thread tid of block
+// b owns the pairs t = b PER 2^8 | q 2^8 | tid, q < PER, with t < 2^(n-1)
+// (every t when PER > 1: the entry point sizes PER to the state).  zp holds
+// the operands' z_pair (z with bit msb(x) taken out), s the real
+// coefficients, kl each group's live terms.  The states, angles and
+// partials of the call are read from args (device memory), so one graph of
+// the G launches serves every call on the operand set.  The block's share
+// of group g's entry goes to partials[g][blockIdx.x] (zero for x == 0).
+struct AdjointArgs {
+  float* p;
+  float* l;
+  const float* ang;
+  double* partials;
+  float* gts;
+};
+static_assert(sizeof(AdjointArgs) == 5 * sizeof(void*),
+              "kernels.adjoint_stream fills five pointers");
+
+template <int PER, int KT>
 __global__ void __launch_bounds__(SG_THREADS)
-adjoint_stream_kernel(float* __restrict__ p, float* __restrict__ l,
-                      unsigned N, const int* __restrict__ x,
-                      const int* __restrict__ z, const float* __restrict__ s,
-                      const int* __restrict__ kl,
-                      const float* __restrict__ ang, int g, int K, int fmode,
-                      double* __restrict__ partials) {
-  const unsigned t = blockIdx.x * SG_THREADS + threadIdx.x;
+adjoint_stream_kernel(const AdjointArgs* __restrict__ args, unsigned N,
+                      const int* __restrict__ x,
+                      const int* __restrict__ zp, const float* __restrict__ s,
+                      const int* __restrict__ kl, int g, int K, int fmode) {
+  __shared__ __align__(16) float S[PER * PER];
+  sign_table<PER>(S);
+  __syncthreads();
+  float* __restrict__ p = args->p;
+  float* __restrict__ l = args->l;
   const unsigned xg = (unsigned)x[g];
+  const unsigned tb = (blockIdx.x * PER * SG_THREADS) | threadIdx.x;
   float contrib = 0.f;
-  if (t < (N >> 1) && xg != 0u) {
+  if (xg != 0u) {
     const int h = 31 - __clz(xg);
-    const unsigned j = insert_zero(t, h), jj = j ^ xg;
-    float Fj, Fjj, cj, sj, ck, sk;              // cj, ck: cos - 1
-    field2(j, jj, z + (size_t)g * K, s + (size_t)g * K, kl[g], Fj, Fjj);
-    const RotAngle ra = rot_angle(ang[g], fmode);
-    rot_cm(ra, Fj, fmode, cj, sj);
-    rot_cm(ra, Fjj, fmode, ck, sk);
-    const float p0j = p[j], p1j = p[N + j], p0k = p[jj], p1k = p[N + jj];
-    const float l0j = l[j], l1j = l[N + j], l0k = l[jj], l1k = l[N + jj];
-    contrib = Fj * (l0j * p0k + l1j * p1k) + Fjj * (l0k * p0j + l1k * p1j);
-    p[j] = p0j + (cj * p0j - sj * p0k);
-    p[N + j] = p1j + (cj * p1j - sj * p1k);
-    p[jj] = p0k + (ck * p0k - sk * p0j);
-    p[N + jj] = p1k + (ck * p1k - sk * p1j);
-    l[j] = l0j + (cj * l0j - sj * l0k);
-    l[N + j] = l1j + (cj * l1j - sj * l1k);
-    l[jj] = l0k + (ck * l0k - sk * l0j);
-    l[N + jj] = l1k + (ck * l1k - sk * l1j);
+    float F[PER], unused[PER];
+    bucket_fields<PER, KT, true>(F, unused, tb, zp + (size_t)g * K,
+                                 s + (size_t)g * K, s + (size_t)g * K, kl[g],
+                                 S);
+    const RotAngle ra = rot_angle(args->ang[g], fmode);
+#pragma unroll
+    for (int q = 0; q < PER; ++q) {
+      const unsigned t = tb | (q * SG_THREADS);
+      if (PER == 1 && t >= (N >> 1)) break;       // a state below 2^9
+      const unsigned j = insert_zero(t, h), jj = j ^ xg;
+      float cj, sj;                               // cj: cos - 1
+      rot_cm(ra, F[q], fmode, cj, sj);
+      const float ck = cj, sk = -sj;              // F(j ^ x) = -F(j)
+      const float p0j = p[j], p1j = p[N + j], p0k = p[jj], p1k = p[N + jj];
+      const float l0j = l[j], l1j = l[N + j], l0k = l[jj], l1k = l[N + jj];
+      contrib += F[q] * ((l0j * p0k + l1j * p1k) - (l0k * p0j + l1k * p1j));
+      p[j] = p0j + (cj * p0j - sj * p0k);
+      p[N + j] = p1j + (cj * p1j - sj * p1k);
+      p[jj] = p0k + (ck * p0k - sk * p0j);
+      p[N + jj] = p1k + (ck * p1k - sk * p1j);
+      l[j] = l0j + (cj * l0j - sj * l0k);
+      l[N + j] = l1j + (cj * l1j - sj * l1k);
+      l[jj] = l0k + (ck * l0k - sk * l0j);
+      l[N + jj] = l1k + (ck * l1k - sk * l1j);
+    }
   }
   const double tot = block_sum<SG_THREADS>((double)contrib);
-  if (threadIdx.x == 0) partials[(size_t)g * gridDim.x + blockIdx.x] = tot;
+  if (threadIdx.x == 0)
+    args->partials[(size_t)g * gridDim.x + blockIdx.x] = tot;
+}
+
+// gts[r] = -2 sum_b partials[r][b], one block per group, fixed order:
+// row_reduce_kernel (common.cuh) with its pointers read from args.
+__global__ void __launch_bounds__(SG_THREADS)
+adjoint_reduce_kernel(const AdjointArgs* __restrict__ args, int nb) {
+  const double* row = args->partials + (size_t)blockIdx.x * nb;
+  double v = 0;
+  for (int b = threadIdx.x; b < nb; b += SG_THREADS) v += row[b];
+  const double tot = block_sum<SG_THREADS>(v);
+  if (threadIdx.x == 0) args->gts[blockIdx.x] = (float)(-2.f * tot);
 }
 
 // ---------------------------------------------------------------- kernel 3
@@ -191,6 +255,82 @@ unsigned blocks_for(long long items) {
 
 bool n_ok(long long N) { return N >= 2 && N <= (1ll << 30); }
 
+// C8's pairs per thread: 1, 2, 4, 8 or 16, and PER 2^8 threads' pairs no
+// more than the state's 2^(n-1) unless PER = 1 (kernels.stream_per picks
+// it).  Its blocks: 2^(n-1) / (256 PER), at least one.
+bool per_ok(long long N, int per) {
+  return (per == 1 || per == 2 || per == 4 || per == 8 || per == 16) &&
+         (per == 1 || (long long)per * SG_THREADS <= (N >> 1));
+}
+
+unsigned adjoint_blocks(long long N, int per) {
+  return blocks_for(((N >> 1) + per - 1) / per);
+}
+
+// The compile-time term tile of C8: 2, or 1 for an odd K (bucket_dispatch).
+template <int PER, typename F>
+int with_tile(int K, const F& f) {
+  return K % 2 == 0 ? f.template run<PER, 2>() : f.template run<PER, 1>();
+}
+
+template <typename F>
+int per_dispatch(int per, int K, const F& f) {
+  switch (per) {
+    case 1: return with_tile<1>(K, f);
+    case 2: return with_tile<2>(K, f);
+    case 4: return with_tile<4>(K, f);
+    case 8: return with_tile<8>(K, f);
+    default: return with_tile<16>(K, f);
+  }
+}
+
+// The G launches of C8 (one per group, in order) for per_dispatch.
+struct AdjointLaunch {
+  const AdjointArgs* args;
+  long long N;
+  const int *x, *zp;
+  const float* s;
+  const int* kl;
+  int G, K, fmode;
+  unsigned nb;
+  cudaStream_t st;
+  template <int PER, int KT>
+  int run() const {
+    for (int g = 0; g < G; ++g) {
+      adjoint_stream_kernel<PER, KT><<<nb, SG_THREADS, 0, st>>>(
+          args, (unsigned)N, x, zp, s, kl, g, K, fmode);
+      const cudaError_t e = cudaGetLastError();
+      if (e != cudaSuccess) return (int)e;
+    }
+    return 0;
+  }
+};
+
+// Resident blocks per SM, registers and local (spill) bytes per thread,
+// static shared memory, threads and the term tile of C8's instance.
+struct AdjointAttrs {
+  int* out;
+  template <int PER, int KT>
+  int run() const {
+    const void* fn = (const void*)adjoint_stream_kernel<PER, KT>;
+    cudaFuncAttributes a;
+    int e = (int)cudaFuncGetAttributes(&a, fn);
+    if (e) return e;
+    int blocks = 0;
+    e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn,
+                                                           SG_THREADS, 0);
+    if (e) return e;
+    out[0] = blocks;
+    out[1] = a.numRegs;
+    out[2] = (int)a.localSizeBytes;
+    out[3] = (int)a.sharedSizeBytes;
+    out[4] = SG_THREADS;
+    out[5] = KT;
+    out[6] = PER;
+    return 0;
+  }
+};
+
 }  // namespace
 
 extern "C" {
@@ -212,23 +352,74 @@ int ovqe_rot_stream(float* psi, long long N, const int* x, const int* z,
   return 0;
 }
 
-int ovqe_adjoint_stream(float* p, float* l, long long N, const int* x,
-                        const int* z, const float* s, const int* kl,
-                        const float* ang, int G, int K, int fmode,
-                        double* partials, int nb, float* gts, void* stream) {
-  if (!n_ok(N) || (unsigned)nb != blocks_for(N >> 1))
+// C8 on the operand set (x, zp, s, kl) of G groups: G launches in order,
+// then the reduction of the entries, on `stream`; the states, angles,
+// partials (G, nb) and entries (G,) are those args points to.
+int ovqe_adjoint_stream(long long N, const int* x, const int* zp,
+                        const float* s, const int* kl, int G, int K,
+                        int fmode, int per, int nb, const void* args,
+                        void* stream) {
+  if (!n_ok(N) || !per_ok(N, per) || (unsigned)nb != adjoint_blocks(N, per))
     return (int)cudaErrorInvalidValue;
   if (G <= 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
-  for (int g = 0; g < G; ++g) {
-    adjoint_stream_kernel<<<nb, SG_THREADS, 0, st>>>(
-        p, l, (unsigned)N, x, z, s, kl, ang, g, K, fmode, partials);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  row_reduce_kernel<SG_THREADS, double>
-      <<<G, SG_THREADS, 0, st>>>(partials, nb, -2.f, gts);
+  const AdjointArgs* a = (const AdjointArgs*)args;
+  const int e = per_dispatch(
+      per, K, AdjointLaunch{a, N, x, zp, s, kl, G, K, fmode, (unsigned)nb, st});
+  if (e) return e;
+  adjoint_reduce_kernel<<<G, SG_THREADS, 0, st>>>(a, nb);
   return (int)cudaGetLastError();
+}
+
+// ovqe_adjoint_stream captured once into an executable graph (*exec): the
+// launches are the same, and a replay (ovqe_adjoint_stream_replay) reads
+// the call's states, angles and outputs from args, so on an H10 adjoint
+// the host issues one graph launch for the 876 kernels.  The capture runs
+// on a stream of its own and executes nothing.
+int ovqe_adjoint_stream_graph(long long N, const int* x, const int* zp,
+                              const float* s, const int* kl, int G, int K,
+                              int fmode, int per, int nb, const void* args,
+                              void** exec) {
+  cudaStream_t cs;
+  int e = (int)cudaStreamCreateWithFlags(&cs, cudaStreamNonBlocking);
+  if (e) return e;
+  e = (int)cudaStreamBeginCapture(cs, cudaStreamCaptureModeThreadLocal);
+  if (!e) {
+    const int el = ovqe_adjoint_stream(N, x, zp, s, kl, G, K, fmode, per, nb,
+                                       args, cs);
+    cudaGraph_t graph = nullptr;
+    e = (int)cudaStreamEndCapture(cs, &graph);
+    if (!e && el) e = el;
+    if (!e)
+      e = (int)cudaGraphInstantiate((cudaGraphExec_t*)exec, graph, 0ull);
+    if (graph) cudaGraphDestroy(graph);
+  }
+  cudaStreamDestroy(cs);
+  return e;
+}
+
+// Write one call's AdjointArgs (host memory, copied in stream order) to
+// args, then launch the graph on `stream`.
+int ovqe_adjoint_stream_replay(void* exec, void* args, const void* host_args,
+                               void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  int e = (int)cudaMemcpyAsync(args, host_args, sizeof(AdjointArgs),
+                               cudaMemcpyHostToDevice, st);
+  if (e) return e;
+  return (int)cudaGraphLaunch((cudaGraphExec_t)exec, st);
+}
+
+int ovqe_graph_destroy(void* exec) {
+  return (int)cudaGraphExecDestroy((cudaGraphExec_t)exec);
+}
+
+// out[7]: resident blocks per SM, registers per thread, local (spill)
+// bytes per thread, static shared memory bytes, threads per block, the
+// term tile and PER of adjoint_stream for operands of this K.
+int ovqe_adjoint_stream_attrs(int per, int K, int* out) {
+  if (per != 1 && per != 2 && per != 4 && per != 8 && per != 16)
+    return (int)cudaErrorInvalidValue;
+  return per_dispatch(per, K, AdjointAttrs{out});
 }
 
 int ovqe_ham_stream(const float* psi, const float* acc_in, float* out,

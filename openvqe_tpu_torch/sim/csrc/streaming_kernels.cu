@@ -57,7 +57,7 @@
 //   state that is not 16-byte aligned), and adds every group of the
 //   bucket.  No scatter, no atomics; sums across blocks go through
 //   per-block partials and one fixed-order block, so every number is
-//   reproducible.  The field (see the note above sign_table):
+//   reproducible.  The field (see the note above sign_table, common.cuh):
 //   - signs hoisted out of the amplitude loop: one popcount per live term,
 //     group and thread gives the chunk's and the thread's sign, a fixed
 //     PER x PER table the loop part, so each of a thread's PER amplitudes
@@ -68,18 +68,20 @@
 //   With herm (every group Hermitian as an operator), a bucket with
 //   x_hi != 0 is counted by one block of each pair {c, c ^ x_hi}, doubled,
 //   chosen by herm_counts so that the blocks walk equal shares.
-// * expect_hoist: the expectation over the rows of
-//   streaming.hoist_bucket_args (a bucket's groups sorted by x_lo, at most
-//   cap distinct x_lo per row).  The TPU kernel shares a permutation matmul
-//   per distinct in-tile mask across a bucket; here the XOR is an index,
-//   and what a row shares is (a) the partner amplitudes of each distinct
-//   x_lo, read from the staged chunk into registers once for all its
-//   groups, and (b) the high-bit part of every sign: above the chunk j is
-//   the block's base, so (-1)^popcount(z & j) = (-1)^popcount(z & base)
-//   (-1)^popcount(z & l), and the first factor is folded into the row's
-//   coefficients in shared memory once per block and row.  The real path
-//   (c) skips W_im.  Hermitian only (herm is implied; herm_counts picks
-//   the block that counts a row with x_hi != 0).
+// * expect_hoist (redesigned for Hopper): the Hermitian expectation over
+//   the rows of streaming.hoist_bucket_args (a bucket's groups sorted by
+//   x_lo, at most cap distinct x_lo per row), walked as expect_bucketed
+//   walks its buckets under herm: the same launch per K class, blocks,
+//   staging, bucket_fields over each slot's k_live terms, REAL and term
+//   tile at compile time.  The TPU kernel shares a permutation matmul per
+//   distinct in-tile mask across a bucket; here the XOR is an index, and
+//   the one thing a row could share, a partner load per distinct x_lo,
+//   serves a single slot: two groups with equal x_hi and x_lo are one
+//   group, so every distinct x_lo of a row holds one slot (H10 and H16 at
+//   the 2^12 chunk; PERF.md).  The kernel therefore reads each slot's
+//   partners from the staged chunk, as D12 does, and keeps the first
+//   D13's summation order (a float64 sum per row, doubled where
+//   x_hi != 0).
 //
 // TMA double-buffering and a persistent kernel over all runs are later
 // work.  Every entry point launches on the caller's stream, never
@@ -91,7 +93,6 @@
 #define SW_PER 8                // pairs per thread and group of A3 / C9
 #define SW_MAX_THREADS 512      // 2^(ST_MAX_CB - 3): threads = chunk / 8
 #define SW_KTILE 16             // largest compile-time K; tiles above it
-#define ST_THREADS 256          // H-apply / expectation blocks
 #define ST_MIN_CB 8             // PER = 2^(cb - 8) amplitudes per thread
 #define ST_MAX_CB 12            // 2 states x 2 planes x 2 chunks = 128 KB
 
@@ -110,10 +111,6 @@ __device__ __forceinline__ void chunk_pair(unsigned xh, unsigned& cA,
 __device__ __forceinline__ unsigned glob(unsigned l, int cb, unsigned cA,
                                          unsigned cB) {
   return (((l >> cb) ? cB : cA) << cb) | (l & ((1u << cb) - 1u));
-}
-
-__device__ __forceinline__ unsigned parity(unsigned v) {
-  return (unsigned)__popc(v) & 1u;
 }
 
 // Move the chunk pair of nst states between global and shared memory, laid
@@ -386,74 +383,6 @@ adjoint_fused_kernel(float* __restrict__ p, float* __restrict__ l,
   stage(sm, states, 2, N, cb, cA, cB, false);
 }
 
-// ------------------------------------ the bucket kernels' sign algebra
-// Thread tid of a B6 or D12 block (output chunk c, base = c << cb) owns the
-// amplitudes j = base | l, l = tid + q T with T = ST_THREADS = 2^8 and
-// q < PER = 2^(cb - 8): three disjoint bit fields, so for every term
-//     (-1)^popcount(j & z_k) = (-1)^popcount((base | tid) & z_k)
-//                              S[m_k][q],  m_k = (z_k >> 8) & (PER - 1),
-// with S[m][q] = (-1)^popcount(m & q) one fixed PER x PER table in shared
-// memory.  The first factor holds the chunk's sign and the thread's in one
-// popcount (base and tid share no bit), paid once per term, group and
-// thread; the loop part is a broadcast row of S.  So a thread's PER
-// fields of a group cost, per live term, one popcount and PER FMAs
-// c'_k S[m_k][q] with c'_k = +-c_k: each product is exact, and the terms
-// add in the order k = 0 .. k_live - 1, so every field is the one the
-// per-amplitude popcount gave (wfields in common.cuh), bit for bit.
-
-// S[m][q] for m, q < PER, built once per block (read after a barrier).
-template <int PER>
-__device__ __forceinline__ void sign_table(float* S) {
-  for (int i = threadIdx.x; i < PER * PER; i += ST_THREADS)
-    S[i] = parity((unsigned)(i / PER) & (unsigned)(i % PER)) ? -1.f : 1.f;
-}
-
-// The fields W_re (and W_im unless REAL) of one slot at the thread's PER
-// amplitudes: terms 0 .. nl - 1 of (z, ar, ai), in tiles of KT (KT divides
-// K; terms of the last tile past nl are zero coefficients and add exact
-// zeros), jt = base | tid.
-template <int PER, int KT, bool REAL>
-__device__ __forceinline__ void bucket_fields(
-    float (&wr)[PER], float (&wi)[PER], unsigned jt,
-    const int* __restrict__ z, const float* __restrict__ ar,
-    const float* __restrict__ ai, int nl, const float* S) {
-#pragma unroll
-  for (int q = 0; q < PER; ++q) wr[q] = wi[q] = 0.f;
-  for (int k0 = 0; k0 < nl; k0 += KT) {
-#pragma unroll
-    for (int k = 0; k < KT; ++k) {
-      const unsigned zk = (unsigned)z[k0 + k];
-      const bool neg = parity(jt & zk);
-      const float c = neg ? -ar[k0 + k] : ar[k0 + k];
-      const float* row = S + ((zk >> 8) & (PER - 1)) * PER;
-      float ci = 0.f;
-      if (!REAL) ci = neg ? -ai[k0 + k] : ai[k0 + k];
-      if constexpr (PER >= 4) {
-#pragma unroll
-        for (int q4 = 0; q4 < PER / 4; ++q4) {
-          const float4 v = reinterpret_cast<const float4*>(row)[q4];
-          wr[4 * q4] = fmaf(c, v.x, wr[4 * q4]);
-          wr[4 * q4 + 1] = fmaf(c, v.y, wr[4 * q4 + 1]);
-          wr[4 * q4 + 2] = fmaf(c, v.z, wr[4 * q4 + 2]);
-          wr[4 * q4 + 3] = fmaf(c, v.w, wr[4 * q4 + 3]);
-          if (!REAL) {
-            wi[4 * q4] = fmaf(ci, v.x, wi[4 * q4]);
-            wi[4 * q4 + 1] = fmaf(ci, v.y, wi[4 * q4 + 1]);
-            wi[4 * q4 + 2] = fmaf(ci, v.z, wi[4 * q4 + 2]);
-            wi[4 * q4 + 3] = fmaf(ci, v.w, wi[4 * q4 + 3]);
-          }
-        }
-      } else {
-#pragma unroll
-        for (int q = 0; q < PER; ++q) {
-          wr[q] = fmaf(c, row[q], wr[q]);
-          if (!REAL) wi[q] = fmaf(ci, row[q], wi[q]);
-        }
-      }
-    }
-  }
-}
-
 // Stage source chunk src (both planes) into sm[0 .. 2C), 16 bytes a load
 // (the wrappers refuse a state that is not 16-byte aligned; N + j is a
 // multiple of 4).  Every thread of the block must call it.
@@ -619,30 +548,33 @@ expect_bucket_kernel(const float* __restrict__ psi, unsigned N, int cb,
 }
 
 // ---------------------------------------------------------------- kernel 5
-// expect_hoist: all hoisted rows, one launch; stage 2 is row_reduce_kernel.
-// Replaces openvqe_tpu/sim/streaming.py::_expect_hoist_kernel.  Block c
-// owns chunk c and walks the rows (sorted by x_hi): a row with x_hi != 0
-// is counted by the block herm_counts names of {c, c ^ x_hi} and doubled,
-// a row with x_hi == 0 (pairs inside the chunk, or x = 0) is summed from
-// every amplitude.  Per row: stage the source chunk when it changes, fold
-// the high-bit signs into the row's coefficients (wr, wi in shared
-// memory), then per distinct x_lo u load the thread's partners
-// psi[l ^ u] once and contract every slot of u (the slots are sorted by
-// x_lo, so they are consecutive) with fields over the low bits of j only.
-// Shared memory: the source chunk (2C floats) and 2 gcap K coefficients.
-template <int PER>
-__global__ void __launch_bounds__(ST_THREADS)
+// expect_hoist (redesigned for Hopper): the hoisted rows of one K class,
+// one launch; stage 2 is row_reduce_kernel.  Replaces
+// openvqe_tpu/sim/streaming.py::_expect_hoist_kernel.  The walk of
+// expect_bucket_kernel with herm over the rows of
+// streaming.hoist_bucket_args (sorted by x_hi, so a source chunk is staged
+// once per distinct x_hi): block c counts a row with x_hi != 0 where
+// herm_counts names it, doubled, and a row with x_hi == 0 from every
+// amplitude.  A slot adds its k_live terms (bucket_fields) and reads its
+// partners psi[j ^ x] from the staged chunk; its share over the thread's
+// PER amplitudes (float32) goes into the row's float64 sum, which is
+// doubled where x_hi != 0 and added to the block's.  That is the summation
+// order of the first D13, whose fields (a popcount per amplitude over the
+// row's chunk-folded coefficients) were the same numbers.
+template <int PER, int KT, bool REAL>
+__global__ void __launch_bounds__(ST_THREADS, REAL ? 3 : 2)
 expect_hoist_kernel(const float* __restrict__ psi, unsigned N, int cb,
                     int B, const int* __restrict__ xh,
-                    const int* __restrict__ ux, const int* __restrict__ ix,
-                    const int* __restrict__ act, const int* __restrict__ z,
-                    const float* __restrict__ ar,
-                    const float* __restrict__ ai, int cap, int gcap, int K,
-                    int real, double* __restrict__ partials) {
-  extern __shared__ float sm[];
-  const unsigned C = 1u << cb, c = blockIdx.x, base = c << cb;
-  float* wr = sm + 2 * C;
-  float* wi = wr + gcap * K;
+                    const int* __restrict__ xl, const int* __restrict__ kl,
+                    const int* __restrict__ z, const float* __restrict__ ar,
+                    const float* __restrict__ ai, int gcap, int K,
+                    double* __restrict__ partials) {
+  extern __shared__ float4 bk_sm[];
+  float* sm = reinterpret_cast<float*>(bk_sm);
+  constexpr unsigned C = PER * ST_THREADS;       // 2^cb, known to the compiler
+  const unsigned c = blockIdx.x, base = c << cb, jt = base | threadIdx.x;
+  float* S = sm + 2 * C;
+  sign_table<PER>(S);
   float a0[PER], a1[PER];
 #pragma unroll
   for (int q = 0; q < PER; ++q) {
@@ -655,61 +587,28 @@ expect_hoist_kernel(const float* __restrict__ psi, unsigned N, int cb,
   for (int b = 0; b < B; ++b) {
     const unsigned xhb = (unsigned)xh[b], src = c ^ xhb;
     if (xhb && !herm_counts(c, xhb)) continue;   // the other block counts it
-    __syncthreads();                      // the previous row's reads are done
     if (src != staged) {
-      for (unsigned o = threadIdx.x; o < C; o += ST_THREADS) {
-        sm[o] = psi[(src << cb) | o];
-        sm[C + o] = psi[N + ((src << cb) | o)];
-      }
+      stage_src<PER>(sm, psi, N, cb, src);
       staged = src;
     }
-    const size_t row = (size_t)b * gcap * K;
-    for (int i = threadIdx.x; i < gcap * K; i += ST_THREADS) {
-      const float s = sgn(base, (unsigned)z[row + i]);   // (b)
-      wr[i] = s * ar[row + i];
-      wi[i] = real ? 0.f : s * ai[row + i];
-    }
-    __syncthreads();
     double racc = 0.0;
-    int g2 = 0;
-    for (int u = 0; u < cap; ++u) {
-      const int xu = ux[(size_t)b * cap + u];
-      if (xu < 0) break;
-      float p0[PER], p1[PER];                            // (a)
+    for (int g2 = 0; g2 < gcap; ++g2) {
+      const size_t slot = (size_t)b * gcap + g2;
+      const int nl = kl[slot];
+      if (!nl) continue;
+      const unsigned x = (unsigned)xl[slot];
+      float wre[PER], wim[PER];
+      bucket_fields<PER, KT, REAL>(wre, wim, jt, z + slot * K, ar + slot * K,
+                                   ai + slot * K, nl, S);
+      float part = 0.f;
 #pragma unroll
       for (int q = 0; q < PER; ++q) {
-        const unsigned o = (threadIdx.x + q * ST_THREADS) ^ (unsigned)xu;
-        p0[q] = sm[o];
-        p1[q] = sm[C + o];
+        const unsigned o = (threadIdx.x + q * ST_THREADS) ^ x;
+        const float b0 = sm[o], b1 = sm[C + o];
+        part += wre[q] * (a0[q] * b0 + a1[q] * b1);
+        if (!REAL) part -= wim[q] * (a0[q] * b1 - a1[q] * b0);
       }
-      for (; g2 < gcap; ++g2) {
-        const size_t slot = (size_t)b * gcap + g2;
-        if (!act[slot] || ix[slot] != u) break;
-        const int* zg = z + slot * K;
-        const float* rg = wr + g2 * K;
-        const float* ig = wi + g2 * K;
-        float wre[PER], wim[PER];
-#pragma unroll
-        for (int q = 0; q < PER; ++q) wre[q] = wim[q] = 0.f;
-        for (int k = 0; k < K; ++k) {
-          const float r = rg[k], i = ig[k];
-          if (r == 0.f && i == 0.f) continue;
-          const unsigned zk = (unsigned)zg[k];
-#pragma unroll
-          for (int q = 0; q < PER; ++q) {
-            const float sg = sgn(threadIdx.x + q * ST_THREADS, zk);
-            wre[q] += sg * r;
-            wim[q] += sg * i;
-          }
-        }
-        float part = 0.f;
-#pragma unroll
-        for (int q = 0; q < PER; ++q) {
-          part += wre[q] * (a0[q] * p0[q] + a1[q] * p1[q]);
-          if (!real) part -= wim[q] * (a0[q] * p1[q] - a1[q] * p0[q]); // (c)
-        }
-        racc += part;
-      }
+      racc += part;
     }
     acc += (xhb ? 2.0 : 1.0) * racc;
   }
@@ -787,23 +686,7 @@ int kernel_attrs(const void* fn, int threads, size_t smem, int* out) {
   return 0;
 }
 
-template <int PER>
-int launch_hoist(const float* psi, long long N, int cb, int B,
-                 const int* xh, const int* ux, const int* ix, const int* act,
-                 const int* z, const float* ar, const float* ai, int cap,
-                 int gcap, int K, int real, double* partials,
-                 cudaStream_t st) {
-  const size_t smem =
-      (((size_t)2 << cb) + (size_t)2 * gcap * K) * sizeof(float);
-  int e = set_smem(expect_hoist_kernel<PER>, smem);
-  if (e) return e;
-  expect_hoist_kernel<PER><<<(unsigned)(N >> cb), ST_THREADS, smem, st>>>(
-      psi, (unsigned)N, cb, B, xh, ux, ix, act, z, ar, ai, cap, gcap, K,
-      real, partials);
-  return (int)cudaGetLastError();
-}
-
-// Launches of B6 and D12 for bucket_dispatch.
+// Launches of B6, D12 and D13 for bucket_dispatch.
 struct HamLaunch {
   const float *psi, *acc_in;
   float* out;
@@ -848,14 +731,38 @@ struct ExpectLaunch {
   }
 };
 
+struct HoistLaunch {
+  const float* psi;
+  long long N;
+  int cb, B;
+  const int *xh, *xl, *kl, *z;
+  const float *ar, *ai;
+  int gcap, K;
+  double* partials;
+  cudaStream_t st;
+  template <int PER, int KT, bool REAL>
+  int run() const {
+    const size_t smem = bucket_smem(cb);
+    int e = set_smem(expect_hoist_kernel<PER, KT, REAL>, smem);
+    if (e) return e;
+    expect_hoist_kernel<PER, KT, REAL>
+        <<<(unsigned)(N >> cb), ST_THREADS, smem, st>>>(
+            psi, (unsigned)N, cb, B, xh, xl, kl, z, ar, ai, gcap, K,
+            partials);
+    return (int)cudaGetLastError();
+  }
+};
+
+// which: 0 ham_bucket_kernel, 1 expect_bucket_kernel, 2 expect_hoist_kernel.
 struct BucketAttrs {
-  int expect, cb;
+  int which, cb;
   int* out;
   template <int PER, int KT, bool REAL>
   int run() const {
     const void* fn =
-        expect ? (const void*)expect_bucket_kernel<PER, KT, REAL>
-               : (const void*)ham_bucket_kernel<PER, KT, REAL>;
+        which == 2 ? (const void*)expect_hoist_kernel<PER, KT, REAL>
+        : which == 1 ? (const void*)expect_bucket_kernel<PER, KT, REAL>
+                     : (const void*)ham_bucket_kernel<PER, KT, REAL>;
     out[5] = KT;
     return kernel_attrs(fn, ST_THREADS, bucket_smem(cb), out);
   }
@@ -1021,34 +928,24 @@ int ovqe_expect_bucketed(const float* psi, long long N, int cb,
 
 // out[6]: resident blocks per SM, registers per thread, local (spill)
 // bytes per thread, dynamic shared memory bytes, threads per block and the
-// term tile KT of ham_bucketed (expect 0) or expect_bucketed (1) for
-// operands of this K, chunk and realness.
-int ovqe_bucket_attrs(int expect, int K, int real, int cb, int* out) {
-  if (cb < ST_MIN_CB || cb > ST_MAX_CB) return (int)cudaErrorInvalidValue;
-  return bucket_dispatch(cb, K, real, BucketAttrs{expect, cb, out});
+// term tile KT of ham_bucketed (which 0), expect_bucketed (1) or
+// expect_hoisted (2) for operands of this K, chunk and realness.
+int ovqe_bucket_attrs(int which, int K, int real, int cb, int* out) {
+  if (cb < ST_MIN_CB || cb > ST_MAX_CB || which < 0 || which > 2)
+    return (int)cudaErrorInvalidValue;
+  return bucket_dispatch(cb, K, real, BucketAttrs{which, cb, out});
 }
 
 int ovqe_expect_hoisted(const float* psi, long long N, int cb,
-                        const int* xh, const int* ux, const int* ix,
-                        const int* act, const int* z, const float* ar,
-                        const float* ai, int B, int cap, int gcap, int K,
-                        int real, double* partials, float* out,
-                        void* stream) {
-  if (!cb_ok(N, cb) || cap < 1) return (int)cudaErrorInvalidValue;
+                        const int* xh, const int* xl, const int* kl,
+                        const int* z, const float* ar, const float* ai,
+                        int B, int gcap, int K, int real, double* partials,
+                        float* out, void* stream) {
+  if (!cb_ok(N, cb)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  int e;
-  switch (cb) {
-    case 8: e = launch_hoist<1>(psi, N, cb, B, xh, ux, ix, act, z, ar, ai,
-                                cap, gcap, K, real, partials, st); break;
-    case 9: e = launch_hoist<2>(psi, N, cb, B, xh, ux, ix, act, z, ar, ai,
-                                cap, gcap, K, real, partials, st); break;
-    case 10: e = launch_hoist<4>(psi, N, cb, B, xh, ux, ix, act, z, ar, ai,
-                                 cap, gcap, K, real, partials, st); break;
-    case 11: e = launch_hoist<8>(psi, N, cb, B, xh, ux, ix, act, z, ar, ai,
-                                 cap, gcap, K, real, partials, st); break;
-    default: e = launch_hoist<16>(psi, N, cb, B, xh, ux, ix, act, z, ar, ai,
-                                  cap, gcap, K, real, partials, st); break;
-  }
+  const int e = bucket_dispatch(
+      cb, K, real, HoistLaunch{psi, N, cb, B, xh, xl, kl, z, ar, ai, gcap, K,
+                               partials, st});
   if (e) return e;
   row_reduce_kernel<ST_THREADS, double><<<1, ST_THREADS, 0, st>>>(
       partials, (int)(N >> cb), 1.f, out);

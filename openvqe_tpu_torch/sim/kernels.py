@@ -43,14 +43,16 @@ float32; pool-overlap rows are (G, 2) or (B, gcap, 2) float32 (re, im);
 state planes are (2, 2^n) float32, all contiguous and on one device.
 Outputs are allocated with ``torch.empty`` and the kernels run on the
 current stream.  ``LAUNCHES`` counts, per wrapper, the calls that launched
-the kernel.  ``rot_fused`` and ``adjoint_fused`` compute one field per
-pair and take only operands that carry the odd-Y certificate
-(``BucketOperands.odd_y``), on either device: without it they raise
-``ValueError``.  The kernels that stage states with 16-byte loads
-(``rot_fused``, ``adjoint_fused``, ``ham_bucketed``, ``expect_bucketed``)
-refuse a state on the card whose data is not 16-byte aligned.
-``sweep_attributes`` and ``bucket_attributes`` report how A3 / C9 and B6 /
-D12 launch (registers, spills, shared memory, resident blocks per SM).
+the kernel.  ``rot_fused``, ``adjoint_fused`` and ``adjoint_stream``
+compute one field per pair and take only operands that carry the odd-Y
+certificate (``BucketOperands.odd_y``, ``GroupOperands.odd_y``), on either
+device: without it they raise ``ValueError``.  The kernels that stage
+states with 16-byte loads (``rot_fused``, ``adjoint_fused``,
+``ham_bucketed``, ``expect_bucketed``, ``expect_hoisted``) refuse a state
+on the card whose data is not 16-byte aligned.  ``sweep_attributes``,
+``bucket_attributes`` and ``adjoint_stream_attributes`` report how A3 /
+C9, B6 / D12 / D13 and C8 launch (registers, spills, shared memory,
+resident blocks per SM).
 """
 
 from __future__ import annotations
@@ -73,7 +75,6 @@ SOURCES = {"grouped": CSRC / "grouped_kernels.cu",
            "streaming": CSRC / "streaming_kernels.cu",
            "stream_group": CSRC / "stream_group_kernels.cu",
            "pool": CSRC / "pool_kernels.cu"}
-HEADERS = (CSRC / "common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"]
@@ -106,8 +107,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    h = hashlib.sha256(SOURCES[name].read_bytes())
-    for hdr in HEADERS:
+    """The library of a source, named by the content of the source and of
+    the headers beside it (``common.cuh``)."""
+    src = SOURCES[name]
+    h = hashlib.sha256(src.read_bytes())
+    for hdr in sorted(src.parent.glob("*.cuh")):
         h.update(hdr.read_bytes())
     return BUILD_DIR / f"libovqe_{name}_{h.hexdigest()[:12]}.so"
 
@@ -156,13 +160,17 @@ _SIGNATURES = {
         "ovqe_adjoint_fused": "PPLIPPPPPPIIIIPPP",
         "ovqe_ham_bucketed": "PPPLIPPPPPPIIIIP",
         "ovqe_expect_bucketed": "PLIPPPPPPIIIIIPPP",
-        "ovqe_expect_hoisted": "PLIPPPPPPPIIIIIPPP",
+        "ovqe_expect_hoisted": "PLIPPPPPPIIIIPPP",
         "ovqe_sweep_attrs": "IIIIP",
         "ovqe_bucket_attrs": "IIIIP",
     },
     "stream_group": {
         "ovqe_rot_stream": "PLPPPPPIIIP",
-        "ovqe_adjoint_stream": "PPLPPPPPIIIPIPP",
+        "ovqe_adjoint_stream": "LPPPPIIIIIPP",
+        "ovqe_adjoint_stream_graph": "LPPPPIIIIIPP",
+        "ovqe_adjoint_stream_replay": "PPPP",
+        "ovqe_graph_destroy": "P",
+        "ovqe_adjoint_stream_attrs": "IIP",
         "ovqe_ham_stream": "PPPLPPPPPIIP",
         "ovqe_expect_stream": "PLPPPPPIIIPIPP",
         "ovqe_sg_block_threads": "",
@@ -346,12 +354,14 @@ def _in_place(psi, out, inplace: bool):
     return psi.copy_(out) if inplace else out
 
 
-def _odd_y(bo: st.BucketOperands) -> None:
-    if not bo.odd_y:
+def _odd_y(ops) -> None:
+    """``ops`` (``BucketOperands`` or ``GroupOperands``) must carry the
+    odd-Y certificate."""
+    if not ops.odd_y:
         raise ValueError(
             "rotation operands without the odd-Y certificate "
-            "(streaming.Buckets.odd_y): the fused sweeps compute one field "
-            "per pair and need F(j ^ x) = -F(j)")
+            "(streaming.Buckets.odd_y, GroupOperands.odd_y): the kernel "
+            "computes one field per pair and needs F(j ^ x) = -F(j)")
 
 
 def _aligned(*states: torch.Tensor) -> None:
@@ -432,16 +442,21 @@ def sweep_attributes(name: str, bo: st.BucketOperands) -> Dict[str, int]:
     return dict(zip(keys, list(out)))
 
 
+_BUCKET_KERNELS = ("ham_bucketed", "expect_bucketed", "expect_hoisted")
+
+
 def bucket_attributes(name: str, bo: st.BucketOperands) -> Dict[str, int]:
-    """How ``ham_bucketed`` or ``expect_bucketed`` launches on ``bo``:
-    resident blocks per SM, registers and local (spill) bytes per thread,
-    dynamic shared memory per block, threads per block and the compiled
-    term tile (the instance is chosen by chunk, K and ``bo.real``)."""
-    if name not in ("ham_bucketed", "expect_bucketed"):
+    """How ``ham_bucketed``, ``expect_bucketed`` or ``expect_hoisted``
+    launches on ``bo`` (for ``expect_hoisted`` the rows' operands,
+    ``HoistOperands.bo``): resident blocks per SM, registers and local
+    (spill) bytes per thread, dynamic shared memory per block, threads per
+    block and the compiled term tile (the instance is chosen by chunk, K
+    and ``bo.real``)."""
+    if name not in _BUCKET_KERNELS:
         raise ValueError(f"not a bucketed H kernel: {name}")
     out = (ctypes.c_int * 6)()
     rc = _load("streaming").ovqe_bucket_attrs(
-        int(name == "expect_bucketed"), bo.K, int(bo.real), bo.chunk_bits,
+        _BUCKET_KERNELS.index(name), bo.K, int(bo.real), bo.chunk_bits,
         ctypes.addressof(out))
     if rc != 0:
         raise RuntimeError(f"bucket_attributes({name}): CUDA error {rc}")
@@ -490,8 +505,11 @@ def expect_bucketed(psi, bo: st.BucketOperands, herm: bool = False):
 def expect_hoisted(psi, ho: st.HoistOperands):
     """The Hermitian expectation over hoisted rows (``streaming.
     hoist_bucket_args``): a 0-dim tensor, the value of
-    ``expect_bucketed(herm=True)`` on the same groups.  The caller
-    certifies every group Hermitian as an operator."""
+    ``expect_bucketed(herm=True)`` on the same groups, one launch per row
+    set.  The caller certifies every group Hermitian as an operator.  The
+    kernel walks the rows in their order and reads each slot's x_lo from
+    the rows (``ho.bo``); the tables of distinct x_lo (``ho.ux``,
+    ``ho.ix``) are the plain version's."""
     if psi.device.type == "cpu":
         return st.expect_hoisted_ref(psi, ho)
     bo = ho.bo
@@ -500,14 +518,15 @@ def expect_hoisted(psi, ho: st.HoistOperands):
         raise ValueError(f"empty table of distinct x_lo ({ho.cap})")
     _check("ux", ho.ux, torch.int32, (bo.B, ho.cap), psi.device)
     _check("ix", ho.ix, torch.int32, (bo.B, bo.gcap), psi.device)
+    _aligned(psi)
     lib = _load("streaming")
     partials = torch.empty(N >> bo.chunk_bits, dtype=torch.float64,
                            device=psi.device)
     out = torch.empty(1, dtype=torch.float32, device=psi.device)
     _launch("expect_hoisted", lib.ovqe_expect_hoisted, psi, N,
-            bo.chunk_bits, bo.x_hi, ho.ux, ho.ix, bo.act, bo.z, bo.coef,
-            bo.coef_im, bo.B, ho.cap, bo.gcap, bo.K, int(bo.real),
-            partials, out, _stream(psi))
+            bo.chunk_bits, bo.x_hi, bo.x_lo, bo.k_live, bo.z, bo.coef,
+            bo.coef_im, bo.B, bo.gcap, bo.K, int(bo.real), partials, out,
+            _stream(psi))
     return out[0]
 
 
@@ -523,6 +542,7 @@ def _group_ops(psi: torch.Tensor, go: st.GroupOperands,
     G, Kc = go.G, go.K
     _check("x", go.x, torch.int32, (G,), psi.device)
     _check("z", go.z, torch.int32, (G, Kc), psi.device)
+    _check("z_pair", go.z_pair, torch.int32, (G, Kc), psi.device)
     _check("k_live", go.k_live, torch.int32, (G,), psi.device)
     for i, c in enumerate(coefs):
         _check(f"coef{i}", c, torch.float32, (G, Kc), psi.device)
@@ -548,30 +568,113 @@ def rot_stream(psi, ang, go: st.GroupOperands, fmode: int,
     return out
 
 
-def adjoint_stream(p, lam, ang, go: st.GroupOperands, fmode: int):
+STREAM_PER = 8          # pairs per thread of C8 (adjoint_stream)
+_PERS = (1, 2, 4, 8, 16)
+
+
+def stream_per(N: int, per: int = STREAM_PER) -> int:
+    """C8's pairs per thread on a state of N amplitudes: ``per`` (1, 2, 4,
+    8 or 16), or the largest power of two below it whose 256-thread blocks
+    the state's N / 2 pairs fill (1 below 2^9 amplitudes, with idle
+    threads)."""
+    if per not in _PERS:
+        raise ValueError(f"per must be one of {_PERS}, got {per}")
+    while per > 1 and per * 256 > N // 2:
+        per //= 2
+    return per
+
+
+class _Graph:
+    """An executable CUDA graph of C8's launches on one operand set and the
+    device buffer its kernels read each call's five pointers from
+    (``AdjointArgs`` in ``csrc/stream_group_kernels.cu``)."""
+
+    def __init__(self, go: st.GroupOperands, N: int, per: int, fmode: int,
+                 nb: int):
+        self.args = torch.empty(5, dtype=torch.int64, device=go.x.device)
+        exec_ = ctypes.c_void_p()
+        rc = _load("stream_group").ovqe_adjoint_stream_graph(
+            N, go.x.data_ptr(), go.z_pair.data_ptr(), go.coef.data_ptr(),
+            go.k_live.data_ptr(), go.G, go.K, fmode, per, nb,
+            self.args.data_ptr(), ctypes.addressof(exec_))
+        if rc != 0:
+            raise RuntimeError(f"adjoint_stream: CUDA error {rc} while "
+                               f"capturing its graph")
+        self.exec = exec_.value
+
+    def __del__(self):
+        lib = _libs.get("stream_group")
+        if lib is not None and getattr(self, "exec", None):
+            lib.ovqe_graph_destroy(self.exec)
+
+
+def _adjoint_graph(go: st.GroupOperands, N: int, per: int, fmode: int,
+                   nb: int) -> _Graph:
+    """The graph of ``go`` for this state size, PER and field mode, captured
+    on first use and kept in ``go.graphs``.  Its kernels hold go's device
+    pointers, which key it too."""
+    key = (N, per, fmode, go.x.data_ptr(), go.z_pair.data_ptr(),
+           go.coef.data_ptr(), go.k_live.data_ptr())
+    if key not in go.graphs:
+        go.graphs[key] = _Graph(go, N, per, fmode, nb)
+    return go.graphs[key]
+
+
+def adjoint_stream(p, lam, ang, go: st.GroupOperands, fmode: int,
+                   per: int = STREAM_PER):
     """Reversible adjoint over the groups of ``go`` in its order, which is
     the REVERSED sequence (one launch per group); returns (p_prev,
     lam_prev, gts) with gts (G,) in go's order: gts[i] is the entry of
     go's group i, to be summed into theta with go.op (the JAX package's
-    ``adjoint_sweep_stream`` returns its entries in the same order)."""
+    ``adjoint_sweep_stream`` returns its entries in the same order).
+    ``go`` must carry the odd-Y certificate (``go.odd_y``) on either
+    device.  ``per`` sets the kernel's pairs per thread (``stream_per``;
+    the card tests and the variant timings take the others); it does not
+    change p and lambda.  On the card
+    the G + 1 launches are one CUDA graph, captured on the first call for
+    ``go`` (and this N, PER and field mode) and replayed after; its
+    kernels read the call's states, angles and outputs from a device
+    buffer the replay fills, in stream order."""
+    _odd_y(go)
     if p.device.type == "cpu":
         return st.adjoint_stream_ref(p, lam, ang, go, fmode)
     N = _group_ops(p, go, (go.coef,))
     _check("lam", lam, torch.float32, (2, N), p.device)
     _check("ang", ang, torch.float32, (go.G,), p.device)
+    per = stream_per(N, per)
     lib = _load("stream_group")
     p_out, l_out = torch.empty_like(p), torch.empty_like(lam)
     p_out.copy_(p)
     l_out.copy_(lam)
     gts = torch.empty(go.G, dtype=torch.float32, device=p.device)
     if go.G:
-        nb = -(-(N // 2) // _sg_threads)
+        nb = -(-(N // 2 // per) // _sg_threads)
         partials = torch.empty((go.G, nb), dtype=torch.float64,
                                device=p.device)
-        _launch("adjoint_stream", lib.ovqe_adjoint_stream, p_out, l_out, N,
-                go.x, go.z, go.coef, go.k_live, ang, go.G, go.K,
-                _fmode(fmode), partials, nb, gts, _stream(p))
+        graph = _adjoint_graph(go, N, per, _fmode(fmode), nb)
+        ptrs = (ctypes.c_void_p * 5)(p_out.data_ptr(), l_out.data_ptr(),
+                                     ang.data_ptr(), partials.data_ptr(),
+                                     gts.data_ptr())
+        _launch("adjoint_stream", lib.ovqe_adjoint_stream_replay, graph.exec,
+                graph.args, ctypes.addressof(ptrs), _stream(p))
     return p_out, l_out, gts
+
+
+def adjoint_stream_attributes(go: st.GroupOperands,
+                              per: int = STREAM_PER) -> Dict[str, int]:
+    """How ``adjoint_stream`` launches on ``go`` at a 2^n state: resident
+    blocks per SM, registers and local (spill) bytes per thread, static
+    shared memory per block, threads per block, the compiled term tile and
+    the pairs per thread."""
+    per = stream_per(1 << go.n, per)
+    out = (ctypes.c_int * 7)()
+    rc = _load("stream_group").ovqe_adjoint_stream_attrs(
+        per, go.K, ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"adjoint_stream_attributes: CUDA error {rc}")
+    keys = ("blocks_per_sm", "registers", "spill_bytes", "smem_bytes",
+            "threads", "k_tile", "per")
+    return dict(zip(keys, list(out)))
 
 
 def ham_stream(psi, acc, go: st.GroupOperands):

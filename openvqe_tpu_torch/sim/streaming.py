@@ -67,7 +67,7 @@ each CUDA kernel of ``sim/kernels.py`` is held against.
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from types import SimpleNamespace
 from typing import List, Optional, Tuple
 
@@ -675,8 +675,14 @@ class GroupOperands:
     objective's dtype (coef_im is zeros for a rotation sequence); k_live
     (G,) int32, one past each group's last live row, so that no kernel
     loops over the zero rows that pad a group to H's global K (64 at H10,
-    where most groups have at most 8 live rows).  ``op`` stays on the
-    host: angles are built there."""
+    where most groups have at most 8 live rows); z_pair (G, K) int32, z
+    with bit msb(x) taken out (``pair_masks``), the masks kernel C8 reads
+    over the pair index.  ``op`` stays on the host: angles are built
+    there.  ``odd_y`` is the host certificate of ``Buckets.odd_y`` for
+    these groups (every live term has popcount(x & z_k) odd), which C8
+    needs to compute one field per pair.  ``graphs`` holds C8's CUDA
+    graphs on these operands (``kernels.adjoint_stream`` captures them),
+    freed with the operands."""
     n: int
     chunk_bits: int
     x: torch.Tensor
@@ -684,8 +690,11 @@ class GroupOperands:
     coef: torch.Tensor
     coef_im: torch.Tensor
     k_live: torch.Tensor
+    z_pair: torch.Tensor
     op: Optional[np.ndarray]
     fmode: int = 0
+    odd_y: bool = False
+    graphs: dict = field(default_factory=dict, repr=False, compare=False)
 
     @property
     def G(self) -> int:
@@ -696,20 +705,36 @@ class GroupOperands:
         return self.z.shape[1]
 
 
+def pair_masks(x, z) -> np.ndarray:
+    """z' = z with bit h = msb(x) taken out (the bits above it shifted
+    down one), per group (x (G,), z (G, K)): for the pair index t of
+    j = insert_zero(t, h), popcount(j & z) and popcount(t & z') have the
+    same parity, since j's bit h is clear and its other bits are t's.  x = 0
+    keeps z."""
+    x = np.asarray(x, np.int64)
+    z = np.asarray(z, np.int64)
+    h = np.array([max(int(v).bit_length() - 1, 0) for v in x],
+                 np.int64)[:, None]
+    low = z & ((np.int64(1) << h) - 1)
+    return np.where(x[:, None] > 0, low | ((z >> (h + 1)) << h), z)
+
+
 def group_operands(sd: StreamGroupData, device, dtype=torch.float32
                    ) -> GroupOperands:
     """The live groups of ``sd`` in their order (inert groups dropped, as
-    JAX drops them), moved to ``device``."""
+    JAX drops them), moved to ``device``, with their odd-Y certificate."""
     keep = np.nonzero(sd.live)[0]
     x = (sd.x_hi[keep].astype(np.int64) << sd.chunk_bits) | sd.x_lo[keep]
     if np.any(x >> sd.n):
         raise ValueError("group masks do not fit n")
+    z = sd.z[keep].astype(np.int64)
     coef = sd.coef[keep]
     cim = (np.zeros_like(coef) if sd.coef_im is None
            else sd.coef_im[keep])
     live = (coef != 0) | (cim != 0)
     k_live = np.where(live.any(axis=1),
                       live.shape[1] - np.argmax(live[:, ::-1], axis=1), 0)
+    odd = _popcount(x[:, None] & z) & 1 == 1
 
     def dev(a, dt):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
@@ -717,9 +742,11 @@ def group_operands(sd: StreamGroupData, device, dtype=torch.float32
 
     return GroupOperands(
         n=sd.n, chunk_bits=sd.chunk_bits, x=dev(x, torch.int32),
-        z=dev(sd.z[keep], torch.int32), coef=dev(coef, dtype),
+        z=dev(z, torch.int32), coef=dev(coef, dtype),
         coef_im=dev(cim, dtype), k_live=dev(k_live, torch.int32),
-        op=None if sd.op is None else sd.op[keep], fmode=sd.fmode)
+        z_pair=dev(pair_masks(x, z), torch.int32),
+        op=None if sd.op is None else sd.op[keep], fmode=sd.fmode,
+        odd_y=bool(np.all(odd | ~live)))
 
 
 def group_angles(go: GroupOperands, theta, dtype, device) -> torch.Tensor:

@@ -5,9 +5,9 @@ tried and not kept.
 
     python3 scripts/torch_bucket_variants.py [--h16 PICKLE]
 
-Each variant is ``openvqe_tpu_torch/sim/csrc/streaming_kernels.cu`` with
-one set of text patches, each replacing every copy of a piece of text
-(the script stops if the source no longer holds it), built under
+Each variant is ``openvqe_tpu_torch/sim/csrc/streaming_kernels.cu`` and
+``common.cuh`` with one set of text patches, each replacing every copy of
+a piece of text (the script stops if neither file holds it), built under
 ``build/bucket_variants/`` and bound in place of the shipped source.  At H10's shapes (the UCCSD
 objective's K classes of ``chip_smoke.py`` phase 5, a random state) each
 variant times B6 over both K classes and each class alone, and D12 with
@@ -39,7 +39,6 @@ Prints the card's name and power limit first.  Needs one CUDA card.
 
 import argparse
 import pickle
-import shutil
 import sys
 from pathlib import Path
 from types import SimpleNamespace
@@ -243,22 +242,28 @@ ham_bucket_kernel("""),
 }
 
 
-def variant_sources() -> dict:
-    """Write each variant's source beside a copy of common.cuh."""
-    src = SOURCE.read_text()
-    OUT.mkdir(parents=True, exist_ok=True)
-    shutil.copy(SOURCE.parent / "common.cuh", OUT / "common.cuh")
+def write_variants(source: Path, variants: dict, out: Path) -> dict:
+    """Write each variant of ``source`` into a directory of its own under
+    ``out``, beside its own copy of common.cuh; each patch (old, new)
+    replaces every copy of ``old`` in whichever of the two files holds it
+    (stopping if neither does).  Returns the sources by variant name."""
+    texts = {source.name: source.read_text(),
+             "common.cuh": (source.parent / "common.cuh").read_text()}
     paths = {}
-    for i, (name, patches) in enumerate(VARIANTS.items()):
-        text = src
+    for i, (name, patches) in enumerate(variants.items()):
+        files = dict(texts)
         for old, new in patches:
-            if old not in text:
-                raise SystemExit(f"variant {name!r}: the source no longer "
-                                 f"holds the text to patch:\n{old[:200]}")
-            text = text.replace(old, new)
-        path = OUT / f"streaming_v{i}.cu"
-        path.write_text(text)
-        paths[name] = path
+            held = [f for f, text in files.items() if old in text]
+            if not held:
+                raise SystemExit(f"variant {name!r}: the sources no longer "
+                                 f"hold the text to patch:\n{old[:200]}")
+            for f in held:
+                files[f] = files[f].replace(old, new)
+        d = out / f"v{i}"
+        d.mkdir(parents=True, exist_ok=True)
+        for f, text in files.items():
+            (d / f).write_text(text)
+        paths[name] = d / source.name
     return paths
 
 
@@ -276,7 +281,7 @@ def main() -> int:
     from openvqe_tpu_torch.sim import streaming as st
     from openvqe_tpu_torch.sim.objective import VQEObjective
     print(cs.card_line(), flush=True)
-    paths = variant_sources()
+    paths = write_variants(SOURCE, VARIANTS, OUT)
 
     def use(name):
         K.SOURCES["streaming"] = paths[name]

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Two checkouts of the port on one card, in turns: the fused sweeps (A3
 ``rot_fused``, C9 ``adjoint_fused``), the bucketed H-apply and
-expectation (B6 ``ham_bucketed``, D12 ``expect_bucketed``) and the paths
-that run them.
+expectation (B6 ``ham_bucketed``, D12 ``expect_bucketed``), the hoisted
+expectation (D13 ``expect_hoisted``), the per-group streaming adjoint (C8
+``adjoint_stream``) and the paths that run them.
 
     python3 scripts/torch_sweep_turns.py --trees PARENT CHANGE \\
         [--h16 PICKLE] [--quick]
@@ -15,20 +16,26 @@ into the tree's own ``build/``):
 
 * A3 and C9 at H10's shapes (the UCCSD runs of ``chip_smoke.py`` phase 5
   at theta1), B6 over both K classes of H10's H and each class alone, D12
-  with ``herm`` over both classes: CUDA events over 20 calls after 3
+  with ``herm`` over both classes, D13 over the hoisted off-diagonal
+  classes of OVQE_EXP_HOIST=1 (and its value), C8 on the reversed UCCSD
+  groups of the OVQE_STREAM_FUSE=0 objective at theta1, from that route's
+  forward state and lambda (and SHA-256s of the p and lambda it returns
+  and of its gradient entries): CUDA events over 20 calls after 3
   warm-ups;
-* the H10 fused ``energy_and_grad`` at theta0 (host clock, median of 20
-  calls, each returning host numbers), and its energy and gradient at
-  theta0 and theta1 (the gradient as a SHA-256 of its float64 entries),
-  which the table compares across the turns bit for bit;
+* the H10 fused ``energy_and_grad`` and the OVQE_STREAM_FUSE=0 one at
+  theta0 (host clock, median of 20 calls, each returning host numbers),
+  and each one's energy and gradient at theta0 and theta1 (the gradient
+  as a SHA-256 of its float64 entries), which the table compares across
+  the turns bit for bit;
 * unless ``--quick``, the H10 fermionic ADAPT run of ``chip_smoke.py``
   phase 10 (3 outer iterations, the float32 Lanczos reference included;
   host clock);
 * unless ``--quick``, with ``--h16`` (a pickle written by
   ``chip_smoke.py --h16-setup PATH``): the 30-qubit entry point on H16
   tapered to 30 qubits at the MP2 guess,
-  the in-place A3 sweep and the expectation (D12 ``herm``) timed apart
-  (host clock, each ending in a device sync).
+  the in-place A3 sweep, the expectation (D12 ``herm``) and the
+  expectation of OVQE_EXP_HOIST=1 (D13 and D12) on the same state, timed
+  apart (host clock, each ending in a device sync), with their values.
 
 The card's name and power limit come first, then one ``TURN`` JSON line
 per child and a table of the turns.  Needs one CUDA card.
@@ -51,6 +58,15 @@ from types import SimpleNamespace
 
 def median(ts):
     return sorted(ts)[len(ts) // 2]
+
+
+def sha256(a) -> str:
+    """SHA-256 of an array's float64 values (a tensor is read back)."""
+    import numpy as np
+    if hasattr(a, "detach"):
+        a = a.detach().double().cpu().numpy()
+    return hashlib.sha256(np.ascontiguousarray(a, dtype=np.float64)
+                          .tobytes()).hexdigest()
 
 
 def measure(tree: Path, h16: str, quick: bool) -> dict:
@@ -102,19 +118,40 @@ def measure(tree: Path, h16: str, quick: bool) -> dict:
         out[f"b6_k{hc.K}_ms"] = cs.cuda_ms(lambda: ham([hc]))
     out["d12_herm_ms"] = cs.cuda_ms(
         lambda: [K.expect_bucketed(psi, hc, True) for hc in obj.hclasses])
-    b.energy_and_grad(theta0)
-    torch.cuda.synchronize()
-    ts = []
-    for _ in range(20):
-        t = time.perf_counter()
-        e, g = b.energy_and_grad(theta0)
-        ts.append(time.perf_counter() - t)
-    out["h10_energy_and_grad_ms"] = 1e3 * median(ts)
-    e1, g1 = b.energy_and_grad(theta1)
-    for name, (en, gr) in (("theta0", (e, g)), ("theta1", (e1, g1))):
-        out[f"h10_energy_{name}"] = en
-        out[f"h10_grad_{name}_sha256"] = hashlib.sha256(
-            np.ascontiguousarray(gr, dtype=np.float64).tobytes()).hexdigest()
+    hoisted = [o for h, o in st.expect_operands(
+        st.ham_view(obj.gham, h10.n), obj.chunk_bits, psi.device,
+        torch.float32, True) if h]
+    out["d13_h10_ms"] = cs.cuda_ms(
+        lambda: [K.expect_hoisted(psi, ho) for ho in hoisted])
+    out["d13_h10_value"] = sum(float(K.expect_hoisted(psi, ho))
+                               for ho in hoisted)
+
+    with cs.env_vars(OVQE_STREAM_FUSE="0"):
+        obj0 = VQEObjective(h10.ham, device="cuda")
+        b0 = obj0.bind(h10.gens, h10.hf)
+    adj0 = b0._adj
+    psi1 = b0.forward(theta1)
+    _, lam1 = obj0._energy_and_lam(psi1)
+    aa0 = st.group_angles(adj0, theta1, torch.float32, psi.device)
+    out["c8_ms"] = cs.cuda_ms(
+        lambda: K.adjoint_stream(psi1, lam1, aa0, adj0, b0._fmode))
+    p1, l1, gts1 = K.adjoint_stream(psi1, lam1, aa0, adj0, b0._fmode)
+    out["c8_theta1_state_sha256"] = sha256(torch.cat([p1, l1]))
+    out["c8_theta1_grad_sha256"] = sha256(gts1)
+
+    for tag, ba in (("", b), ("fuse0_", b0)):
+        ba.energy_and_grad(theta0)
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(20):
+            t = time.perf_counter()
+            e, g = ba.energy_and_grad(theta0)
+            ts.append(time.perf_counter() - t)
+        out[f"h10_{tag}energy_and_grad_ms"] = 1e3 * median(ts)
+        e1, g1 = ba.energy_and_grad(theta1)
+        for name, (en, gr) in (("theta0", (e, g)), ("theta1", (e1, g1))):
+            out[f"h10_{tag}energy_{name}"] = en
+            out[f"h10_{tag}grad_{name}_sha256"] = sha256(gr)
     if quick:
         return out
 
@@ -133,11 +170,16 @@ def measure(tree: Path, h16: str, quick: bool) -> dict:
         with open(h16, "rb") as f:
             h = SimpleNamespace(**pickle.load(f))
         energy = st.build_streaming_energy_xl_fn(h.gseq, h.gham, h.hf)
+        with cs.env_vars(OVQE_EXP_HOIST="1"):
+            energy_h = st.build_streaming_energy_xl_fn(h.gseq, h.gham, h.hf)
         psi16, t_fwd = cs.timed(energy.forward, h.theta0)
         e16, t_exp = cs.timed(energy.expectation, psi16)
+        e13, t_13 = cs.timed(energy_h.expectation, psi16)
         del psi16
         out.update(h16_sweep_s=t_fwd, h16_expectation_s=t_exp,
                    h16_energy_s=t_fwd + t_exp, h16_energy=e16,
+                   h16_hoist_expectation_s=t_13,
+                   h16_hoist_energy_s=t_fwd + t_13, h16_hoist_energy=e13,
                    h16_runs=int(st.build_seq_buckets(st.stream_seq_data(
                        h.gseq, st.chunk_bits_for(h.n))).B))
     return out
@@ -147,9 +189,17 @@ ORDER = (0, 1, 1, 0)    # the turns: indices into --trees
 CHILD_TIMEOUT_S = 900.0
 
 METRICS = ("a3_ms", "c9_ms", "b6_ms", "b6_k8_ms", "b6_k64_ms", "d12_herm_ms",
-           "h10_energy_and_grad_ms", "h10_adapt_s", "h16_sweep_s",
-           "h16_expectation_s", "h16_energy_s", "h10_energy_theta0",
-           "h10_energy_theta1", "h16_energy")
+           "d13_h10_ms", "c8_ms", "h10_energy_and_grad_ms",
+           "h10_fuse0_energy_and_grad_ms", "h10_adapt_s", "h16_sweep_s",
+           "h16_expectation_s", "h16_energy_s", "h16_hoist_expectation_s",
+           "h16_hoist_energy_s")
+VALUES = ("d13_h10_value", "h10_energy_theta0", "h10_energy_theta1",
+          "h10_fuse0_energy_theta0", "h10_fuse0_energy_theta1", "h16_energy",
+          "h16_hoist_energy")
+SAME = ("h10_grad_theta0_sha256", "h10_grad_theta1_sha256",
+        "h10_fuse0_grad_theta0_sha256", "h10_fuse0_grad_theta1_sha256",
+        "c8_theta1_state_sha256", "c8_theta1_grad_sha256",
+        "h10_adapt_indices", "h10_adapt_energies")
 
 
 def main() -> int:
@@ -193,13 +243,11 @@ def main() -> int:
         turns.append(rec)
         print("TURN " + json.dumps(rec), flush=True)
     print("metric " + " ".join(f"tree{r['index']}" for r in turns))
-    for m in METRICS:
+    for m in METRICS + VALUES:
         if all(m in r for r in turns):
-            print(f"{m} " + " ".join(f"{r[m]!r}" if "energy" in m
-                                     and not m.endswith("_ms")
+            print(f"{m} " + " ".join(f"{r[m]!r}" if m in VALUES
                                      else f"{r[m]:.6g}" for r in turns))
-    for m in ("h10_grad_theta0_sha256", "h10_grad_theta1_sha256",
-              "h10_adapt_indices", "h10_adapt_energies"):
+    for m in SAME:
         if all(m in r for r in turns):
             print(f"{m} the same in every turn: "
                   f"{all(r[m] == turns[0][m] for r in turns)}")

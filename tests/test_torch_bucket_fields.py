@@ -24,7 +24,16 @@ operator) and with random imaginary parts added (not Hermitian):
 * ``herm_counts`` names exactly one chunk of every cross-chunk pair, and at
   H10's geometry (256 chunk blocks, here H8 at chunk 2^8) the largest
   bucket count a block walks is within 1.5x of the mean, where counting
-  from the lower chunk sends every bucket to block 0.
+  from the lower chunk sends every bucket to block 0;
+* D13 (``expect_hoist_kernel``) emulated block by block in float64 over
+  the rows of ``hoist_bucket_args`` at caps 8, 2 and 1 - the rows counted
+  as under herm, each slot's first k_live terms, a float64 sum per row,
+  doubled where x_hi != 0 - equals ``expect_hoisted_ref`` and
+  ``expect_bucketed_ref(herm=True)`` on the same groups;
+* every distinct x_lo of a hoisted row (cap 8, the off-diagonal K classes
+  that OVQE_EXP_HOIST=1 hoists) holds exactly one slot on H6 and H8: two
+  groups with equal x_hi and x_lo are one group, so a partner load per
+  distinct x_lo would serve one slot.
 """
 
 import numpy as np
@@ -310,3 +319,83 @@ def test_herm_balance_at_h10_geometry(views):
     assert new.sum() == old.sum()                 # the same work, split
     assert new.max() <= 1.5 * new.mean()
     assert old.max() == len(x_hi) and old.max() > 1.5 * old.mean()
+
+
+def _emulate_hoisted(psi, ho):
+    """D13 walked block by block in float64, as the kernel walks the rows:
+    block c skips a row with x_hi != 0 that herm_counts gives the other
+    chunk, stages chunk c ^ x_hi, adds each slot's share (its first
+    k_live terms) into the row's sum and adds the row, doubled where
+    x_hi != 0, to its own."""
+    bo = ho.bo
+    cb, N = bo.chunk_bits, psi.shape[-1]
+    C = 1 << cb
+    z = bo.z.numpy().astype(np.int64)
+    cre, cim = bo.coef.numpy(), bo.coef_im.numpy()
+    kl, xh, xl = bo.k_live.numpy(), bo.x_hi.numpy(), bo.x_lo.numpy()
+    l = np.arange(C)
+    tot = 0.0
+    for c in range(N >> cb):
+        a = psi[:, c * C:(c + 1) * C]
+        for b in range(bo.B):
+            if xh[b] and not st.herm_counts(c, int(xh[b])):
+                continue
+            src = psi[:, (c ^ int(xh[b])) * C:][:, :C]
+            row = 0.0
+            for g2 in range(bo.gcap):
+                if not kl[b, g2]:
+                    continue
+                p = src[:, l ^ int(xl[b, g2])]
+                s = 1 - 2 * _par(((c << cb) | l)[:, None]
+                                    & z[b, g2, :kl[b, g2]])
+                wr = s @ cre[b, g2, :kl[b, g2]]
+                wi = s @ cim[b, g2, :kl[b, g2]]
+                row += np.sum(wr * (a[0] * p[0] + a[1] * p[1])
+                              - wi * (a[0] * p[1] - a[1] * p[0]))
+            tot += (2.0 if xh[b] else 1.0) * row
+    return tot
+
+
+@pytest.mark.parametrize("variant", ["real", "complex"])
+@pytest.mark.parametrize("cap", [8, 2, 1])
+def test_emulated_hoisted_walk_matches_plain_versions(views, variant, cap):
+    """H6 at chunk 2^8, float64: the D13 walk over the hoisted rows of
+    every K class equals expect_hoisted_ref on the same rows and
+    expect_bucketed_ref(herm=True) on the class's buckets."""
+    view = views["H6"]
+    rng = np.random.default_rng(6)
+    psi = rng.normal(size=(2, 1 << view.n))
+    psi /= np.linalg.norm(psi)
+    pt = torch.as_tensor(psi)
+    tot, rows = 0.0, 0
+    for bk in _classes(view, 8, variant):
+        hb = st.hoist_bucket_args(bk, cap)
+        ho = st.hoist_operands(hb, "cpu", torch.float64)
+        assert ho.bo.real == (variant == "real")
+        v = _emulate_hoisted(psi, ho)
+        assert abs(v - float(st.expect_hoisted_ref(pt, ho))) <= 1e-12
+        assert abs(v - float(st.expect_bucketed_ref(
+            pt, st.bucket_operands(bk, "cpu", torch.float64), True))) \
+            <= 1e-10
+        tot += v
+        rows += hb.rows.B - bk.B
+    assert abs(tot) > 1e-3
+    if cap == 1:
+        assert rows > 0                 # some buckets were split
+
+
+@pytest.mark.parametrize("mol,cb", CASES)
+def test_every_distinct_x_lo_of_a_row_holds_one_slot(views, mol, cb):
+    """The hoisted rows at cap 8 of the off-diagonal K classes: as many
+    live slots as distinct x_lo over all rows, because (x_hi, x_lo) names
+    a group.  A thread's partner load per distinct x_lo therefore serves
+    one slot (the finding behind D13's design, PERF.md)."""
+    slots = 0
+    for bk in st.build_ham_buckets_split(views[mol], chunk_bits=cb):
+        hb = st.hoist_bucket_args(bk, 8)
+        live = int(hb.rows.act.sum())
+        assert live == int((hb.ux >= 0).sum())
+        x = (bk.x_hi.astype(np.int64)[:, None] << cb) | bk.x_lo
+        assert len(np.unique(x[bk.act != 0])) == int(bk.act.sum())
+        slots += live
+    assert slots > 100

@@ -3,8 +3,9 @@ their plain PyTorch versions, on the card: the four per-group kernels, the
 four bucketed (streaming) ones with the fused sweeps at every compile-time
 K and the odd-Y refusal, the bucketed H-apply and expectation at every
 compiled term tile (real and complex, herm off and on), the hoisted
-expectation, the four per-group
-streaming ones (OVQE_STREAM_FUSE=0) and the two pool-overlap kernels.  A
+expectation at every compiled PER and term tile, the four per-group
+streaming ones (OVQE_STREAM_FUSE=0, the adjoint at each PER) and the two
+pool-overlap kernels.  A
 CUDA kernel has no CPU mode, so these tests are marked ``cuda`` and skip
 on a machine without a card; on one they run with
 ``python -m pytest tests/test_torch_kernels.py -q``.
@@ -22,6 +23,7 @@ from openvqe_tpu_torch.sim import kernels as K
 from openvqe_tpu_torch.sim import streaming as st
 from openvqe_tpu_torch.sim.compile import compile_op_sequence
 from openvqe_tpu_torch.sim.objective import StreamBoundAnsatz, VQEObjective
+from test_torch_stream_group_fields import odd_y_groups
 from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.cuda
@@ -426,8 +428,11 @@ def test_bucket_wrappers_reject_what_the_kernels_do_not_take(dev):
     psi = _state(dev, 3, bo.n)
     off = torch.empty(psi.numel() + 1, device=dev)[1:].view(2, -1)
     off.copy_(psi)                                   # 4 bytes off 16
+    ho = st.hoist_operands(st.hoist_bucket_args(_bucket_set(8, 8, False,
+                                                            True)), dev)
     for fn in (lambda s: K.ham_bucketed(s, None, bo),
-               lambda s: K.expect_bucketed(s, bo, True)):
+               lambda s: K.expect_bucketed(s, bo, True),
+               lambda s: K.expect_hoisted(s, ho)):
         with pytest.raises(ValueError, match="aligned"):
             fn(off)
         with pytest.raises(TypeError):
@@ -502,6 +507,34 @@ def test_expect_herm_and_hoisted_match_plain_versions(dev, cb, real):
     e0, e1 = (float(K.expect_bucketed(psi, bo, h)) for h in (False, True))
     assert abs(e1 - float(st.expect_bucketed_ref(psi, bo, True))) <= TOL
     assert abs(e1 - e0) > 1e-3
+
+
+@pytest.mark.parametrize("real", [False, True])
+@pytest.mark.parametrize("k", [1, 6])
+@pytest.mark.parametrize("cb", [8, 9, 10, 11, 12])
+def test_hoisted_kernel_at_each_per(dev, cb, k, real):
+    """D13 at every compiled PER (chunk 2^8 .. 2^12: PER 1 .. 16), term
+    tile 1 (K = 1) and 2 (K = 6), real and complex, caps 8, 2 and 1, on a
+    Hermitian set: its plain version's value, the same value when
+    repeated, and D12 herm's within TOL relative."""
+    bk = _bucket_set(cb, k, real, True)
+    bo = st.bucket_operands(bk, dev)
+    psi = _state(dev, 7, bk.n)
+    d12 = float(K.expect_bucketed(psi, bo, True))
+    counts = dict(K.LAUNCHES)
+    for cap in (8, 2, 1):
+        ho = st.hoist_operands(st.hoist_bucket_args(bk, cap), dev)
+        assert ho.bo.real == real and ho.bo.K == k
+        at = K.bucket_attributes("expect_hoisted", ho.bo)
+        assert at["k_tile"] == (2 if k % 2 == 0 else 1)
+        assert at["threads"] == 256 and at["blocks_per_sm"] >= 1
+        e = float(K.expect_hoisted(psi, ho))
+        e_ref = float(st.expect_hoisted_ref(psi, ho))
+        assert abs(e - e_ref) <= TOL * max(1.0, abs(e_ref))
+        assert float(K.expect_hoisted(psi, ho)) == e
+        assert abs(e - d12) <= TOL * max(1.0, abs(d12))
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["expect_hoisted"] - counts["expect_hoisted"] == 6
 
 
 def test_energy_xl_on_the_card_matches_the_cpu(dev, monkeypatch):
@@ -597,6 +630,64 @@ def test_stream_group_kernels_match_plain_versions(dev, monkeypatch, fmode):
             "adjoint_stream": 2, "adjoint_fused": 1}
     assert {k: K.LAUNCHES[k] - counts[k] for k in K.KERNELS} == \
         {k: want.get(k, 0) for k in K.KERNELS}
+
+
+@pytest.mark.parametrize("per", [4, 8, 16])
+@pytest.mark.parametrize("fmode", [0, 1, 2])
+def test_adjoint_stream_at_each_per(dev, fmode, per):
+    """C8 at PER 4, 8 and 16 with msb(x) in the thread, loop and block bits
+    of the pair index (n = 14), and at the smallest states (n = 2 and 9:
+    PER 1; n = 10: PER 2; K = 5: term tile 1): p and lambda within 1e-6 of
+    adjoint_stream_ref (the one-pair design's arithmetic), gradient
+    entries within TOL, all three the same when repeated; the graph
+    captured on the first call takes new angles on a replay."""
+    lp = per.bit_length() - 1
+    cases = ((14, [0, 3, 7, 8, 7 + lp, 8 + lp, 13], 6), (2, [0, 1], 5),
+             (9, [0, 4, 8], 6), (10, [2, 8, 9], 5))
+    counts = dict(K.LAUNCHES)
+    for n, msbs, k in cases:
+        go = odd_y_groups(n, msbs, K_=k, fmode=fmode, seed=n, device=dev)
+        assert go.odd_y
+        want = K.stream_per(1 << n, per)
+        at = K.adjoint_stream_attributes(go, per)
+        assert at["per"] == want and at["k_tile"] == (2 if k % 2 == 0 else 1)
+        assert at["threads"] == 256 and at["blocks_per_sm"] >= 1
+        psi, lam = _state(dev, 5, n), _state(dev, 6, n)
+        ang = torch.as_tensor(np.random.default_rng(n).normal(
+            scale=0.7, size=go.G), dtype=torch.float32, device=dev)
+        p, l, g = K.adjoint_stream(psi, lam, ang, go, fmode, per=per)
+        pr, lr, grf = st.adjoint_stream_ref(psi, lam, ang, go, fmode)
+        assert float((p - pr).abs().max()) <= 1e-6
+        assert float((l - lr).abs().max()) <= 1e-6
+        assert float((g - grf).abs().max()) <= TOL
+        # the graph captured on the first call replays with new angles
+        ang2 = 0.5 * ang + 0.1
+        q, m, h = K.adjoint_stream(psi, lam, ang2, go, fmode, per=per)
+        qr, mr, hr = st.adjoint_stream_ref(psi, lam, ang2, go, fmode)
+        assert float((q - qr).abs().max()) <= 1e-6
+        assert float((m - mr).abs().max()) <= 1e-6
+        assert float((h - hr).abs().max()) <= TOL
+        p2, l2, g2 = K.adjoint_stream(psi, lam, ang, go, fmode, per=per)
+        assert torch.equal(p, p2) and torch.equal(l, l2) \
+            and torch.equal(g, g2)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["adjoint_stream"] - counts["adjoint_stream"] == 12
+
+
+def test_adjoint_stream_refuses_operands_without_the_certificate(dev):
+    go = odd_y_groups(12, [3, 9, 11], device="cpu")
+    z = go.z.numpy().astype(np.int64)
+    z[0, 0] = 0                          # even and live
+    bad = st.group_operands(st.build_stream_data(
+        12, go.x.numpy(), z, go.coef.numpy(), op=np.arange(go.G),
+        chunk_bits=11), dev)
+    assert not bad.odd_y
+    psi = _state(dev, 3, 12)
+    ang = torch.zeros(bad.G, device=dev)
+    before = K.LAUNCHES["adjoint_stream"]
+    with pytest.raises(ValueError, match="odd-Y"):
+        K.adjoint_stream(psi, psi.clone(), ang, bad, 0)
+    assert K.LAUNCHES["adjoint_stream"] == before
 
 
 def test_stream_group_wrappers_reject_what_the_kernels_do_not_take(
