@@ -43,13 +43,14 @@ imports nothing of JAX and nothing of ``openvqe_tpu``.  Phases:
    with the diagonal against D12, with herm off and on), gradient entries
    bit-identical when repeated, on H10's own operands and on the
    synthetic problems of phase 5 with inert groups added; timed at H10's
-   shapes (C8 also at 4, 8 and 16 pairs a thread), with the registers,
-   spills, shared memory and resident blocks of the C8 instance H10 runs
-   (``kernels.adjoint_stream_attributes``), the card's L2 rate (copies of
-   buffers that stay in L2, ``l2_rate``) and each kernel's L2 floor (one
-   pass of its states per group at that rate).  No entry point
-   reaches B5 and D11 (the JAX package's H passes stay bucketed on that
-   route too), so their launches are this phase's;
+   shapes, with the registers, spills, shared memory and resident blocks
+   of the C8 instance H10 runs (``kernels.adjoint_stream_attributes``),
+   the card's L2 copy rate (copies of buffers that stay in L2,
+   ``l2_rate``, in CUDA graphs) and the time each kernel's states would
+   take to pass once per group at that rate, printed beside its time (a
+   copy is not the kernels' access pattern, so it is no floor).  No entry
+   point reaches B5 and D11 (the JAX package's H passes stay bucketed on
+   that route too), so their launches are this phase's;
 7. the H10 main path (the streaming route), counters set to 0 just before
    and read just after: ``energy(0)`` against HF, ``energy_and_grad`` and
    ``energy`` at theta0 (MP2) and theta1 against the JAX package's float64
@@ -936,20 +937,28 @@ def print_adjoint_stream_attributes(go, label, card):
           f"resident blocks per SM; {nb} blocks a group")
 
 
-def l2_rate(small=4 << 20, large=12 << 20, reps=200):
+def l2_rate(small=4 << 20, large=12 << 20, copies=50, reps=20):
     """Bytes per second of device copies whose source and destination stay
     in the 50 MB L2 (2 x 4 MB and 2 x 12 MB; H10's p and lambda are 16 MB),
     read and written bytes both counted: the bytes the larger copy adds
-    over the time it adds, so that the fixed cost of a launch (a few us, as
-    long as a 16 MB copy itself) drops out.  A yardstick for the per-group
-    kernels, which pass their states once per group; not used by the
-    port.  Returns (rate, ms of the small copy, ms of the large one)."""
+    over the time it adds.  Each size is timed as one CUDA graph of
+    ``copies`` copies, so that the host's launch cost (longer than a 16 MB
+    copy) stays out, and the difference takes out the graph's fixed cost
+    per copy.  A yardstick for the per-group kernels, which pass their
+    states once per group; not used by the port.  Returns (rate, ms of one
+    small copy, ms of one large one)."""
     import torch
     ms = []
     for nbytes in (small, large):
         src = torch.rand(nbytes // 4, device=DEVICE)
         dst = torch.empty_like(src)
-        ms.append(cuda_ms(lambda: dst.copy_(src), reps=reps, warmup=20))
+        dst.copy_(src)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(copies):
+                dst.copy_(src)
+        ms.append(cuda_ms(graph.replay, reps=reps, warmup=3) / copies)
     check(ms[1] > ms[0], f"L2 copies of 2 x {small} B and 2 x {large} B "
           f"took {ms} ms")
     return 2 * (large - small) / ((ms[1] - ms[0]) * 1e-3), ms[0], ms[1]
@@ -1173,27 +1182,21 @@ def phase_stream_group_parity(h10, ref, card):
     print(f"time expect_stream herm=False at H10 shapes ({card}): "
           f"{ms_nh:.4f} ms (the row's time is herm=True, the certificate "
           f"holds for H10)")
-    for per in (4, 8, 16):
-        ms = cuda_ms(lambda: K.adjoint_stream(psi, lam, aa, adj, fm,
-                                              per=per), reps=10, warmup=2)
-        print(f"time adjoint_stream at {per} pairs a thread, H10 shapes "
-              f"({card}): {ms:.4f} ms")
     print_adjoint_stream_attributes(adj, "H10", card)
     rate, ms_s, ms_l = l2_rate()
     state = psi.numel() * 4
     print(f"L2 rate ({card}): {rate / 1e12:.3f} TB/s (copies within L2 of "
           f"2 x 4 MB in {1e3 * ms_s:.3f} us and 2 x 12 MB in "
-          f"{1e3 * ms_l:.3f} us; the difference)")
+          f"{1e3 * ms_l:.3f} us a copy in CUDA graphs; the difference)")
     # the states one pass per group must move (read and written, or read)
     per_group = {"rot_stream": (fwd.G, 2 * state),
                  "adjoint_stream": (adj.G, 4 * state),
                  "ham_stream": (hgo.G, state), "expect_stream": (hgo.G,
                                                                  state)}
     for name, (G, nbytes) in per_group.items():
-        floor = 1e3 * G * nbytes / rate
-        rows[name]["l2_floor_ms"] = floor
-        print(f"L2 floor {name} at H10 ({card}): {G} groups x {nbytes} B "
-              f"/ L2 rate = {floor:.4f} ms (kernel "
+        print(f"state passes of {name} at the L2 copy rate, H10 ({card}): "
+              f"{G} groups x {nbytes} B / copy rate = "
+              f"{1e3 * G * nbytes / rate:.4f} ms, not a floor (kernel "
               f"{rows[name]['ms']:.4f} ms, bound "
               f"{rows[name]['bound_ms']:.6f} ms)")
     return rows, counts
@@ -1810,7 +1813,7 @@ def phase_expect_parity(h10, card, rows):
             check(w.max() <= 1.5 * w.mean(), "herm_counts is not balanced")
     n_b = sum(bk.B for bk in st.build_ham_buckets_split(
         view, chunk_bits=obj.chunk_bits))
-    per_row = torch.cat([(h.ux >= 0).sum(1) for h in hoisted]).float()
+    per_row = np.concatenate([(h.ux >= 0).sum(1) for h in hoisted])
     print(f"H10 off-diagonal groups hoisted at cap 8: "
           f"{sum(h.bo.B for h in hoisted)} rows from {n_b} buckets, "
           f"{float(per_row.mean()):.2f} distinct x_lo per row")

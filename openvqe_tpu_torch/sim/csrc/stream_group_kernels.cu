@@ -255,11 +255,16 @@ unsigned blocks_for(long long items) {
 
 bool n_ok(long long N) { return N >= 2 && N <= (1ll << 30); }
 
-// C8's pairs per thread: 1, 2, 4, 8 or 16, and PER 2^8 threads' pairs no
-// more than the state's 2^(n-1) unless PER = 1 (kernels.stream_per picks
-// it).  Its blocks: 2^(n-1) / (256 PER), at least one.
+// C8's pairs per thread: 8, or 1, 2 or 4 on a state whose pairs do not
+// fill 2^8 threads' PER (kernels.stream_per picks it); PER 2^8 threads'
+// pairs no more than the state's 2^(n-1) unless PER = 1.  Its blocks:
+// 2^(n-1) / (256 PER), at least one.
+bool per_known(int per) {
+  return per == 1 || per == 2 || per == 4 || per == 8;
+}
+
 bool per_ok(long long N, int per) {
-  return (per == 1 || per == 2 || per == 4 || per == 8 || per == 16) &&
+  return per_known(per) &&
          (per == 1 || (long long)per * SG_THREADS <= (N >> 1));
 }
 
@@ -279,8 +284,7 @@ int per_dispatch(int per, int K, const F& f) {
     case 1: return with_tile<1>(K, f);
     case 2: return with_tile<2>(K, f);
     case 4: return with_tile<4>(K, f);
-    case 8: return with_tile<8>(K, f);
-    default: return with_tile<16>(K, f);
+    default: return with_tile<8>(K, f);
   }
 }
 
@@ -417,8 +421,7 @@ int ovqe_graph_destroy(void* exec) {
 // bytes per thread, static shared memory bytes, threads per block, the
 // term tile and PER of adjoint_stream for operands of this K.
 int ovqe_adjoint_stream_attrs(int per, int K, int* out) {
-  if (per != 1 && per != 2 && per != 4 && per != 8 && per != 16)
-    return (int)cudaErrorInvalidValue;
+  if (!per_known(per)) return (int)cudaErrorInvalidValue;
   return per_dispatch(per, K, AdjointAttrs{out});
 }
 

@@ -482,25 +482,27 @@ ham_bucket_kernel(const float* __restrict__ psi,
   }
 }
 
-// ---------------------------------------------------------------- kernel 4
-// expect_bucketed: one K class, stage 1.  Replaces
-// openvqe_tpu/sim/streaming.py::_expect_bucket_kernel.  The walk of
-// ham_bucket_kernel contracted on the spot with conj(psi_j):
-//     sum W_re Re(conj(psi_j) psi_{j^x}) - W_im Im(conj(psi_j) psi_{j^x}),
-// each group's share over the thread's amplitudes added to a float64 sum,
-// then a block sum into partials[blockIdx.x]; stage 2 is row_reduce_kernel
-// with one block.  herm: a pair across chunks (x_hi != 0) is counted once,
-// by the block herm_counts names, and doubled (the two ends give equal
-// terms for a Hermitian group); a pair inside a chunk is summed from both
-// ends, as in the TPU kernel.
-template <int PER, int KT, bool REAL>
-__global__ void __launch_bounds__(ST_THREADS, REAL ? 3 : 2)
-expect_bucket_kernel(const float* __restrict__ psi, unsigned N, int cb,
-                     int B, const int* __restrict__ xh,
-                     const int* __restrict__ xl, const int* __restrict__ kl,
-                     const int* __restrict__ z, const float* __restrict__ ar,
-                     const float* __restrict__ ai, int gcap, int K,
-                     int herm, double* __restrict__ partials) {
+// The walk of the bucketed expectations, contracted on the spot with
+// conj(psi_j):
+//     sum W_re Re(conj(psi_j) psi_{j^x}) - W_im Im(conj(psi_j) psi_{j^x}).
+// Block c walks the buckets (rows) in order, staging source chunk
+// c ^ x_hi once per change of x_hi; a slot adds its k_live terms
+// (bucket_fields) and reads its partners psi[j ^ x] from the staged chunk
+// at local index (j & (C-1)) ^ x_lo.  Each slot's share over the thread's
+// PER amplitudes is a float32 sum.  herm: a pair across chunks
+// (x_hi != 0) is counted once, by the block herm_counts names, and
+// doubled (the two ends give equal terms for a Hermitian group); a pair
+// inside a chunk is summed from both ends, as in the TPU kernel.  ROWSUM
+// adds a bucket's slot shares into a float64 sum of their own before
+// weighting it; otherwise each weighted slot share goes into the block's
+// float64 sum.  The block sum goes to partials[blockIdx.x].
+template <int PER, int KT, bool REAL, bool ROWSUM>
+__device__ __forceinline__ void expect_walk(
+    const float* __restrict__ psi, unsigned N, int cb, int B,
+    const int* __restrict__ xh, const int* __restrict__ xl,
+    const int* __restrict__ kl, const int* __restrict__ z,
+    const float* __restrict__ ar, const float* __restrict__ ai, int gcap,
+    int K, int herm, double* __restrict__ partials) {
   extern __shared__ float4 bk_sm[];
   float* sm = reinterpret_cast<float*>(bk_sm);
   constexpr unsigned C = PER * ST_THREADS;       // 2^cb, known to the compiler
@@ -524,73 +526,6 @@ expect_bucket_kernel(const float* __restrict__ psi, unsigned N, int cb,
       staged = src;
     }
     const double w = (herm && xhb) ? 2.0 : 1.0;
-    for (int g2 = 0; g2 < gcap; ++g2) {
-      const size_t slot = (size_t)b * gcap + g2;
-      const int nl = kl[slot];
-      if (!nl) continue;
-      const unsigned x = (unsigned)xl[slot];
-      float wre[PER], wim[PER];
-      bucket_fields<PER, KT, REAL>(wre, wim, jt, z + slot * K, ar + slot * K,
-                                   ai + slot * K, nl, S);
-      float part = 0.f;
-#pragma unroll
-      for (int q = 0; q < PER; ++q) {
-        const unsigned o = (threadIdx.x + q * ST_THREADS) ^ x;
-        const float b0 = sm[o], b1 = sm[C + o];
-        part += wre[q] * (a0[q] * b0 + a1[q] * b1);
-        if (!REAL) part -= wim[q] * (a0[q] * b1 - a1[q] * b0);
-      }
-      acc += w * part;
-    }
-  }
-  const double tot = block_sum<ST_THREADS>(acc);
-  if (threadIdx.x == 0) partials[blockIdx.x] = tot;
-}
-
-// ---------------------------------------------------------------- kernel 5
-// expect_hoist (redesigned for Hopper): the hoisted rows of one K class,
-// one launch; stage 2 is row_reduce_kernel.  Replaces
-// openvqe_tpu/sim/streaming.py::_expect_hoist_kernel.  The walk of
-// expect_bucket_kernel with herm over the rows of
-// streaming.hoist_bucket_args (sorted by x_hi, so a source chunk is staged
-// once per distinct x_hi): block c counts a row with x_hi != 0 where
-// herm_counts names it, doubled, and a row with x_hi == 0 from every
-// amplitude.  A slot adds its k_live terms (bucket_fields) and reads its
-// partners psi[j ^ x] from the staged chunk; its share over the thread's
-// PER amplitudes (float32) goes into the row's float64 sum, which is
-// doubled where x_hi != 0 and added to the block's.  That is the summation
-// order of the first D13, whose fields (a popcount per amplitude over the
-// row's chunk-folded coefficients) were the same numbers.
-template <int PER, int KT, bool REAL>
-__global__ void __launch_bounds__(ST_THREADS, REAL ? 3 : 2)
-expect_hoist_kernel(const float* __restrict__ psi, unsigned N, int cb,
-                    int B, const int* __restrict__ xh,
-                    const int* __restrict__ xl, const int* __restrict__ kl,
-                    const int* __restrict__ z, const float* __restrict__ ar,
-                    const float* __restrict__ ai, int gcap, int K,
-                    double* __restrict__ partials) {
-  extern __shared__ float4 bk_sm[];
-  float* sm = reinterpret_cast<float*>(bk_sm);
-  constexpr unsigned C = PER * ST_THREADS;       // 2^cb, known to the compiler
-  const unsigned c = blockIdx.x, base = c << cb, jt = base | threadIdx.x;
-  float* S = sm + 2 * C;
-  sign_table<PER>(S);
-  float a0[PER], a1[PER];
-#pragma unroll
-  for (int q = 0; q < PER; ++q) {
-    const unsigned j = base | (threadIdx.x + q * ST_THREADS);
-    a0[q] = psi[j];
-    a1[q] = psi[N + j];
-  }
-  double acc = 0.0;
-  unsigned staged = 0xffffffffu;
-  for (int b = 0; b < B; ++b) {
-    const unsigned xhb = (unsigned)xh[b], src = c ^ xhb;
-    if (xhb && !herm_counts(c, xhb)) continue;   // the other block counts it
-    if (src != staged) {
-      stage_src<PER>(sm, psi, N, cb, src);
-      staged = src;
-    }
     double racc = 0.0;
     for (int g2 = 0; g2 < gcap; ++g2) {
       const size_t slot = (size_t)b * gcap + g2;
@@ -608,12 +543,54 @@ expect_hoist_kernel(const float* __restrict__ psi, unsigned N, int cb,
         part += wre[q] * (a0[q] * b0 + a1[q] * b1);
         if (!REAL) part -= wim[q] * (a0[q] * b1 - a1[q] * b0);
       }
-      racc += part;
+      if (ROWSUM)
+        racc += part;
+      else
+        acc += w * part;
     }
-    acc += (xhb ? 2.0 : 1.0) * racc;
+    if (ROWSUM) acc += w * racc;
   }
   const double tot = block_sum<ST_THREADS>(acc);
   if (threadIdx.x == 0) partials[blockIdx.x] = tot;
+}
+
+// ---------------------------------------------------------------- kernel 4
+// expect_bucketed: one K class, stage 1.  Replaces
+// openvqe_tpu/sim/streaming.py::_expect_bucket_kernel.  expect_walk over
+// the buckets, each slot's share weighted into the block's sum; stage 2
+// is row_reduce_kernel with one block.
+template <int PER, int KT, bool REAL>
+__global__ void __launch_bounds__(ST_THREADS, REAL ? 3 : 2)
+expect_bucket_kernel(const float* __restrict__ psi, unsigned N, int cb,
+                     int B, const int* __restrict__ xh,
+                     const int* __restrict__ xl, const int* __restrict__ kl,
+                     const int* __restrict__ z, const float* __restrict__ ar,
+                     const float* __restrict__ ai, int gcap, int K,
+                     int herm, double* __restrict__ partials) {
+  expect_walk<PER, KT, REAL, false>(psi, N, cb, B, xh, xl, kl, z, ar, ai,
+                                    gcap, K, herm, partials);
+}
+
+// ---------------------------------------------------------------- kernel 5
+// expect_hoist (redesigned for Hopper): the hoisted rows of one K class,
+// one launch; stage 2 is row_reduce_kernel.  Replaces
+// openvqe_tpu/sim/streaming.py::_expect_hoist_kernel.  expect_walk with
+// herm over the rows of streaming.hoist_bucket_args (sorted by x_hi, so a
+// source chunk is staged once per distinct x_hi), with ROWSUM: each
+// slot's float32 share goes into the row's float64 sum, which is doubled
+// where x_hi != 0 and added to the block's.  That is the summation order
+// of the first D13, whose fields (a popcount per amplitude over the row's
+// chunk-folded coefficients) were the same numbers.
+template <int PER, int KT, bool REAL>
+__global__ void __launch_bounds__(ST_THREADS, REAL ? 3 : 2)
+expect_hoist_kernel(const float* __restrict__ psi, unsigned N, int cb,
+                    int B, const int* __restrict__ xh,
+                    const int* __restrict__ xl, const int* __restrict__ kl,
+                    const int* __restrict__ z, const float* __restrict__ ar,
+                    const float* __restrict__ ai, int gcap, int K,
+                    double* __restrict__ partials) {
+  expect_walk<PER, KT, REAL, true>(psi, N, cb, B, xh, xl, kl, z, ar, ai,
+                                   gcap, K, 1, partials);
 }
 
 // N = 2^n with 2^30 at most: every index of a state plane, N + j included,

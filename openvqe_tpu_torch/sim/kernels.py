@@ -508,16 +508,12 @@ def expect_hoisted(psi, ho: st.HoistOperands):
     ``expect_bucketed(herm=True)`` on the same groups, one launch per row
     set.  The caller certifies every group Hermitian as an operator.  The
     kernel walks the rows in their order and reads each slot's x_lo from
-    the rows (``ho.bo``); the tables of distinct x_lo (``ho.ux``,
+    the rows (``ho.bo``); the host tables of distinct x_lo (``ho.ux``,
     ``ho.ix``) are the plain version's."""
     if psi.device.type == "cpu":
         return st.expect_hoisted_ref(psi, ho)
     bo = ho.bo
     N = _buckets(psi, bo, (bo.coef, bo.coef_im))
-    if ho.cap < 1:
-        raise ValueError(f"empty table of distinct x_lo ({ho.cap})")
-    _check("ux", ho.ux, torch.int32, (bo.B, ho.cap), psi.device)
-    _check("ix", ho.ix, torch.int32, (bo.B, bo.gcap), psi.device)
     _aligned(psi)
     lib = _load("streaming")
     partials = torch.empty(N >> bo.chunk_bits, dtype=torch.float64,
@@ -569,16 +565,17 @@ def rot_stream(psi, ang, go: st.GroupOperands, fmode: int,
 
 
 STREAM_PER = 8          # pairs per thread of C8 (adjoint_stream)
-_PERS = (1, 2, 4, 8, 16)
 
 
-def stream_per(N: int, per: int = STREAM_PER) -> int:
-    """C8's pairs per thread on a state of N amplitudes: ``per`` (1, 2, 4,
-    8 or 16), or the largest power of two below it whose 256-thread blocks
-    the state's N / 2 pairs fill (1 below 2^9 amplitudes, with idle
-    threads)."""
-    if per not in _PERS:
-        raise ValueError(f"per must be one of {_PERS}, got {per}")
+def stream_per(N: int) -> int:
+    """C8's pairs per thread on a state of N amplitudes: ``STREAM_PER``, or
+    the largest power of two below it whose 256-thread blocks the state's
+    N / 2 pairs fill (1 below 2^9 amplitudes, with idle threads).  A state
+    size the kernel does not take (not a power of two from 2 to 2^30)
+    raises ``ValueError``."""
+    if N < 2 or N > 1 << 30 or N & (N - 1):
+        raise ValueError(f"no C8 launch for a state of {N} amplitudes")
+    per = STREAM_PER
     while per > 1 and per * 256 > N // 2:
         per //= 2
     return per
@@ -591,12 +588,13 @@ class _Graph:
 
     def __init__(self, go: st.GroupOperands, N: int, per: int, fmode: int,
                  nb: int):
-        self.args = torch.empty(5, dtype=torch.int64, device=go.x.device)
-        exec_ = ctypes.c_void_p()
-        rc = _load("stream_group").ovqe_adjoint_stream_graph(
-            N, go.x.data_ptr(), go.z_pair.data_ptr(), go.coef.data_ptr(),
-            go.k_live.data_ptr(), go.G, go.K, fmode, per, nb,
-            self.args.data_ptr(), ctypes.addressof(exec_))
+        with torch.cuda.device(go.x.device):
+            self.args = torch.empty(5, dtype=torch.int64, device=go.x.device)
+            exec_ = ctypes.c_void_p()
+            rc = _load("stream_group").ovqe_adjoint_stream_graph(
+                N, go.x.data_ptr(), go.z_pair.data_ptr(), go.coef.data_ptr(),
+                go.k_live.data_ptr(), go.G, go.K, fmode, per, nb,
+                self.args.data_ptr(), ctypes.addressof(exec_))
         if rc != 0:
             raise RuntimeError(f"adjoint_stream: CUDA error {rc} while "
                                f"capturing its graph")
@@ -609,67 +607,68 @@ class _Graph:
 
 
 def _adjoint_graph(go: st.GroupOperands, N: int, per: int, fmode: int,
-                   nb: int) -> _Graph:
-    """The graph of ``go`` for this state size, PER and field mode, captured
-    on first use and kept in ``go.graphs``.  Its kernels hold go's device
-    pointers, which key it too."""
-    key = (N, per, fmode, go.x.data_ptr(), go.z_pair.data_ptr(),
+                   nb: int, stream: int) -> _Graph:
+    """The graph of ``go`` for this state size, PER, field mode and
+    stream, captured on first use and kept in ``go.graphs``.  Its kernels
+    hold go's device pointers, which key it too.  Each stream has a graph
+    and an argument buffer of its own: a replay fills the buffer and
+    launches the graph in that stream's order, so calls on two streams
+    cannot overwrite what the other's replay still reads."""
+    key = (N, per, fmode, stream, go.x.data_ptr(), go.z_pair.data_ptr(),
            go.coef.data_ptr(), go.k_live.data_ptr())
     if key not in go.graphs:
         go.graphs[key] = _Graph(go, N, per, fmode, nb)
     return go.graphs[key]
 
 
-def adjoint_stream(p, lam, ang, go: st.GroupOperands, fmode: int,
-                   per: int = STREAM_PER):
+def adjoint_stream(p, lam, ang, go: st.GroupOperands, fmode: int):
     """Reversible adjoint over the groups of ``go`` in its order, which is
     the REVERSED sequence (one launch per group); returns (p_prev,
     lam_prev, gts) with gts (G,) in go's order: gts[i] is the entry of
     go's group i, to be summed into theta with go.op (the JAX package's
     ``adjoint_sweep_stream`` returns its entries in the same order).
     ``go`` must carry the odd-Y certificate (``go.odd_y``) on either
-    device.  ``per`` sets the kernel's pairs per thread (``stream_per``;
-    the card tests and the variant timings take the others); it does not
-    change p and lambda.  On the card
-    the G + 1 launches are one CUDA graph, captured on the first call for
-    ``go`` (and this N, PER and field mode) and replayed after; its
-    kernels read the call's states, angles and outputs from a device
-    buffer the replay fills, in stream order."""
+    device.  On the card the G + 1 launches are one CUDA graph, captured
+    on the first call for ``go`` (and this N, PER, field mode and stream)
+    and replayed after; its kernels read the call's states, angles and
+    outputs from a device buffer the replay fills, in stream order.  One
+    host thread at a time may call it on one ``go``: two threads on one
+    stream could interleave their buffer writes and replays."""
     _odd_y(go)
     if p.device.type == "cpu":
         return st.adjoint_stream_ref(p, lam, ang, go, fmode)
     N = _group_ops(p, go, (go.coef,))
     _check("lam", lam, torch.float32, (2, N), p.device)
     _check("ang", ang, torch.float32, (go.G,), p.device)
-    per = stream_per(N, per)
     lib = _load("stream_group")
     p_out, l_out = torch.empty_like(p), torch.empty_like(lam)
     p_out.copy_(p)
     l_out.copy_(lam)
     gts = torch.empty(go.G, dtype=torch.float32, device=p.device)
     if go.G:
+        per = stream_per(N)
         nb = -(-(N // 2 // per) // _sg_threads)
         partials = torch.empty((go.G, nb), dtype=torch.float64,
                                device=p.device)
-        graph = _adjoint_graph(go, N, per, _fmode(fmode), nb)
+        stream = _stream(p)
+        graph = _adjoint_graph(go, N, per, _fmode(fmode), nb, stream)
         ptrs = (ctypes.c_void_p * 5)(p_out.data_ptr(), l_out.data_ptr(),
                                      ang.data_ptr(), partials.data_ptr(),
                                      gts.data_ptr())
-        _launch("adjoint_stream", lib.ovqe_adjoint_stream_replay, graph.exec,
-                graph.args, ctypes.addressof(ptrs), _stream(p))
+        with torch.cuda.device(p.device):
+            _launch("adjoint_stream", lib.ovqe_adjoint_stream_replay,
+                    graph.exec, graph.args, ctypes.addressof(ptrs), stream)
     return p_out, l_out, gts
 
 
-def adjoint_stream_attributes(go: st.GroupOperands,
-                              per: int = STREAM_PER) -> Dict[str, int]:
+def adjoint_stream_attributes(go: st.GroupOperands) -> Dict[str, int]:
     """How ``adjoint_stream`` launches on ``go`` at a 2^n state: resident
     blocks per SM, registers and local (spill) bytes per thread, static
     shared memory per block, threads per block, the compiled term tile and
     the pairs per thread."""
-    per = stream_per(1 << go.n, per)
     out = (ctypes.c_int * 7)()
     rc = _load("stream_group").ovqe_adjoint_stream_attrs(
-        per, go.K, ctypes.addressof(out))
+        stream_per(1 << go.n), go.K, ctypes.addressof(out))
     if rc != 0:
         raise RuntimeError(f"adjoint_stream_attributes: CUDA error {rc}")
     keys = ("blocks_per_sm", "registers", "spill_bytes", "smem_bytes",

@@ -593,11 +593,12 @@ def hoist_bucket_args(bk: Buckets, cap: int = 8) -> HoistBuckets:
 @dataclass
 class HoistOperands:
     """``HoistBuckets`` as kernel D13 takes them: the rows as
-    ``BucketOperands``, ux (B, cap) and ix (B, gcap) int32 on the same
-    device."""
+    ``BucketOperands``; ux (B, cap) and ix (B, gcap) int32 stay on the
+    host, for the plain version (the kernel reads each slot's x_lo from
+    the rows)."""
     bo: BucketOperands
-    ux: torch.Tensor
-    ix: torch.Tensor
+    ux: np.ndarray
+    ix: np.ndarray
 
     @property
     def cap(self) -> int:
@@ -606,12 +607,8 @@ class HoistOperands:
 
 def hoist_operands(hb: HoistBuckets, device, dtype=torch.float32
                    ) -> HoistOperands:
-    def dev(a):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.int32,
-                               device=device).contiguous()
-
     return HoistOperands(bo=bucket_operands(hb.rows, device, dtype),
-                         ux=dev(hb.ux), ix=dev(hb.ix))
+                         ux=hb.ux, ix=hb.ix)
 
 
 def expect_operands(view, chunk_bits: int, device, dtype, hoist: bool,

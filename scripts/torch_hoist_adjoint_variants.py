@@ -8,7 +8,8 @@ tried beside the shipped ones.
 D13's variants are ``openvqe_tpu_torch/sim/csrc/streaming_kernels.cu`` and
 ``common.cuh`` with one set of text patches (``torch_bucket_variants.
 write_variants``), built under ``build/hoist_variants/`` and bound in
-place of the shipped source:
+place of the shipped source (a patch of ``expect_walk`` reaches D12 too,
+which is not timed here):
 
 * ``as is``: each slot reads its partners from the staged chunk;
 * ``as is, 2 blocks``: its real instance bounded for 2 resident blocks
@@ -27,13 +28,15 @@ for bit.  With ``--h16`` (a pickle written by ``chip_smoke.py
 --h16-setup PATH``) it also times each variant's expectation at 30 qubits
 on H16's MP2-guess state (host clock, ending in a device sync), twice.
 
-C8's variants need no rebuild: the shipped kernel at 4, 8 and 16 pairs a
-thread (``kernels.adjoint_stream(..., per=)``), and the shipped call's
-G + 1 launches issued one by one from the host instead of as its one CUDA
-graph, on the reversed UCCSD groups of the OVQE_STREAM_FUSE=0 objective
-at theta1 (its forward state and lambda), with CUDA events over 20 calls
-in two rounds; each says whether p, lambda and the gradient entries are
-the shipped call's bit for bit.
+C8's variants are the shipped kernel at 4, 8 and 16 pairs a thread (the
+constant ``kernels.STREAM_PER`` set for the run; PER 16 from
+``stream_group_kernels.cu`` patched to compile it, built under
+``build/adjoint_variants/``), and the shipped call's G + 1 launches issued
+one by one from the host instead of as its one CUDA graph, on the
+reversed UCCSD groups of the OVQE_STREAM_FUSE=0 objective at theta1 (its
+forward state and lambda), with CUDA events over 20 calls in two rounds;
+each says whether p, lambda and the gradient entries are the shipped
+call's bit for bit.
 
 Prints the card's name and power limit first.  Needs one CUDA card.
 """
@@ -46,11 +49,13 @@ from pathlib import Path
 from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parents[1]
-SOURCE = ROOT / "openvqe_tpu_torch" / "sim" / "csrc" / "streaming_kernels.cu"
+CSRC = ROOT / "openvqe_tpu_torch" / "sim" / "csrc"
+SOURCE = CSRC / "streaming_kernels.cu"
 OUT = ROOT / "build" / "hoist_variants"
+ADJ_SOURCE = CSRC / "stream_group_kernels.cu"
+ADJ_OUT = ROOT / "build" / "adjoint_variants"
 
-SLOT_LOOP = """    double racc = 0.0;
-    for (int g2 = 0; g2 < gcap; ++g2) {
+SLOT_LOOP = """    for (int g2 = 0; g2 < gcap; ++g2) {
       const size_t slot = (size_t)b * gcap + g2;
       const int nl = kl[slot];
       if (!nl) continue;
@@ -66,10 +71,12 @@ SLOT_LOOP = """    double racc = 0.0;
         part += wre[q] * (a0[q] * b0 + a1[q] * b1);
         if (!REAL) part -= wim[q] * (a0[q] * b1 - a1[q] * b0);
       }
-      racc += part;
+      if (ROWSUM)
+        racc += part;
+      else
+        acc += w * part;
     }"""
-PER_X_LO = """    double racc = 0.0;
-    for (int g2 = 0; g2 < gcap;) {
+PER_X_LO = """    for (int g2 = 0; g2 < gcap;) {
       const unsigned x = (unsigned)xl[(size_t)b * gcap + g2];
       float p0[PER], p1[PER];
 #pragma unroll
@@ -91,11 +98,24 @@ PER_X_LO = """    double racc = 0.0;
           part += wre[q] * (a0[q] * p0[q] + a1[q] * p1[q]);
           if (!REAL) part -= wim[q] * (a0[q] * p1[q] - a1[q] * p0[q]);
         }
-        racc += part;
+        if (ROWSUM)
+          racc += part;
+        else
+          acc += w * part;
       } while (++g2 < gcap && (unsigned)xl[(size_t)b * gcap + g2] == x);
     }"""
 HOIST_BOUNDS = ("__global__ void __launch_bounds__(ST_THREADS, REAL ? 3 : 2)\n"
                 "expect_hoist_kernel(")
+# C8 at PER 16: the instance the shipped source leaves out
+ADJ_VARIANTS = {
+    "PER 16": [
+        ("  return per == 1 || per == 2 || per == 4 || per == 8;",
+         "  return per == 1 || per == 2 || per == 4 || per == 8 || "
+         "per == 16;"),
+        ("    default: return with_tile<8>(K, f);",
+         "    case 8: return with_tile<8>(K, f);\n"
+         "    default: return with_tile<16>(K, f);")],
+}
 VARIANTS = {
     "as is": [],
     "as is, 2 blocks": [(HOIST_BOUNDS, HOIST_BOUNDS.replace("REAL ? 3 : 2",
@@ -172,10 +192,30 @@ def main() -> int:
     _, lam1 = b0._obj._energy_and_lam(psi1)
     ang = st.group_angles(adj, theta1, torch.float32, psi.device)
     ref = K.adjoint_stream(psi1, lam1, ang, adj, fm)
-    calls = {f"{per} pairs a thread": (
-        lambda per=per: K.adjoint_stream(psi1, lam1, ang, adj, fm, per=per))
-        for per in (4, 8, 16)}
-    lib = K._load("stream_group")
+    adj_paths = write_variants(ADJ_SOURCE, ADJ_VARIANTS, ADJ_OUT)
+    shipped = K.SOURCES["stream_group"]
+
+    def bind(src):
+        """Build and bind ``src`` in place of the C8 source bound now."""
+        if K.SOURCES["stream_group"] != src:
+            adj.graphs.clear()            # destroyed by the library they use
+            K.SOURCES["stream_group"] = src
+            K._libs.clear()
+            K.build()
+            K._load()
+
+    def at_per(per):
+        """The shipped call at ``per`` pairs a thread (PER 16 from the
+        patched source)."""
+        bind(adj_paths["PER 16"] if per == 16 else shipped)
+        K.STREAM_PER = per
+        try:
+            return K.adjoint_stream(psi1, lam1, ang, adj, fm)
+        finally:
+            K.STREAM_PER = 8
+
+    calls = {f"{per} pairs a thread": (lambda per=per: at_per(per))
+             for per in (4, 8, 16)}
     N = psi1.shape[-1]
     per = K.stream_per(N)
     nb = N // 2 // per // 256
@@ -183,6 +223,7 @@ def main() -> int:
     def launch_loop():
         """The shipped call's work without its graph: the G + 1 launches
         issued one by one from the host."""
+        bind(shipped)
         p_out, l_out = psi1.clone(), lam1.clone()
         gts = torch.empty(adj.G, device=psi.device)
         partials = torch.empty((adj.G, nb), dtype=torch.float64,
@@ -190,7 +231,7 @@ def main() -> int:
         args = torch.tensor([t.data_ptr() for t in (p_out, l_out, ang,
                                                      partials, gts)],
                             dtype=torch.int64).to(psi.device)
-        rc = lib.ovqe_adjoint_stream(
+        rc = K._load("stream_group").ovqe_adjoint_stream(
             N, adj.x.data_ptr(), adj.z_pair.data_ptr(), adj.coef.data_ptr(),
             adj.k_live.data_ptr(), adj.G, adj.K, fm, per, nb,
             args.data_ptr(), torch.cuda.current_stream().cuda_stream)

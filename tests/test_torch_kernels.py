@@ -632,46 +632,54 @@ def test_stream_group_kernels_match_plain_versions(dev, monkeypatch, fmode):
         {k: want.get(k, 0) for k in K.KERNELS}
 
 
-@pytest.mark.parametrize("per", [4, 8, 16])
+# C8's compiled PERs and the states that run each (n, msb(x) of the
+# groups, K): PER 8 at n = 14 with msb(x) in the thread (0 .. 7), loop
+# (8 .. 10) and block bits (11 .. 13); PER 4 at n = 11 and PER 2 at n = 10
+# (one block, msb(x) in the thread and loop bits and above them); PER 1
+# at n = 2 and 9 (idle threads).  K = 5 takes the term tile 1.
+ADJOINT_CASES = {8: [(14, [0, 3, 7, 8, 10, 11, 13], 6)],
+                 4: [(11, [0, 7, 8, 9, 10], 6)],
+                 2: [(10, [2, 8, 9], 5)],
+                 1: [(2, [0, 1], 5), (9, [0, 4, 8], 6)]}
+
+
+@pytest.mark.parametrize("per", [1, 2, 4, 8])
 @pytest.mark.parametrize("fmode", [0, 1, 2])
 def test_adjoint_stream_at_each_per(dev, fmode, per):
-    """C8 at PER 4, 8 and 16 with msb(x) in the thread, loop and block bits
-    of the pair index (n = 14), and at the smallest states (n = 2 and 9:
-    PER 1; n = 10: PER 2; K = 5: term tile 1): p and lambda within 1e-6 of
+    """C8 at each PER it is compiled for, reached through the state size
+    (``kernels.stream_per``): p and lambda within 1e-6 of
     adjoint_stream_ref (the one-pair design's arithmetic), gradient
     entries within TOL, all three the same when repeated; the graph
     captured on the first call takes new angles on a replay."""
-    lp = per.bit_length() - 1
-    cases = ((14, [0, 3, 7, 8, 7 + lp, 8 + lp, 13], 6), (2, [0, 1], 5),
-             (9, [0, 4, 8], 6), (10, [2, 8, 9], 5))
     counts = dict(K.LAUNCHES)
-    for n, msbs, k in cases:
+    for n, msbs, k in ADJOINT_CASES[per]:
+        assert K.stream_per(1 << n) == per
         go = odd_y_groups(n, msbs, K_=k, fmode=fmode, seed=n, device=dev)
         assert go.odd_y
-        want = K.stream_per(1 << n, per)
-        at = K.adjoint_stream_attributes(go, per)
-        assert at["per"] == want and at["k_tile"] == (2 if k % 2 == 0 else 1)
+        at = K.adjoint_stream_attributes(go)
+        assert at["per"] == per and at["k_tile"] == (2 if k % 2 == 0 else 1)
         assert at["threads"] == 256 and at["blocks_per_sm"] >= 1
         psi, lam = _state(dev, 5, n), _state(dev, 6, n)
         ang = torch.as_tensor(np.random.default_rng(n).normal(
             scale=0.7, size=go.G), dtype=torch.float32, device=dev)
-        p, l, g = K.adjoint_stream(psi, lam, ang, go, fmode, per=per)
+        p, l, g = K.adjoint_stream(psi, lam, ang, go, fmode)
         pr, lr, grf = st.adjoint_stream_ref(psi, lam, ang, go, fmode)
         assert float((p - pr).abs().max()) <= 1e-6
         assert float((l - lr).abs().max()) <= 1e-6
         assert float((g - grf).abs().max()) <= TOL
         # the graph captured on the first call replays with new angles
         ang2 = 0.5 * ang + 0.1
-        q, m, h = K.adjoint_stream(psi, lam, ang2, go, fmode, per=per)
+        q, m, h = K.adjoint_stream(psi, lam, ang2, go, fmode)
         qr, mr, hr = st.adjoint_stream_ref(psi, lam, ang2, go, fmode)
         assert float((q - qr).abs().max()) <= 1e-6
         assert float((m - mr).abs().max()) <= 1e-6
         assert float((h - hr).abs().max()) <= TOL
-        p2, l2, g2 = K.adjoint_stream(psi, lam, ang, go, fmode, per=per)
+        p2, l2, g2 = K.adjoint_stream(psi, lam, ang, go, fmode)
         assert torch.equal(p, p2) and torch.equal(l, l2) \
             and torch.equal(g, g2)
     torch.cuda.synchronize()
-    assert K.LAUNCHES["adjoint_stream"] - counts["adjoint_stream"] == 12
+    assert K.LAUNCHES["adjoint_stream"] - counts["adjoint_stream"] == \
+        3 * len(ADJOINT_CASES[per])
 
 
 def test_adjoint_stream_refuses_operands_without_the_certificate(dev):

@@ -12,8 +12,9 @@ CPU:
 * a numpy emulation of C8 (t split into block, loop and thread bits, one
   popcount of (block base | tid) & z'_k per live term, the loop part from
   the fixed PER x PER sign table, the partner's terms (cos - 1, -sin)),
-  at PER = 4, 8 and 16, with msb(x) inside the thread, loop and block bits
-  and at the smallest states (PER lowered by ``kernels.stream_per``),
+  at PER = 4, 8 (the kernel's ``kernels.STREAM_PER``) and 16, with msb(x)
+  inside the thread, loop and block bits and at the smallest states (PER
+  lowered by the rule of ``kernels.stream_per``),
   against ``adjoint_stream_ref``: p and lambda bit for bit in float32 (the
   coefficients are dyadic, so every field is exact in any order),
   gradient entries within 1e-6.
@@ -48,6 +49,14 @@ def _par(v):
 
 def _insert_zero(t, h):
     return ((t >> h) << (h + 1)) | (t & ((1 << h) - 1))
+
+
+def _lowered(N, per):
+    """The pairs per thread of a C8 built for ``per`` on a state of N
+    amplitudes: ``kernels.stream_per``'s rule at any PER."""
+    while per > 1 and per * T > N // 2:
+        per //= 2
+    return per
 
 
 @pytest.fixture(scope="module")
@@ -166,7 +175,7 @@ def emulate_adjoint_stream(p, lam, ang, go, fmode, per):
     numpy: returns (p_prev, lam_prev, gts) and the per-group fields."""
     N = p.shape[-1]
     half = N // 2
-    per = K.stream_per(N, per)
+    per = _lowered(N, per)
     lp = per.bit_length() - 1
     nb = max(1, half // (T * per))
     t = np.arange(half, dtype=np.int64)
@@ -237,7 +246,7 @@ def test_emulated_kernel_matches_plain_version(per, fmode):
     msbs = [0, 3, 7, 8, 7 + lp, 8 + lp, 13]
     go = odd_y_groups(14, msbs, fmode=fmode, seed=per)
     assert go.odd_y and (go.k_live < go.K).all()
-    assert K.stream_per(1 << 14, per) == per
+    assert _lowered(1 << 14, per) == per
     _check_emulation(go, fmode, per, seed=per + fmode)
 
 
@@ -247,7 +256,8 @@ def test_emulated_kernel_at_the_smallest_states(n, per, want):
     """States too small for the PER asked for take the largest PER whose
     blocks they fill; below 2^9 amplitudes PER = 1 with idle threads.  An
     odd K takes the term tile 1."""
-    assert K.stream_per(1 << n, per) == want
+    assert _lowered(1 << n, per) == want
+    assert K.stream_per(1 << n) == _lowered(1 << n, K.STREAM_PER)
     msbs = sorted({0, n // 2, n - 1})
     go = odd_y_groups(n, msbs, K_=5, seed=n)
     _check_emulation(go, 0, per, seed=n)
@@ -263,7 +273,11 @@ def test_emulated_kernel_on_uccsd(uccsd, mol):
 
 
 def test_stream_per_rejects_what_the_kernel_does_not_take():
-    for per in (0, 3, 32):
+    """No PER for a state size the kernel refuses (not a power of two from
+    2 to 2^30); every other size takes STREAM_PER, lowered."""
+    for N in (0, 1, 3, 3 << 10, 1 << 31):
         with pytest.raises(ValueError):
-            K.stream_per(1 << 20, per)
-    assert K.stream_per(1 << 20) == K.STREAM_PER
+            K.stream_per(N)
+    assert K.stream_per(1 << 20) == K.STREAM_PER == 8
+    for n in range(1, 31):
+        assert K.stream_per(1 << n) == _lowered(1 << n, K.STREAM_PER)
