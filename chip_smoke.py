@@ -14,7 +14,10 @@ imports nothing of JAX and nothing of ``openvqe_tpu``.  Phases:
    own operands and on a synthetic problem (x masks on every bit, non-real
    compiled coefficients so W_im is live, field modes 0, 1 and 2, a
    diagonal and a constant); each kernel and plain version timed with
-   CUDA events;
+   CUDA events; how the cluster sweeps A1 and C7 launch at H8
+   (``kernels.grouped_attributes``: registers, local bytes, shared
+   memory, blocks, threads, clusters the card can hold) and the barrier
+   floor of each one's cluster shape (``kernels.cluster_floor``);
 3. the H8 main path (16 qubits, the per-group route), with the launch
    counters set to 0 just before and read just after:
    ``EnergyUCC.ucc_action`` at theta = 0 against the HF energy,
@@ -22,7 +25,10 @@ imports nothing of JAX and nothing of ``openvqe_tpu``.  Phases:
    numbers in ``tests/torch_h8_reference.json`` (made by
    ``JAX_PLATFORMS=cpu python tests/torch_h8_reference.py``), and
    ``VQE.algorithm("ucc", "H8", "sUPCCGSD", "JW", False).execute()``
-   against the JAX package's CPU run; only the four grouped kernels run;
+   against the JAX package's CPU run; only the four grouped kernels run.
+   Then each ansatz's ``energy_and_grad`` time, its device busy share
+   under the profiler and the profiler's count of sweep kernels: one
+   cluster launch for A1 and one for C7 a call, no per-group launch;
 4. H10/STO-3G set-up (20 qubits, UCCSD with the MP2 initial guess, as
    ``benchmarks/bench_large_vqe.py`` builds it; chemistry without FCI; the
    JW images of the 875 cluster operators are also the ADAPT pool);
@@ -520,7 +526,7 @@ def parity_case(label, psi, ang, sops, hops, errs, card):
     from openvqe_tpu_torch.sim import kernels as K
     x, z, s, fm = sops.x, sops.z, sops.s, sops.fmode
     out = {}
-    a = K.rot_sweep(psi, ang, x, z, s, fm)
+    a = K.rot_sweep(psi, ang, sops, fm)
     b = gr.rot_sweep_ref(psi, ang, x, z, s, fm)
     out["rot_sweep"] = float((a - b).abs().max())
     check(out["rot_sweep"] <= TOL_STATE, f"{label} rot_sweep {out}")
@@ -539,7 +545,7 @@ def parity_case(label, psi, ang, sops, hops, errs, card):
           f"{label} expectation is not deterministic")
 
     lam = lam_p.contiguous()
-    pk, lk, gk = K.adjoint_sweep(a, lam, ang, x, z, s, fm)
+    pk, lk, gk = K.adjoint_sweep(a, lam, ang, sops, fm)
     pp, lp, gp = gr.adjoint_sweep_ref(a, lam, ang, x, z, s, fm)
     d_state = max(float((pk - pp).abs().max()), float((lk - lp).abs().max()))
     d_grad = float((gk - gp).abs().max())
@@ -594,14 +600,14 @@ def phase_parity(h8, card):
     lam = K.ham_apply(psi, *h.args())
     x, z, s, fm = sops.x, sops.z, sops.s, sops.fmode
     fns = {
-        "rot_sweep": (lambda: K.rot_sweep(psi, ang, x, z, s, fm),
+        "rot_sweep": (lambda: K.rot_sweep(psi, ang, sops, fm),
                       lambda: gr.rot_sweep_ref(psi, ang, x, z, s, fm)),
         "expectation": (lambda: K.expectation(psi, *h.args()),
                         lambda: gr.expectation_ref(psi, *h.args())),
         "ham_apply": (lambda: K.ham_apply(psi, *h.args()),
                       lambda: gr.ham_apply_ref(psi, *h.args())),
         "adjoint_sweep": (
-            lambda: K.adjoint_sweep(psi, lam, ang, x, z, s, fm),
+            lambda: K.adjoint_sweep(psi, lam, ang, sops, fm),
             lambda: gr.adjoint_sweep_ref(psi, lam, ang, x, z, s, fm)),
     }
     rows = {}
@@ -618,7 +624,34 @@ def phase_parity(h8, card):
         print(f"time {name} at H8 shapes ({card}): kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({by}; "
               f"{nbytes} B, {flops} f32 ops)")
+    sweep_clusters(sops, psi, card)
     return rows
+
+
+def sweep_clusters(sops, psi, card):
+    """How A1 and C7 launch at H8 (``kernels.grouped_attributes``) and the
+    barrier floor of each one's cluster shape (``kernels.cluster_floor``:
+    G steps of one cluster barrier and one distributed-shared-memory read),
+    timed with CUDA events."""
+    from openvqe_tpu_torch.sim import kernels as K
+    for name in ("rot_sweep", "adjoint_sweep"):
+        att = K.grouped_attributes(name, sops)
+        check(att["route"] == "cluster" and att["max_active_clusters"] >= 1,
+              f"{name} does not run on one cluster at H8: {att}")
+        C, T, smem = att["cluster"], att["threads"], att["smem_bytes"]
+        out = K.cluster_floor(sops.G, C, smem, psi.device)
+        check(out.tolist() == [float(sops.G)] * C, f"floor kernel {out}")
+        floor_ms = cuda_ms(lambda: K.cluster_floor(sops.G, C, smem,
+                                                   psi.device), reps=50)
+        # a step takes the cluster barrier where its group or the next
+        # has pairs across blocks (x at or above a block's slice)
+        cross = (sops.x.cpu() >> (N_QUBITS - C.bit_length() + 1)) != 0
+        steps = int((cross[:-1] | cross[1:]).sum())
+        print(f"{name} at H8 ({card}): {json.dumps(att)}; barrier floor "
+              f"({sops.G} cluster barriers and distributed-shared-memory "
+              f"round trips on {C} blocks of {T} threads, {smem} B) "
+              f"{floor_ms:.4f} ms; {steps} of {sops.G - 1} steps take the "
+              f"cluster barrier")
 
 
 def phase_main_path(h8, ref, card):
@@ -695,12 +728,22 @@ def phase_main_path(h8, ref, card):
             ts.append(time.perf_counter() - t)
         print(f"energy_and_grad {name} ansatz on {card}: "
               f"median {1e3 * sorted(ts)[10]:.3f} ms over 20 calls")
-    device_share(bounds["cluster"], theta, card, "H8 cluster ansatz")
+    for name, b in bounds.items():
+        ev = device_share(b, theta, card, f"H8 {name} ansatz")
+        if ev is None:
+            continue
+        # one device launch a sweep: A1 and C7 one cluster kernel each a call
+        sweeps = {k: sum(e.count for e in ev if k in e.key)
+                  for k in ("sweep_cluster_kernel", "sweep_group_kernel")}
+        print(f"  kernel launches of the sweeps in those calls: {sweeps}")
+        check(sweeps == {"sweep_cluster_kernel": 20, "sweep_group_kernel": 0},
+              f"H8 {name} sweeps are not one cluster launch each: {sweeps}")
     return launches
 
 
 def device_share(bound_ansatz, theta, card, label, calls=10):
-    """Device kernel time against host wall time over a few calls."""
+    """Device kernel time against host wall time over a few calls; returns
+    the profiler's events (None if the trace holds no device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     bound_ansatz.energy_and_grad(theta)
@@ -716,7 +759,7 @@ def device_share(bound_ansatz, theta, card, label, calls=10):
                  for e in prof.key_averages())
     if dev_us <= 0:
         print("device busy share: not measured (no device time in trace)")
-        return
+        return None
     print(f"energy_and_grad {label}, {calls} calls under the profiler "
           f"on {card}: wall {1e3 * wall / calls:.3f} ms/call, device busy "
           f"{1e-3 * dev_us / calls:.3f} ms/call "
@@ -727,6 +770,7 @@ def device_share(bound_ansatz, theta, card, label, calls=10):
         print(f"  {e.key[:60]:60s} {e.count:6d} calls "
               f"{getattr(e, 'self_device_time_total', 0) / calls:9.1f} "
               f"us/energy_and_grad")
+    return prof.key_averages()
 
 
 def geometry(obj, h10):
@@ -771,8 +815,7 @@ def parity_stream_case(label, psi, theta, b, obj, gseq, errs):
     out = {}
     a = K.rot_fused(psi, af, fwd, fm)
     d_plain = float((a - st.rot_fused_ref(psi, af, fwd, fm)).abs().max())
-    d_group = float((a - K.rot_sweep(psi, ang, o.x, o.z, o.s, o.fmode)
-                     ).abs().max())
+    d_group = float((a - K.rot_sweep(psi, ang, o, o.fmode)).abs().max())
     out["rot_fused"] = max(d_plain, d_group)
     check(out["rot_fused"] <= TOL_STATE,
           f"{label} rot_fused plain {d_plain} per-group {d_group}")
@@ -797,7 +840,7 @@ def parity_stream_case(label, psi, theta, b, obj, gseq, errs):
     pp, lp, gp = st.adjoint_fused_ref(a, lam, aa, adj, fm)
     d_state = max(float((pk - pp).abs().max()), float((lk - lp).abs().max()))
     d_grad = float((gk - gp).abs().max())
-    _, _, gs = K.adjoint_sweep(a, lam, ang, o.x, o.z, o.s, o.fmode)
+    _, _, gs = K.adjoint_sweep(a, lam, ang, o, o.fmode)
     n_par = len(theta)
     d_group = float(np.max(np.abs(
         st.bucket_grad(gk, adj, n_par).numpy()

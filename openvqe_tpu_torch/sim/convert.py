@@ -11,10 +11,12 @@ port importing JAX.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+
+from . import streaming as st
 
 
 @dataclass
@@ -33,12 +35,36 @@ class HamOperands:
 
 @dataclass
 class SeqOperands:
-    """prod_g Rot(-theta[op_g] F_g) with F_g(j) = sum_k s_gk sign_{z_gk}(j)."""
+    """prod_g Rot(-theta[op_g] F_g) with F_g(j) = sum_k s_gk sign_{z_gk}(j)
+    on 2^n amplitudes.
+
+    ``z_pair`` is z with bit msb(x) taken out (``streaming.pair_masks``):
+    the masks kernels A1 and C7 read over the pair index t of
+    j = insert_zero(t, msb(x)).  ``k_live`` is one past each group's last
+    non-zero weight.  ``odd_y`` is the host certificate that every live
+    term has popcount(x & z_k) odd, so F(j ^ x) = -F(j) and the kernels
+    compute one field per pair (``kernels.rot_sweep`` and
+    ``adjoint_sweep`` refuse operands without it).  ``graphs`` holds the
+    CUDA graphs of the sizes beyond one thread-block cluster
+    (``kernels``), freed with the operands."""
+    n: int
     x: torch.Tensor       # (G,) int32, never 0
     z: torch.Tensor       # (G, K) int32
     s: torch.Tensor       # (G, K)
+    z_pair: torch.Tensor  # (G, K) int32
+    k_live: torch.Tensor  # (G,) int32
     op: np.ndarray        # (G,) int64, host: angles are built on the host
     fmode: int
+    odd_y: bool
+    graphs: dict = field(default_factory=dict, repr=False, compare=False)
+
+    @property
+    def G(self) -> int:
+        return self.x.shape[0]
+
+    @property
+    def K(self) -> int:
+        return self.z.shape[1]
 
 
 def _dev(a, dtype, device) -> torch.Tensor:
@@ -75,18 +101,26 @@ def ham_operands(g, device, dtype=torch.float32) -> HamOperands:
 
 
 def seq_operands(g, device, dtype=torch.float32) -> SeqOperands:
-    """Rotation groups of an ansatz.  x = 0 groups (the JAX package's
-    padding) must carry zero weights; they are identities and are
-    dropped."""
-    x = np.asarray(g.x, np.int32)
-    z = np.asarray(g.z, np.int32).reshape(len(x), -1)
+    """Rotation groups of an ansatz on ``g.n`` qubits, with their pair
+    masks, live terms and odd-Y certificate.  x = 0 groups (the JAX
+    package's padding) must carry zero weights; they are identities and
+    are dropped."""
+    x = np.asarray(g.x, np.int64)
+    z = np.asarray(g.z, np.int64).reshape(len(x), -1)
     s = np.asarray(g.s, np.float64).reshape(z.shape)
     op = np.asarray(g.op, np.int64)
     pad = x == 0
     if np.any(s[pad] != 0.0):
         raise ValueError("a rotation group with x = 0 has non-zero weights")
     keep = ~pad
+    x, z, s = x[keep], z[keep], s[keep]
+    live = s != 0
+    k_live = np.where(live.any(axis=1),
+                      live.shape[1] - np.argmax(live[:, ::-1], axis=1), 0)
+    odd = st._popcount(x[:, None] & z) & 1 == 1
     return SeqOperands(
-        x=_dev(x[keep], torch.int32, device),
-        z=_dev(z[keep], torch.int32, device),
-        s=_dev(s[keep], dtype, device), op=op[keep], fmode=int(g.fmode))
+        n=int(g.n), x=_dev(x, torch.int32, device),
+        z=_dev(z, torch.int32, device), s=_dev(s, dtype, device),
+        z_pair=_dev(st.pair_masks(x, z), torch.int32, device),
+        k_live=_dev(k_live, torch.int32, device), op=op[keep],
+        fmode=int(g.fmode), odd_y=bool(np.all(odd | ~live)))

@@ -105,18 +105,20 @@ __device__ __forceinline__ void wfields(unsigned base, const int* zg,
 // add in the order k = 0 .. k_live - 1, so every field is the one the
 // per-amplitude popcount gave (wfields above), bit for bit.
 
-// S[m][q] for m, q < PER, built once per block (read after a barrier).
-template <int PER>
+// S[m][q] for m, q < PER, built once per block of THREADS threads (read
+// after a barrier).
+template <int PER, int THREADS = ST_THREADS>
 __device__ __forceinline__ void sign_table(float* S) {
-  for (int i = threadIdx.x; i < PER * PER; i += ST_THREADS)
+  for (int i = threadIdx.x; i < PER * PER; i += THREADS)
     S[i] = parity((unsigned)(i / PER) & (unsigned)(i % PER)) ? -1.f : 1.f;
 }
 
 // The fields W_re (and W_im unless REAL) of one slot at the thread's PER
 // amplitudes: terms 0 .. nl - 1 of (z, ar, ai), in tiles of KT (KT divides
 // K; terms of the last tile past nl are zero coefficients and add exact
-// zeros), jt = base | tid.
-template <int PER, int KT, bool REAL>
+// zeros), jt = base | tid.  TB: log2 of the threads the loop index q
+// steps over (the loop bits start at bit TB).
+template <int PER, int KT, bool REAL, int TB = 8>
 __device__ __forceinline__ void bucket_fields(
     float (&wr)[PER], float (&wi)[PER], unsigned jt,
     const int* __restrict__ z, const float* __restrict__ ar,
@@ -129,7 +131,7 @@ __device__ __forceinline__ void bucket_fields(
       const unsigned zk = (unsigned)z[k0 + k];
       const bool neg = parity(jt & zk);
       const float c = neg ? -ar[k0 + k] : ar[k0 + k];
-      const float* row = S + ((zk >> 8) & (PER - 1)) * PER;
+      const float* row = S + ((zk >> TB) & (PER - 1)) * PER;
       float ci = 0.f;
       if (!REAL) ci = neg ? -ai[k0 + k] : ai[k0 + k];
       if constexpr (PER >= 4) {
@@ -158,26 +160,37 @@ __device__ __forceinline__ void bucket_fields(
   }
 }
 
+// The angle terms of rot_cs, once per group: sin and cos of ang (fmode
+// >= 1) and of 2 ang (fmode 2).
+struct RotTrig {
+  float ang, sa, ca, s2, c2;
+};
+
+__device__ __forceinline__ RotTrig rot_trig(float ang, int fmode) {
+  RotTrig t{ang, 0.f, 1.f, 0.f, 1.f};
+  if (fmode >= 1) sincosf(ang, &t.sa, &t.ca);
+  if (fmode == 2) sincosf(2.f * ang, &t.s2, &t.c2);
+  return t;
+}
+
 // (cos(ang F), sin(ang F)) with the formulas of grouped.rot_cos_sin:
 // fmode > 0 certifies F integer-valued with |F| <= fmode and interpolates
 // evenly/oddly in F, exact at the integer nodes.  The per-group kernels
 // apply the rotation as cos psi + sin psi_x.
-__device__ __forceinline__ void rot_cs(float ang, float F, int fmode,
+__device__ __forceinline__ void rot_cs(const RotTrig& t, float F, int fmode,
                                        float& c, float& s) {
   if (fmode == 0) {
-    sincosf(ang * F, &s, &c);
+    sincosf(t.ang * F, &s, &c);
     return;
   }
-  float sa, ca;
-  sincosf(ang, &sa, &ca);
+  const float sa = t.sa, ca = t.ca;
   const float F2 = F * F;
   if (fmode == 1) {
     c = (1.f - F2) + F2 * ca;
     s = F * sa;
     return;
   }
-  float s2, c2;
-  sincosf(2.f * ang, &s2, &c2);
+  const float s2 = t.s2, c2 = t.c2;
   c = ((F2 - 1.f) * (F2 - 4.f)) * 0.25f + ca * ((F2 * (4.f - F2)) / 3.f) +
       c2 * ((F2 * (F2 - 1.f)) / 12.f);
   s = F * (sa * ((4.f - F2) / 3.f) + (0.5f * s2) * ((F2 - 1.f) / 3.f));

@@ -6,98 +6,544 @@
 // tile/sublane/lane splits of x, (G,T,K) sign tables and HIGHEST-precision
 // matmuls are not carried over.
 //
-// What bounds these kernels: they are gathers.  Each group touches the
-// whole state (8 bytes per amplitude per plane pair) and does K popcounts
-// and K FMAs per amplitude.  At n = 16 the state is 512 KB and stays in the
-// 50 MB L2, so HBM is read about once per sweep; the arithmetic of the
-// field (popcount + select + FMA per live term) and the launch latency of
-// one launch per group are what remain.  The design answers with one
-// thread per amplitude (or pair), no shared-memory staging, no atomics, and
-// coalesced gathers: for a fixed x, the lanes of a warp read
-// j ^ x for 32 consecutive j, which is a permutation of one aligned
-// 32-element segment whenever x has no bit below 5, and of two segments
-// otherwise.  Launch batching, CUDA graphs and a persistent sweep are later
-// work.
+// What bounds these kernels: each group touches the whole state (8 bytes
+// per amplitude per plane pair) and does K popcounts and K FMAs per
+// amplitude.  At n = 16 the state is 512 KB and stays in the 50 MB L2, so
+// device memory is read about once per sweep; the arithmetic of the field
+// and, for the sweeps, the G dependent steps (rotations do not commute)
+// are what remain.
+//
+// * ham_kernel (B4) and expect_kernel (D10): one thread per amplitude,
+//   output-stationary over all groups in one launch; coalesced gathers
+//   (for a fixed x the lanes of a warp read j ^ x for 32 consecutive j, a
+//   permutation of one or two aligned 32-element segments).
+// * rot_sweep (A1) and adjoint_sweep (C7), redesigned for Hopper.  The TPU
+//   kernels walk the G groups as one sequential grid with the state
+//   resident in VMEM; a launch per group cost ~3.5 us here against ~0.2 us
+//   of data movement at n = 16.  So one launch (sweep_cluster_kernel)
+//   walks every group in order with the state held on chip:
+//   - the state lives in the dynamic shared memory of one thread-block
+//     cluster of C = 2^cbits blocks of 512 threads (C = 1 up to n = 13,
+//     16 at n = 16; kernels.cluster_size picks C from n): block r holds
+//     amplitudes [r M, (r + 1) M), M = N / C, of every plane (A1: psi, C7:
+//     p and lambda), copied in once with float4 loads and out once;
+//   - the pair index t of j = insert_zero(t, h), h = msb(x), splits into
+//     block, loop and thread bits: t = tb | q T | tid, q < PER = M / 2T
+//     (1 with idle threads for a slice below 2T amplitudes).  A group
+//     whose x lies inside a slice (x < M) keeps both ends of every pair in
+//     the block's own slice, tb = r (M / 2).  A group with bits of x above
+//     the slice pairs block r with block r ^ (x >> log2 M), reached through
+//     distributed shared memory (map_shared_rank): block r takes the pairs
+//     whose j lies in the half (bit log2 M - 1) of the lower block's slice
+//     given by its own bit h - log2 M, so every pair has one end in its
+//     owner's slice and one remote, and each block does M / 2 pairs;
+//   - one field per pair: every rotation group is odd-Y (the host
+//     certifies it, SeqOperands.odd_y; the wrappers refuse operands
+//     without it), so F(j ^ x) = -F(j), which rounding keeps exactly (+0
+//     stays +0).  The sign splits as in C8 (common.cuh, bucket_fields):
+//     parity(j & z_k) = parity(t & z'_k) with z' = SeqOperands.z_pair,
+//     one popcount of (tb | tid) & z'_k per live term and the loop part
+//     from the fixed PER x PER table, each product exact and the terms
+//     added in order, so F(j) is field2's bit for bit.  The partner takes
+//     (cos, -sin), or (cos, sin) at F = 0, which is rot_cs at -F in every
+//     field mode (cos is even and sin odd in F, sincosf(-y) =
+//     (-sin y, cos y) on the card);
+//   - the updates keep the expressions of the kernels they replace (cos
+//     psi + sin psi_x, one launch per group; pair_update), so psi, p and
+//     lambda are theirs bit for bit; a thread loads a batch of pairs
+//     before it writes any;
+//   - C7's gradient entry -2 sum_j F(j) (lam_j . p_{j^x}) keeps the sum
+//     tree of those kernels: per 128 consecutive t a warp-shuffle tree over
+//     32 consecutive t in lane order, the 4 warp sums in order into
+//     partials[g][t / 128], then row_reduce_kernel;
+//   - the group operands (z_pair, weights, x, live terms and the angle
+//     terms of rot_trig, once per group) are staged into shared memory in
+//     chunks of up to 16 KB;
+//   - groups are separated by the cluster barrier in two halves: a block
+//     arrives once its writes of a group are issued, prepares the next
+//     group (fields and (cos, sin) do not depend on the state) and then
+//     waits.  Where neither a group nor the next reaches outside the
+//     blocks' own slices, a __syncthreads() takes the barrier's place.
+//   The floor of this design is a cluster barrier per step
+//   (cluster_floor_kernel).  Where the states do not fit one cluster of 16
+//   blocks (A1 at n >= 19, C7 at n >= 18), sweep_group_kernel takes one
+//   group a launch over the state in device memory with the same pair
+//   split (8 pairs a thread of 256), field and sums, and the G launches
+//   are captured once per operand set into a CUDA graph and replayed, as
+//   C8 is.
 //
 // Every entry point launches on the caller's stream, never synchronises,
-// allocates nothing, and returns cudaGetLastError() (0 on success).
+// allocates no device memory (a graph belongs to the CUDA runtime, made by
+// ovqe_sweep_group_graph and freed by ovqe_grouped_graph_destroy), and
+// returns a CUDA error code (0 on success).
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
 
-#define OVQE_THREADS 128
+namespace cg = cooperative_groups;
+
+#define OVQE_THREADS 128        // B4 / D10 blocks; C7's 128-pair sums
+#define GR_THREADS ST_THREADS   // 256: the per-group route's blocks
+#define GR_MAX_CLUSTER 16       // blocks of the largest (non-portable) cluster
+#define GR_OPS_BYTES 16384      // shared memory of one operand chunk
+#define GR_GRAPH_PER 8          // pairs a thread on the per-group route
+#define GR_SWEEP_TB 9           // log2 threads of a cluster sweep block
 
 namespace {
 
-// ---------------------------------------------------------------- kernel 1
-// rot_sweep, one launch per group g in group order.  Replaces
-// openvqe_tpu/sim/pallas_kernels.py::_rot_kernel.  One thread per pair
-// {j, j ^ x}: both amplitudes of both planes are read before either is
-// written, so the update is in place.  x == 0 is a padding identity.
-__global__ void __launch_bounds__(OVQE_THREADS)
-rot_group_kernel(float* __restrict__ psi, unsigned N,
-                 const int* __restrict__ x, const int* __restrict__ z,
-                 const float* __restrict__ s,
-                 const float* __restrict__ angles, int g, int K, int fmode) {
-  const unsigned t = blockIdx.x * blockDim.x + threadIdx.x;
-  const unsigned xg = (unsigned)x[g];
-  if (t >= (N >> 1) || xg == 0u) return;
-  const int h = 31 - __clz(xg);
-  const unsigned j = insert_zero(t, h), jj = j ^ xg;
-  float Fj, Fjj;
-  field2(j, jj, z + (size_t)g * K, s + (size_t)g * K, K, Fj, Fjj);
-  const float ang = angles[g];
-  float cj, sj, ck, sk;
-  rot_cs(ang, Fj, fmode, cj, sj);
-  rot_cs(ang, Fjj, fmode, ck, sk);
-  float* re = psi;
-  float* im = psi + N;
-  const float a0 = re[j], a1 = im[j], b0 = re[jj], b1 = im[jj];
-  re[j] = cj * a0 + sj * b0;
-  im[j] = cj * a1 + sj * b1;
-  re[jj] = ck * b0 + sk * a0;
-  im[jj] = ck * b1 + sk * a1;
+// v with bit b taken out (the bits above it shifted down one).
+__device__ __forceinline__ unsigned remove_bit(unsigned v, int b) {
+  return ((v >> (b + 1)) << b) | (v & ((1u << b) - 1u));
 }
 
-// ---------------------------------------------------------------- kernel 4
-// adjoint_sweep, one launch per group in reverse order.  Replaces
-// openvqe_tpu/sim/pallas_kernels.py::_adjoint_kernel.  Each pair-thread
-// first takes its share of the group's gradient entry,
-//     -2 sum_j F(j) (lam_j . p_{j^x}),
-// from the current p and lam (both ends of the pair), then un-rotates both
-// states: p'(j) = c(j) p(j) - s(j) p(j ^ x), the same for lam.  The block's
-// share goes to partials[g][blockIdx.x]; row_reduce_kernel finishes it.
-__global__ void __launch_bounds__(OVQE_THREADS)
-adjoint_group_kernel(float* __restrict__ p, float* __restrict__ l, unsigned N,
-                     const int* __restrict__ x, const int* __restrict__ z,
-                     const float* __restrict__ s,
-                     const float* __restrict__ angles, int g, int K,
-                     int fmode, float* __restrict__ partials) {
-  const unsigned t = blockIdx.x * blockDim.x + threadIdx.x;
-  const unsigned xg = (unsigned)x[g];
-  float contrib = 0.f;
-  if (t < (N >> 1) && xg != 0u) {
-    const int h = 31 - __clz(xg);
-    const unsigned j = insert_zero(t, h), jj = j ^ xg;
-    float Fj, Fjj;
-    field2(j, jj, z + (size_t)g * K, s + (size_t)g * K, K, Fj, Fjj);
-    const float ang = angles[g];
-    float cj, sj, ck, sk;
-    rot_cs(ang, Fj, fmode, cj, sj);
-    rot_cs(ang, Fjj, fmode, ck, sk);
-    const float p0j = p[j], p1j = p[N + j], p0k = p[jj], p1k = p[N + jj];
-    const float l0j = l[j], l1j = l[N + j], l0k = l[jj], l1k = l[N + jj];
-    contrib = Fj * (l0j * p0k + l1j * p1k) + Fjj * (l0k * p0j + l1k * p1j);
-    p[j] = cj * p0j - sj * p0k;
-    p[N + j] = cj * p1j - sj * p1k;
-    p[jj] = ck * p0k - sk * p0j;
-    p[N + jj] = ck * p1k - sk * p1j;
-    l[j] = cj * l0j - sj * l0k;
-    l[N + j] = cj * l1j - sj * l1k;
-    l[jj] = ck * l0k - sk * l0j;
-    l[N + jj] = ck * l1k - sk * l1j;
+// Where a thread's pairs of one group lie: pair q (low = q T + tid) has
+// its j end at offset oa(low) of the j ends' planes and its j ^ x end at
+// oa(low) ^ xl of the partners' planes.  `inside`: oa = insert_zero(t0 |
+// low, h); otherwise oa = abase | low.  `half`: the pairs of the slice
+// (idle threads beyond it when it holds fewer than one a thread).
+struct PairIdx {
+  unsigned t0, abase, xl, half;
+  int h;
+  bool inside;
+  __device__ __forceinline__ unsigned oa(unsigned low) const {
+    return inside ? insert_zero(t0 | low, h) : (abase | low);
   }
-  const float tot = block_sum<OVQE_THREADS>(contrib);
-  if (threadIdx.x == 0) partials[(size_t)g * gridDim.x + blockIdx.x] = tot;
+};
+
+// The state-free part of one group for one thread: where its pairs lie,
+// the pair index bits above the loop and thread bits (tb), the field at
+// each pair's j end and its (cos, sin) there.  `path`: 0 both ends in the
+// own slice; 1 the j ends own and the partners in block `peer`; 2 the
+// reverse.
+template <int PER>
+struct GroupWork {
+  PairIdx ix;
+  unsigned tb, peer;
+  int path;
+  float F[PER], c[PER], s[PER];
+};
+
+// One pair with the expressions of the kernels A1 / C7 replace: a and b
+// hold the j end's and the partner's values (psi re, im; C7: p re, im,
+// lambda re, im), updated in place from the j end's field and (cos, sin);
+// the partner takes (cos, -sin), or (cos, sin) at F = 0: rot_cs at -F.
+// Returns C7's share of the group's gradient entry (A1: 0).
+template <bool ADJ>
+__device__ __forceinline__ float pair_update(float (&a)[4], float (&b)[4],
+                                             float Fj, float cj, float sj) {
+  const float ck = cj, sk = Fj == 0.f ? sj : -sj;
+  if (!ADJ) {
+    const float a0 = a[0], a1 = a[1], b0 = b[0], b1 = b[1];
+    a[0] = cj * a0 + sj * b0;
+    a[1] = cj * a1 + sj * b1;
+    b[0] = ck * b0 + sk * a0;
+    b[1] = ck * b1 + sk * a1;
+    return 0.f;
+  }
+  const float Fjj = 0.f - Fj;                       // F(j ^ x)
+  const float p0j = a[0], p1j = a[1], l0j = a[2], l1j = a[3];
+  const float p0k = b[0], p1k = b[1], l0k = b[2], l1k = b[3];
+  const float c = Fj * (l0j * p0k + l1j * p1k) + Fjj * (l0k * p0j + l1k * p1j);
+  a[0] = cj * p0j - sj * p0k;
+  a[1] = cj * p1j - sj * p1k;
+  b[0] = ck * p0k - sk * p0j;
+  b[1] = ck * p1k - sk * p1j;
+  a[2] = cj * l0j - sj * l0k;
+  a[3] = cj * l1j - sj * l1k;
+  b[2] = ck * l0k - sk * l0j;
+  b[3] = ck * l1k - sk * l1j;
+  return c;
+}
+
+// A state as planes of S floats: psi or p (re at p, im at p + S) and
+// C7's lambda (l, l + S); the whole state in device memory on the
+// per-group route (S = N), a block's slice in shared memory (S = M) on the
+// cluster route.
+template <bool ADJ>
+struct Planes {
+  float *p, *l;
+  unsigned S;
+  __device__ __forceinline__ void load(unsigned o, float (&v)[4]) const {
+    v[0] = p[o];
+    v[1] = p[S + o];
+    if (ADJ) {
+      v[2] = l[o];
+      v[3] = l[S + o];
+    }
+  }
+  __device__ __forceinline__ void store(unsigned o,
+                                        const float (&v)[4]) const {
+    p[o] = v[0];
+    p[S + o] = v[1];
+    if (ADJ) {
+      l[o] = v[2];
+      l[S + o] = v[3];
+    }
+  }
+};
+
+// One group's pairs of one thread, BATCH pairs loaded before any is
+// written: the j ends through A, the partners through B (pair_update).
+template <int PER, int BATCH, bool ADJ, int T, typename A, typename B>
+__device__ __forceinline__ void sweep_pairs(const A& ea, const B& eb,
+                                            const GroupWork<PER>& w,
+                                            float (&contrib)[PER]) {
+#pragma unroll
+  for (int q0 = 0; q0 < PER; q0 += BATCH) {
+    unsigned oa[BATCH];
+    bool on[BATCH];
+    float va[BATCH][4], vb[BATCH][4];
+#pragma unroll
+    for (int i = 0; i < BATCH; ++i) {
+      const unsigned low = (q0 + i) * T + threadIdx.x;
+      on[i] = PER > 1 || low < w.ix.half;
+      oa[i] = w.ix.oa(low);
+      if (on[i]) {
+        ea.load(oa[i], va[i]);
+        eb.load(oa[i] ^ w.ix.xl, vb[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < BATCH; ++i) {
+      const int q = q0 + i;
+      contrib[q] = 0.f;
+      if (!on[i]) continue;
+      contrib[q] = pair_update<ADJ>(va[i], vb[i], w.F[q], w.c[q], w.s[q]);
+      ea.store(oa[i], va[i]);
+      eb.store(oa[i] ^ w.ix.xl, vb[i]);
+    }
+  }
+}
+
+// The sum tree of the kernels C7 replaces, over one group's contributions
+// c[q] of the thread's pairs t = tb | q T | tid: a warp-shuffle tree per
+// 32 consecutive t, lane order; then per 128 consecutive t the 4 warp
+// sums in order, 0.f + w0 + w1 + w2 + w3, into partials[t / 128].  Every
+// thread of the block calls it; it ends in a __syncthreads().
+template <int PER, int T>
+__device__ __forceinline__ void pair_sums(const float (&c)[PER], float* ws,
+                                          unsigned tb, float* prow, int nb) {
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int q = 0; q < PER; ++q) {
+    float v = c[q];
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+    if ((threadIdx.x & 31) == 0) ws[q * (T / 32) + warp] = v;
+  }
+  __syncthreads();
+  constexpr int SUMS = PER * (T / 128);
+  if (threadIdx.x < SUMS) {
+    const float* w = ws + threadIdx.x * 4;
+    float tot = 0.f;
+    for (int i = 0; i < 4; ++i) tot += w[i];
+    const unsigned b = (tb >> 7) | threadIdx.x;
+    if (b < (unsigned)nb) prow[b] = tot;
+  }
+  __syncthreads();
+}
+
+// The field at the thread's PER pairs (split t = tb | q T | tid, z' the
+// group's pair masks) and rot_cs there.
+template <int PER, int KT, int TB>
+__device__ __forceinline__ void pair_fields(GroupWork<PER>& w,
+                                            const int* zp, const float* s,
+                                            int kl, const RotTrig& tr,
+                                            int fmode, const float* S) {
+  float unused[PER];
+  bucket_fields<PER, KT, true, TB>(w.F, unused, w.tb | threadIdx.x, zp, s,
+                                   s, kl, S);
+#pragma unroll
+  for (int q = 0; q < PER; ++q) rot_cs(tr, w.F[q], fmode, w.c[q], w.s[q]);
+}
+
+// ------------------------------------------------ the cluster-resident sweep
+
+// Floats of a sweep block's dynamic shared memory: nst planes of the
+// state slice, the sign table, C7's warp sums and one operand chunk of gc
+// groups (z_pair and weights, K each; x, live terms and the RotTrig angle
+// terms, 5 floats).
+__host__ __device__ inline size_t sweep_floats(int nst, unsigned M, int per,
+                                               bool adj, int T, int gc,
+                                               int K) {
+  return (size_t)nst * M + (size_t)per * per +
+         (adj ? (size_t)per * (T / 32) : 0) + (size_t)gc * (2 * K + 7);
+}
+
+// Copy `planes` planes of block `rank`'s slice between device memory
+// (plane k at g + k N + rank M) and shared memory (plane k at sm + k M).
+template <int T>
+__device__ __forceinline__ void stage_slice(float* sm, float* g, unsigned N,
+                                            unsigned M, unsigned rank,
+                                            int planes, bool in) {
+  for (int k = 0; k < planes; ++k) {
+    float* s = sm + (size_t)k * M;
+    float* d = g + (size_t)k * N + (size_t)rank * M;
+    if (M % 4 == 0) {
+      float4* s4 = reinterpret_cast<float4*>(s);
+      float4* d4 = reinterpret_cast<float4*>(d);
+      for (unsigned i = threadIdx.x; i < M / 4; i += T) {
+        if (in) s4[i] = d4[i];
+        else d4[i] = s4[i];
+      }
+    } else {
+      for (unsigned i = threadIdx.x; i < M; i += T) {
+        if (in) s[i] = d[i];
+        else d[i] = s[i];
+      }
+    }
+  }
+}
+
+// The cluster barrier in two halves: arrive (release) once a block's
+// writes of a group are issued, wait (acquire) before the next group
+// reads; between them a thread prepares the next group.  cbits 0 (one
+// block, or a step that stays in the blocks' own slices): a
+// __syncthreads() at the wait.
+__device__ __forceinline__ void sweep_arrive(int cbits) {
+  if (cbits)
+    asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void sweep_wait(int cbits) {
+  if (cbits)
+    asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+  else
+    __syncthreads();
+}
+
+__device__ __forceinline__ void sweep_sync(int cbits) {
+  sweep_arrive(cbits);
+  sweep_wait(cbits);
+}
+
+// The operand chunk of gc groups from c0 (cn of them) into shared memory:
+// z_pair and weights, x, live terms and each group's angle terms
+// (rot_trig, once per group).
+template <int T>
+__device__ __forceinline__ void stage_ops(int* oz, float* os, int* ox,
+                                          int* okl, float* otr, int c0,
+                                          int cn, int K,
+                                          const int* __restrict__ x,
+                                          const int* __restrict__ zp,
+                                          const float* __restrict__ s,
+                                          const int* __restrict__ kl,
+                                          const float* __restrict__ ang,
+                                          int fmode) {
+  for (int e = threadIdx.x; e < cn * K; e += T) {
+    oz[e] = zp[(size_t)c0 * K + e];
+    os[e] = s[(size_t)c0 * K + e];
+  }
+  for (int e = threadIdx.x; e < cn; e += T) {
+    ox[e] = x[c0 + e];
+    okl[e] = kl[c0 + e];
+    const RotTrig t = rot_trig(ang[c0 + e], fmode);
+    float* o = otr + 5 * e;
+    o[0] = t.ang;
+    o[1] = t.sa;
+    o[2] = t.ca;
+    o[3] = t.s2;
+    o[4] = t.c2;
+  }
+}
+
+// A1 (ADJ false) and C7 (ADJ true) on one cluster of 2^cbits blocks of
+// T = 2^GR_SWEEP_TB threads over a state of 2^n amplitudes, every state
+// (2, N).  A1:
+// p_out is psi = p_in after the groups 0 .. G-1 in order.  C7: (p_out,
+// l_out) are (p_in, l_in) un-rotated through the groups G-1 .. 0; the
+// block's shares of group g's entry go to partials[g][*] (nb a row).
+// Each step applies one group to the state and, between the two halves of
+// the cluster barrier, prepares the next (its fields and (cos, sin), which
+// do not depend on the state).  Replaces
+// openvqe_tpu/sim/pallas_kernels.py::_rot_kernel (A1) and
+// ::_adjoint_kernel (C7).
+template <int PER, int KT, bool ADJ>
+__global__ void __launch_bounds__(1 << GR_SWEEP_TB, 1)
+sweep_cluster_kernel(float* p_in, float* l_in, float* p_out, float* l_out,
+                     int n, int cbits, const int* __restrict__ x,
+                     const int* __restrict__ zp, const float* __restrict__ s,
+                     const int* __restrict__ kl,
+                     const float* __restrict__ ang, int G, int K, int fmode,
+                     int gc, float* __restrict__ partials, int nb) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int TB = GR_SWEEP_TB, NST = ADJ ? 4 : 2, T = 1 << TB;
+  constexpr int BATCH0 = (ADJ || PER >= 16 ? 4 : 8) >> (TB == 10 ? 2 : 0);
+  constexpr int BATCH = BATCH0 < PER ? BATCH0 : PER;
+  const int m = n - cbits;
+  const unsigned N = 1u << n, M = 1u << m;
+  const unsigned rank = cbits ? cg::this_cluster().block_rank() : 0u;
+  float* st = smem;          // p (psi) planes 0, 1; C7's lambda 2, 3
+  float* S = smem + NST * M;
+  float* ws = S + PER * PER;
+  int* oz = reinterpret_cast<int*>(ws + (ADJ ? PER * (T / 32) : 0));
+  float* os = reinterpret_cast<float*>(oz + gc * K);
+  int* ox = reinterpret_cast<int*>(os + gc * K);
+  int* okl = ox + gc;
+  float* otr = reinterpret_cast<float*>(okl + gc);
+
+  // the state-free part of group g, whose chunk starts at c0
+  auto prepare = [&](GroupWork<PER>& w, int g, int c0) {
+    const int gl = g - c0;
+    const unsigned xg = (unsigned)ox[gl];
+    const int h = 31 - __clz(xg);
+    const unsigned X = xg >> m;             // bits of x above the slice
+    w.ix.xl = xg & (M - 1u);
+    w.ix.half = M >> 1;
+    w.ix.h = h;
+    w.ix.t0 = 0u;
+    if (X == 0u) {                          // both ends in the own slice
+      w.path = 0;
+      w.peer = rank;
+      w.ix.inside = true;
+      w.ix.abase = 0u;
+      w.tb = rank << (m - 1);
+    } else {                                // partner block rank ^ X
+      const int hb = h - m;
+      const unsigned side = (rank >> hb) & 1u;
+      const unsigned lo = side ? rank ^ X : rank;
+      w.path = 1 + (int)side;
+      w.peer = rank ^ X;
+      w.ix.inside = false;
+      w.ix.abase = side << (m - 1);
+      w.tb = (remove_bit(lo, hb) << m) | w.ix.abase;
+    }
+    const float* t = otr + 5 * gl;
+    const RotTrig tr{t[0], t[1], t[2], t[3], t[4]};
+    pair_fields<PER, KT, TB>(w, oz + (size_t)gl * K, os + (size_t)gl * K,
+                             okl[gl], tr, fmode, S);
+  };
+  // the chunk of step i's group; staged when step i opens it
+  auto chunk = [&](int i, int& c0) {
+    const int g = ADJ ? G - 1 - i : i;
+    c0 = (g / gc) * gc;
+    if (g == (ADJ ? min(G, c0 + gc) - 1 : c0)) {
+      stage_ops<T>(oz, os, ox, okl, otr, c0, min(gc, G - c0), K, x, zp, s,
+                   kl, ang, fmode);
+      __syncthreads();
+    }
+    return g;
+  };
+
+  stage_slice<T>(st, p_in, N, M, rank, 2, true);
+  if (ADJ) stage_slice<T>(st + 2 * M, l_in, N, M, rank, 2, true);
+  sign_table<PER, T>(S);
+  GroupWork<PER> w;
+  int c0;
+  int g = chunk(0, c0);
+  prepare(w, g, c0);
+  sweep_sync(cbits);
+
+  for (int i = 0; i < G; ++i) {
+    // a cluster barrier after this group only where it or the next one
+    // reaches into another block; else the blocks' slices stay their own
+    const unsigned xn =
+        i + 1 < G ? (unsigned)__ldg(x + (ADJ ? g - 1 : g + 1)) : 0u;
+    const int cb = (w.path != 0 || (xn >> m) != 0u) ? cbits : 0;
+    float contrib[PER];
+    const Planes<ADJ> own{st, st + 2 * M, M};
+    if (w.path == 0) {
+      sweep_pairs<PER, BATCH, ADJ, T>(own, own, w, contrib);
+    } else {
+      float* r = cg::this_cluster().map_shared_rank(st, w.peer);
+      const Planes<ADJ> rem{r, r + 2 * M, M};
+      if (w.path == 1)
+        sweep_pairs<PER, BATCH, ADJ, T>(own, rem, w, contrib);
+      else
+        sweep_pairs<PER, BATCH, ADJ, T>(rem, own, w, contrib);
+    }
+    sweep_arrive(cb);
+    if (ADJ)
+      pair_sums<PER, T>(contrib, ws, w.tb, partials + (size_t)g * nb, nb);
+    if (i + 1 < G) {
+      g = chunk(i + 1, c0);
+      prepare(w, g, c0);
+    }
+    sweep_wait(cb);
+  }
+
+  stage_slice<T>(st, p_out, N, M, rank, 2, false);
+  if (ADJ) stage_slice<T>(st + 2 * M, l_out, N, M, rank, 2, false);
+}
+
+// The barrier floor of the cluster sweep: the same cluster shape doing G
+// steps of one cluster barrier, each with (dsmem) or without one
+// distributed-shared-memory read of the next block's word written the
+// step before.
+__global__ void __launch_bounds__(1 << GR_SWEEP_TB, 1)
+cluster_floor_kernel(int G, int cbits, int dsmem, float* __restrict__ out) {
+  extern __shared__ __align__(16) float smem[];
+  const unsigned C = 1u << cbits;
+  const unsigned rank = cbits ? cg::this_cluster().block_rank() : 0u;
+  if (threadIdx.x == 0) smem[0] = smem[1] = 0.f;
+  sweep_sync(cbits);
+  float* next = cbits ? cg::this_cluster().map_shared_rank(
+                            smem, (rank + 1) & (C - 1))
+                      : smem;
+  for (int g = 0; g < G; ++g) {
+    if (threadIdx.x == 0)
+      smem[(g + 1) & 1] = (dsmem ? next[g & 1] : smem[g & 1]) + 1.f;
+    sweep_sync(cbits);
+  }
+  if (threadIdx.x == 0) out[rank] = smem[G & 1];
+}
+
+// ------------------------------------------- the per-group route (graphs)
+
+// One call's device pointers, read by the graph's kernels (filled by
+// ovqe_sweep_group_replay in stream order before each replay).
+struct SweepArgs {
+  float* p;          // psi (A1) or p (C7), updated in place
+  float* l;          // lambda (C7)
+  const float* ang;
+  float* partials;   // (G, nb), C7
+  float* gts;        // (G,), C7
+};
+static_assert(sizeof(SweepArgs) == 5 * sizeof(void*),
+              "kernels fills five pointers");
+
+// Group g of A1 (ADJ false) or C7 over the state in device memory: block
+// b owns the pairs t = b 2^11 | q 2^8 | tid, q < 8, with the field,
+// updates and sums of the cluster sweep.
+template <int KT, bool ADJ>
+__global__ void __launch_bounds__(GR_THREADS)
+sweep_group_kernel(const SweepArgs* __restrict__ args, unsigned N,
+                   const int* __restrict__ x, const int* __restrict__ zp,
+                   const float* __restrict__ s, const int* __restrict__ kl,
+                   int g, int K, int fmode, int nb) {
+  constexpr int PER = GR_GRAPH_PER;
+  __shared__ __align__(16) float S[PER * PER];
+  __shared__ float ws[ADJ ? PER * (GR_THREADS / 32) : 1];
+  sign_table<PER, GR_THREADS>(S);
+  __syncthreads();
+  const unsigned xg = (unsigned)x[g];
+  GroupWork<PER> w;
+  w.tb = blockIdx.x * (PER * GR_THREADS);
+  w.ix.t0 = w.tb;
+  w.ix.abase = 0u;
+  w.ix.xl = xg;
+  w.ix.half = N >> 1;
+  w.ix.h = 31 - __clz(xg);
+  w.ix.inside = true;
+  pair_fields<PER, KT, 8>(w, zp + (size_t)g * K, s + (size_t)g * K, kl[g],
+                          rot_trig(args->ang[g], fmode), fmode, S);
+  float contrib[PER];
+  const Planes<ADJ> st{args->p, args->l, N};
+  sweep_pairs<PER, ADJ ? 4 : PER, ADJ, GR_THREADS>(st, st, w, contrib);
+  if (ADJ)
+    pair_sums<PER, GR_THREADS>(contrib, ws, w.tb,
+                               args->partials + (size_t)g * nb, nb);
+}
+
+// gts[r] = -2 sum_b partials[r][b]: row_reduce_kernel<OVQE_THREADS, float>
+// (common.cuh) with its pointers read from args, the same sum.
+__global__ void __launch_bounds__(OVQE_THREADS)
+sweep_reduce_kernel(const SweepArgs* __restrict__ args, int nb) {
+  const float* row = args->partials + (size_t)blockIdx.x * nb;
+  float v = 0;
+  for (int b = threadIdx.x; b < nb; b += OVQE_THREADS) v += row[b];
+  const float tot = block_sum<OVQE_THREADS>(v);
+  if (threadIdx.x == 0) args->gts[blockIdx.x] = (float)(-2.f * tot);
 }
 
 // ---------------------------------------------------------------- kernel 3
@@ -160,42 +606,309 @@ unsigned blocks_for(unsigned items) {
   return (items + OVQE_THREADS - 1) / OVQE_THREADS;
 }
 
+// ------------------------------------------------------------ dispatch
+
+// Pairs a thread of the cluster sweep: M / 2 over the block's threads, at
+// least 1.
+int sweep_per(int n, int cbits) {
+  const int m = n - cbits;
+  return m > GR_SWEEP_TB + 1 ? 1 << (m - GR_SWEEP_TB - 1) : 1;
+}
+
+// Groups of one staged operand chunk.
+int sweep_gc(int G, int K) {
+  const int gc = GR_OPS_BYTES / (4 * (2 * K + 7));
+  return G < gc ? G : (gc > 0 ? gc : 1);
+}
+
+size_t sweep_bytes(bool adj, int n, int cbits, int K, int G) {
+  return 4 * sweep_floats(adj ? 4 : 2, 1u << (n - cbits), sweep_per(n, cbits),
+                          adj, 1 << GR_SWEEP_TB, sweep_gc(G, K), K);
+}
+
+// Launch configuration of a cluster of C blocks of T threads (no cluster
+// attribute for C = 1) with `smem` bytes of dynamic shared memory, after
+// the function attributes it needs.
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  int init(const void* fn, int C, int T, size_t smem, cudaStream_t st) {
+    int e = (int)cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e) return e;
+    if (C > 8) {
+      e = (int)cudaFuncSetAttribute(
+          fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (e) return e;
+    }
+    cfg = cudaLaunchConfig_t{};
+    cfg.gridDim = dim3(C);
+    cfg.blockDim = dim3(T);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    return 0;
+  }
+};
+
+// The cluster sweep's instance for (f.adj, per, K): f.go<PER, KT, ADJ>()
+// with the term tile KT 2, or 1 for an odd K (as C8's bucket_dispatch).
+// A block of 2^GR_SWEEP_TB threads takes up to 2^(13 - GR_SWEEP_TB) pairs
+// a thread (A1's slice of 2^14 amplitudes; C7 half as many).
+constexpr int GR_PER_MAX = 1 << (13 - GR_SWEEP_TB);
+
+template <int PER, int KT, typename F>
+int adj_dispatch(const F& f) {
+  constexpr int PA = PER < GR_PER_MAX ? PER : GR_PER_MAX / 2;
+  if (!f.adj) return f.template go<PER, KT, false>();
+  return PER == PA ? f.template go<PA, KT, true>()
+                   : (int)cudaErrorInvalidValue;
+}
+
+template <int PER, typename F>
+int with_tile(int K, const F& f) {
+  return K % 2 == 0 ? adj_dispatch<PER, 2>(f) : adj_dispatch<PER, 1>(f);
+}
+
+template <int PER, typename F>
+int per_dispatch(int per, int K, const F& f) {
+  if constexpr (PER > GR_PER_MAX) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    if (per == PER) return with_tile<PER>(K, f);
+    return per_dispatch<2 * PER>(per, K, f);
+  }
+}
+
+struct SweepLaunch {
+  bool adj;
+  float *p_in, *l_in, *p_out, *l_out;
+  int n, cbits;
+  const int *x, *zp;
+  const float* s;
+  const int* kl;
+  const float* ang;
+  int G, K, fmode;
+  float* partials;
+  int nb;
+  cudaStream_t st;
+  template <int PER, int KT, bool ADJ>
+  int go() const {
+    auto fn = sweep_cluster_kernel<PER, KT, ADJ>;
+    ClusterLaunch cl;
+    int e = cl.init((const void*)fn, 1 << cbits, 1 << GR_SWEEP_TB,
+                    sweep_bytes(ADJ, n, cbits, K, G), st);
+    if (e) return e;
+    if (cbits == 0) cl.cfg.numAttrs = 0;
+    return (int)cudaLaunchKernelEx(&cl.cfg, fn, p_in, l_in, p_out, l_out, n,
+                                   cbits, x, zp, s, kl, ang, G, K, fmode,
+                                   sweep_gc(G, K), partials, nb);
+  }
+};
+
+// out[6]: registers, local bytes per thread (stack frame and spills),
+// dynamic shared memory bytes, threads per block, PER and max active
+// clusters of the instance `adj` runs at (n, cbits, K, G).
+struct SweepAttrs {
+  bool adj;
+  int n, cbits, K, G;
+  int* out;
+  template <int PER, int KT, bool ADJ>
+  int go() const {
+    const void* fn = (const void*)sweep_cluster_kernel<PER, KT, ADJ>;
+    cudaFuncAttributes a;
+    int e = (int)cudaFuncGetAttributes(&a, fn);
+    if (e) return e;
+    const size_t smem = sweep_bytes(ADJ, n, cbits, K, G);
+    ClusterLaunch cl;
+    e = cl.init(fn, 1 << cbits, 1 << GR_SWEEP_TB, smem, 0);
+    if (e) return e;
+    int clusters = 0;
+    e = (int)cudaOccupancyMaxActiveClusters(&clusters, fn, &cl.cfg);
+    if (e) return e;
+    out[0] = a.numRegs;
+    out[1] = (int)a.localSizeBytes;
+    out[2] = (int)smem;
+    out[3] = 1 << GR_SWEEP_TB;
+    out[4] = PER;
+    out[5] = clusters;
+    return 0;
+  }
+};
+
+// The G launches of the per-group route (one per group, in order for A1,
+// reversed for C7, then C7's reduction).
+template <bool ADJ>
+int group_launches(const SweepArgs* args, long long N, const int* x,
+                   const int* zp, const float* s, const int* kl, int G,
+                   int K, int fmode, int nb, cudaStream_t st) {
+  const unsigned blocks =
+      (unsigned)((N >> 1) / (GR_GRAPH_PER * GR_THREADS));
+  for (int i = 0; i < G; ++i) {
+    const int g = ADJ ? G - 1 - i : i;
+    if (K % 2 == 0)
+      sweep_group_kernel<2, ADJ><<<blocks, GR_THREADS, 0, st>>>(
+          args, (unsigned)N, x, zp, s, kl, g, K, fmode, nb);
+    else
+      sweep_group_kernel<1, ADJ><<<blocks, GR_THREADS, 0, st>>>(
+          args, (unsigned)N, x, zp, s, kl, g, K, fmode, nb);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (ADJ) sweep_reduce_kernel<<<G, OVQE_THREADS, 0, st>>>(args, nb);
+  return (int)cudaGetLastError();
+}
+
+// A cluster of 2^cbits blocks over 2^n amplitudes: at most 16 blocks, and
+// a block of a larger cluster holds at least a pair a thread (the slice's
+// top bit picks a pair's owner).
+bool sweep_n_ok(int n, int cbits) {
+  return n >= 1 && n <= 30 && cbits >= 0 && (1 << cbits) <= GR_MAX_CLUSTER &&
+         n - cbits >= (cbits ? GR_SWEEP_TB + 1 : 1);
+}
+
+int sweep_nb(long long N) { return N >= 256 ? (int)(N / 256) : 1; }
+
 }  // namespace
 
 extern "C" {
 
 int ovqe_block_threads(void) { return OVQE_THREADS; }
 
-int ovqe_rot_sweep(float* psi, long long N, const int* x, const int* z,
-                   const float* s, const float* angles, int G, int K,
-                   int fmode, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  const unsigned nb = blocks_for((unsigned)(N >> 1));
-  for (int g = 0; g < G; ++g) {
-    rot_group_kernel<<<nb, OVQE_THREADS, 0, st>>>(psi, (unsigned)N, x, z, s,
-                                                  angles, g, K, fmode);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  return 0;
+// A1 on one cluster of 2^cbits blocks: out = the groups
+// 0 .. G-1 applied to in, both (2, 2^n), 16-byte aligned.
+int ovqe_rot_sweep(const float* in, float* out, int n, int cbits,
+                   const int* x, const int* zp, const float* s,
+                   const int* kl, const float* ang, int G, int K, int fmode,
+                   void* stream) {
+  if (!sweep_n_ok(n, cbits) || G <= 0 || K <= 0)
+    return (int)cudaErrorInvalidValue;
+  const SweepLaunch L{false, (float*)in, nullptr, out, nullptr, n, cbits,
+                      x, zp, s, kl, ang, G, K, fmode, nullptr, 0,
+                      (cudaStream_t)stream};
+  return per_dispatch<1>(sweep_per(n, cbits), K, L);
 }
 
-int ovqe_adjoint_sweep(float* p, float* l, long long N, const int* x,
-                       const int* z, const float* s, const float* angles,
-                       int G, int K, int fmode, float* partials, int nb,
-                       float* gts, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  if ((unsigned)nb != blocks_for((unsigned)(N >> 1)))
+// C7 on one cluster: (p_out, l_out) = (p, lambda) un-rotated through the
+// groups G-1 .. 0, the group entries' partial sums in partials (G, nb),
+// nb = max(1, 2^n / 256), then gts = -2 (row sums) by row_reduce_kernel.
+int ovqe_adjoint_sweep(const float* p, const float* l, float* p_out,
+                       float* l_out, int n, int cbits, const int* x,
+                       const int* zp, const float* s, const int* kl,
+                       const float* ang, int G, int K, int fmode,
+                       float* partials, int nb, float* gts, void* stream) {
+  if (!sweep_n_ok(n, cbits) || G <= 0 || K <= 0 || nb != sweep_nb(1ll << n))
     return (int)cudaErrorInvalidValue;
-  for (int g = G - 1; g >= 0; --g) {
-    adjoint_group_kernel<<<nb, OVQE_THREADS, 0, st>>>(
-        p, l, (unsigned)N, x, z, s, angles, g, K, fmode, partials);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
+  const cudaStream_t st = (cudaStream_t)stream;
+  const SweepLaunch L{true, (float*)p, (float*)l, p_out, l_out, n, cbits,
+                      x, zp, s, kl, ang, G, K, fmode, partials, nb, st};
+  const int e = per_dispatch<1>(sweep_per(n, cbits), K, L);
+  if (e) return e;
   row_reduce_kernel<OVQE_THREADS, float>
       <<<G, OVQE_THREADS, 0, st>>>(partials, nb, -2.f, gts);
   return (int)cudaGetLastError();
+}
+
+// The per-group route of A1 (adj 0) or C7 (adj 1) on (x, zp, s, kl),
+// captured once into an executable graph (*exec); a replay reads the
+// call's pointers from args (a SweepArgs in device memory).  N / 2 must
+// be a multiple of 2^11 pairs.  The capture runs on a stream of its own
+// and executes nothing.
+int ovqe_sweep_group_graph(int adj, long long N, const int* x,
+                           const int* zp, const float* s, const int* kl,
+                           int G, int K, int fmode, int nb, const void* args,
+                           void** exec) {
+  if (N < 2 * GR_GRAPH_PER * GR_THREADS || N > (1ll << 30) || (N & (N - 1)) ||
+      G <= 0 || K <= 0 || (adj && nb != sweep_nb(N)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t cs;
+  int e = (int)cudaStreamCreateWithFlags(&cs, cudaStreamNonBlocking);
+  if (e) return e;
+  e = (int)cudaStreamBeginCapture(cs, cudaStreamCaptureModeThreadLocal);
+  if (!e) {
+    const SweepArgs* a = (const SweepArgs*)args;
+    const int el =
+        adj ? group_launches<true>(a, N, x, zp, s, kl, G, K, fmode, nb, cs)
+            : group_launches<false>(a, N, x, zp, s, kl, G, K, fmode, nb, cs);
+    cudaGraph_t graph = nullptr;
+    e = (int)cudaStreamEndCapture(cs, &graph);
+    if (!e && el) e = el;
+    if (!e)
+      e = (int)cudaGraphInstantiate((cudaGraphExec_t*)exec, graph, 0ull);
+    if (graph) cudaGraphDestroy(graph);
+  }
+  cudaStreamDestroy(cs);
+  return e;
+}
+
+// Write one call's SweepArgs (host memory, copied in stream order) to
+// args, then launch the graph on `stream`.
+int ovqe_sweep_group_replay(void* exec, void* args, const void* host_args,
+                            void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  int e = (int)cudaMemcpyAsync(args, host_args, sizeof(SweepArgs),
+                               cudaMemcpyHostToDevice, st);
+  if (e) return e;
+  return (int)cudaGraphLaunch((cudaGraphExec_t)exec, st);
+}
+
+int ovqe_grouped_graph_destroy(void* exec) {
+  return (int)cudaGraphExecDestroy((cudaGraphExec_t)exec);
+}
+
+// out[6] of the cluster sweep (adj 0: A1, 1: C7) at (n, cbits, K, G):
+// registers, local bytes per thread, dynamic shared memory, threads per
+// block, PER, max active clusters (0: the card cannot run it).
+int ovqe_sweep_attrs(int adj, int n, int cbits, int K, int G, int* out) {
+  if (!sweep_n_ok(n, cbits) || G <= 0 || K <= 0)
+    return (int)cudaErrorInvalidValue;
+  return per_dispatch<1>(sweep_per(n, cbits), K,
+                         SweepAttrs{adj != 0, n, cbits, K, G, out});
+}
+
+// out[4] of the per-group route's kernel (adj 0: A1, 1: C7) for this K:
+// registers, local (spill) bytes, static shared memory, resident blocks
+// per SM.
+int ovqe_sweep_group_attrs(int adj, int K, int* out) {
+  const void* fn =
+      adj ? (K % 2 == 0 ? (const void*)sweep_group_kernel<2, true>
+                        : (const void*)sweep_group_kernel<1, true>)
+          : (K % 2 == 0 ? (const void*)sweep_group_kernel<2, false>
+                        : (const void*)sweep_group_kernel<1, false>);
+  cudaFuncAttributes a;
+  int e = (int)cudaFuncGetAttributes(&a, fn);
+  if (e) return e;
+  int blocks = 0;
+  e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn,
+                                                         GR_THREADS, 0);
+  if (e) return e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = blocks;
+  return 0;
+}
+
+// The barrier floor: cluster_floor_kernel on 2^cbits blocks of the
+// sweep's threads with `smem` bytes of dynamic shared memory (the sweep's), G
+// steps with (dsmem) or without a distributed-shared-memory read each;
+// out (2^cbits,).
+int ovqe_cluster_floor(int G, int cbits, int dsmem, int smem, float* out,
+                       void* stream) {
+  if (cbits < 0 || (1 << cbits) > GR_MAX_CLUSTER || smem < 8 || G < 0)
+    return (int)cudaErrorInvalidValue;
+  ClusterLaunch cl;
+  int e = cl.init((const void*)cluster_floor_kernel, 1 << cbits,
+                  1 << GR_SWEEP_TB, (size_t)smem, (cudaStream_t)stream);
+  if (e) return e;
+  if (cbits == 0) cl.cfg.numAttrs = 0;
+  return (int)cudaLaunchKernelEx(&cl.cfg, cluster_floor_kernel, G, cbits,
+                                 dsmem, out);
 }
 
 int ovqe_ham_apply(const float* psi, float* out, long long N, const int* x,

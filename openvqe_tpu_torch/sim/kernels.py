@@ -35,24 +35,33 @@ libraries are bound with ``ctypes``.
 Wrapper rules: a tensor on the CPU goes to the plain PyTorch version
 (``sim/grouped.py``, ``sim/streaming.py``); a CUDA tensor goes to the
 kernel, or the wrapper raises.  There is no fallback.  Per-group operands
-are those of ``sim/convert.py``: x (G,) int32, z (G, K) int32,
-coefficients (G, K) float32, angles (G,) float32; bucketed operands are a
+are those of ``sim/convert.py``: for the H kernels x (G,) int32, z (G, K)
+int32, coefficients (G, K) float32; for the sweeps a
+``convert.SeqOperands`` with angles (G,) float32; bucketed operands are a
 ``streaming.BucketOperands`` with angles (B, gcap) float32; per-group
 streaming operands a ``streaming.GroupOperands`` with angles (G,)
 float32; pool-overlap rows are (G, 2) or (B, gcap, 2) float32 (re, im);
 state planes are (2, 2^n) float32, all contiguous and on one device.
 Outputs are allocated with ``torch.empty`` and the kernels run on the
 current stream.  ``LAUNCHES`` counts, per wrapper, the calls that launched
-the kernel.  ``rot_fused``, ``adjoint_fused`` and ``adjoint_stream``
-compute one field per pair and take only operands that carry the odd-Y
-certificate (``BucketOperands.odd_y``, ``GroupOperands.odd_y``), on either
-device: without it they raise ``ValueError``.  The kernels that stage
-states with 16-byte loads (``rot_fused``, ``adjoint_fused``,
-``ham_bucketed``, ``expect_bucketed``, ``expect_hoisted``) refuse a state
-on the card whose data is not 16-byte aligned.  ``sweep_attributes``,
-``bucket_attributes`` and ``adjoint_stream_attributes`` report how A3 /
-C9, B6 / D12 / D13 and C8 launch (registers, spills, shared memory,
-resident blocks per SM).
+the kernel.  ``rot_sweep`` and ``adjoint_sweep`` (A1, C7) run one launch
+per sweep, the state held in the shared memory of one thread-block cluster
+(``cluster_size`` picks its blocks from n; a cluster the card refuses
+raises); where one cluster cannot hold the states (A1 at n >= 19, C7 at
+n >= 18) their per-group kernels replay one CUDA graph per operand set.
+``rot_sweep``, ``adjoint_sweep``, ``rot_fused``, ``adjoint_fused`` and
+``adjoint_stream`` compute one field per pair and take only operands that
+carry the odd-Y certificate (``SeqOperands.odd_y``,
+``BucketOperands.odd_y``, ``GroupOperands.odd_y``), on either device:
+without it they raise ``ValueError``.  The kernels that stage states with
+16-byte loads (``rot_sweep`` and ``adjoint_sweep`` on a cluster,
+``rot_fused``, ``adjoint_fused``, ``ham_bucketed``, ``expect_bucketed``,
+``expect_hoisted``) refuse a state on the card whose data is not 16-byte
+aligned.  ``grouped_attributes``, ``sweep_attributes``,
+``bucket_attributes`` and ``adjoint_stream_attributes`` report how A1 /
+C7, A3 / C9, B6 / D12 / D13 and C8 launch (registers, spills, shared
+memory, resident blocks per SM or clusters); ``cluster_floor`` runs the
+barrier floor of the cluster sweeps.
 """
 
 from __future__ import annotations
@@ -67,6 +76,7 @@ from typing import Dict, Optional
 
 import torch
 
+from . import convert
 from . import grouped as gr
 from . import streaming as st
 
@@ -149,8 +159,14 @@ def build() -> Dict[str, Path]:
 
 _SIGNATURES = {
     "grouped": {
-        "ovqe_rot_sweep": "PLPPPPIIIP",
-        "ovqe_adjoint_sweep": "PPLPPPPIIIPIPP",
+        "ovqe_rot_sweep": "PPIIPPPPPIIIP",
+        "ovqe_adjoint_sweep": "PPPPIIPPPPPIIIPIPP",
+        "ovqe_sweep_group_graph": "ILPPPPIIIIPP",
+        "ovqe_sweep_group_replay": "PPPP",
+        "ovqe_grouped_graph_destroy": "P",
+        "ovqe_sweep_attrs": "IIIIIP",
+        "ovqe_sweep_group_attrs": "IIP",
+        "ovqe_cluster_floor": "IIIIPP",
         "ovqe_ham_apply": "PPLPPPPIIP",
         "ovqe_expectation": "PLPPPPIIPIPP",
         "ovqe_block_threads": "",
@@ -256,42 +272,221 @@ def _fmode(fmode: int) -> int:
     return fmode
 
 
-def rot_sweep(psi, angles, x, z, s, fmode: int):
-    """prod_g Rot(B_g) psi, groups in order; B_g(j) = angles[g] F_g(j)."""
-    if psi.device.type == "cpu":
-        return gr.rot_sweep_ref(psi, angles, x, z, s, fmode)
+# ------------------------------------------- per-group route (n <= 19)
+
+CLUSTER_AT_16 = {"rot_sweep": 16, "adjoint_sweep": 16}  # C at n = 16
+_SWEEP_PLANES = {"rot_sweep": 2, "adjoint_sweep": 4}    # psi; p and lambda
+SLICE_BYTES = 1 << 17   # the most state one block of a cluster holds
+MAX_CLUSTER = 16        # GR_MAX_CLUSTER: the largest cluster the card runs
+
+
+def cluster_size(name: str, n: int) -> int:
+    """Blocks of the thread-block cluster that holds the states of A1
+    (``rot_sweep``) or C7 (``adjoint_sweep``) at 2^n amplitudes: 1 up to
+    n = 13; above, ``CLUSTER_AT_16[name]`` scaled by 2^(n - 16), at least
+    enough blocks that each holds at most ``SLICE_BYTES`` of the states;
+    0 where 16 blocks cannot hold them (A1 at n >= 19, C7 at n >= 18: the
+    per-group kernels, replayed as one CUDA graph)."""
+    if name not in _SWEEP_PLANES:
+        raise ValueError(f"not a per-group sweep: {name}")
+    if n <= 13:
+        return 1
+    fit = max(1, (_SWEEP_PLANES[name] * 4 << n) // SLICE_BYTES)
+    if fit > MAX_CLUSTER:
+        return 0
+    c = CLUSTER_AT_16[name]
+    c = c << (n - 16) if n >= 16 else c >> (16 - n)
+    return min(MAX_CLUSTER, max(fit, c))
+
+
+def _seq(psi: torch.Tensor, so: convert.SeqOperands) -> int:
+    """Check a rotation operand set against the state; return N."""
     N = _state("psi", psi)
-    G, K = _groups(psi, x, z, (s,), angles)
-    lib = _load()
+    if N != 1 << so.n:
+        raise ValueError(f"state of 2^{N.bit_length() - 1} amplitudes for "
+                         f"groups built for n = {so.n}")
+    G, Kc = so.G, so.K
+    _check("x", so.x, torch.int32, (G,), psi.device)
+    _check("z_pair", so.z_pair, torch.int32, (G, Kc), psi.device)
+    _check("s", so.s, torch.float32, (G, Kc), psi.device)
+    _check("k_live", so.k_live, torch.int32, (G,), psi.device)
+    return N
+
+
+_CLUSTERS: Dict[tuple, int] = {}   # max active clusters per instance
+
+
+def _cluster_fits(name: str, so: convert.SeqOperands, C: int) -> None:
+    """Raise unless the card can run ``name``'s cluster of C blocks on
+    ``so`` (cudaOccupancyMaxActiveClusters, asked once per instance)."""
+    key = (name, torch.cuda.current_device(), so.n, C, so.K, so.G)
+    if key not in _CLUSTERS:
+        _CLUSTERS[key] = _sweep_attrs(name, so, C)["max_active_clusters"]
+    if _CLUSTERS[key] < 1:
+        raise RuntimeError(f"{name}: the card cannot run a cluster of {C} "
+                           f"blocks at n = {so.n}")
+
+
+def _rot_cluster(psi, angles, so: convert.SeqOperands, fmode: int, C: int):
+    """A1 in one launch on a cluster of C blocks (``cluster_size``'s)."""
+    _aligned(psi)
+    _cluster_fits("rot_sweep", so, C)
     out = torch.empty_like(psi)
-    out.copy_(psi)
-    if G:
-        _launch("rot_sweep", lib.ovqe_rot_sweep, out, N, x, z, s, angles,
-                G, K, _fmode(fmode), _stream(psi))
+    _launch("rot_sweep", _load().ovqe_rot_sweep, psi, out, so.n,
+            C.bit_length() - 1, so.x, so.z_pair, so.s, so.k_live, angles,
+            so.G, so.K, fmode, _stream(psi))
     return out
 
 
-def adjoint_sweep(p, lam, angles, x, z, s, fmode: int):
-    """Reversible adjoint over the groups in reverse order; returns
-    (p_prev, lam_prev, gts) with gts (G,) the per-group gradient entries in
-    forward group order."""
-    if p.device.type == "cpu":
-        return gr.adjoint_sweep_ref(p, lam, angles, x, z, s, fmode)
-    N = _state("p", p)
-    _check("lam", lam, torch.float32, (2, N), p.device)
-    G, K = _groups(p, x, z, (s,), angles)
-    lib = _load()
+def _adjoint_cluster(p, lam, angles, so: convert.SeqOperands, fmode: int,
+                     C: int):
+    """C7 in one launch on a cluster of C blocks, then its row sums."""
+    _aligned(p, lam)
+    _cluster_fits("adjoint_sweep", so, C)
+    N = 1 << so.n
     p_out, l_out = torch.empty_like(p), torch.empty_like(lam)
-    p_out.copy_(p)
-    l_out.copy_(lam)
-    gts = torch.empty(G, dtype=torch.float32, device=p.device)
-    if G:
-        nb = -(-(N // 2) // _threads)
-        partials = torch.empty((G, nb), dtype=torch.float32, device=p.device)
-        _launch("adjoint_sweep", lib.ovqe_adjoint_sweep, p_out, l_out, N,
-                x, z, s, angles, G, K, _fmode(fmode), partials, nb, gts,
-                _stream(p))
+    nb = max(1, N // 256)
+    partials = torch.empty((so.G, nb), dtype=torch.float32, device=p.device)
+    gts = torch.empty(so.G, dtype=torch.float32, device=p.device)
+    _launch("adjoint_sweep", _load().ovqe_adjoint_sweep, p, lam, p_out,
+            l_out, so.n, C.bit_length() - 1, so.x, so.z_pair, so.s,
+            so.k_live, angles, so.G, so.K, fmode, partials, nb, gts,
+            _stream(p))
     return p_out, l_out, gts
+
+
+def _sweep_graph(name: str, so: convert.SeqOperands, N: int, fmode: int,
+                 nb: int, stream: int) -> "_Graph":
+    """The per-group route's graph of ``so`` for this sweep, state size,
+    field mode and stream, captured on first use and kept in
+    ``so.graphs`` (keyed by so's device pointers too, as C8's)."""
+    key = (name, N, fmode, stream, so.x.data_ptr(), so.z_pair.data_ptr(),
+           so.s.data_ptr(), so.k_live.data_ptr())
+    if key not in so.graphs:
+        so.graphs[key] = _Graph(
+            "grouped", "ovqe_sweep_group_graph", "ovqe_grouped_graph_destroy",
+            so.x.device, int(name == "adjoint_sweep"), N, so.x.data_ptr(),
+            so.z_pair.data_ptr(), so.s.data_ptr(), so.k_live.data_ptr(),
+            so.G, so.K, fmode, nb)
+    return so.graphs[key]
+
+
+def _replay(name: str, graph: "_Graph", ptrs: tuple, dev,
+            stream: int) -> None:
+    """Fill a per-group route graph's five pointers in stream order and
+    launch it."""
+    host = (ctypes.c_void_p * 5)(*ptrs)
+    with torch.cuda.device(dev):
+        _launch(name, _load().ovqe_sweep_group_replay, graph.exec,
+                graph.args, ctypes.addressof(host), stream)
+
+
+def rot_sweep(psi, angles, so: convert.SeqOperands, fmode: int):
+    """prod_g Rot(B_g) psi, groups of ``so`` in order; B_g(j) = angles[g]
+    F_g(j).  On the card one launch walks every group with the state held
+    in one thread-block cluster (``cluster_size``; the state 16-byte
+    aligned); beyond one cluster the per-group kernels replay one CUDA graph
+    per operand set (one host thread at a time per ``so``, as C8's).
+    ``so`` must carry the odd-Y certificate (``so.odd_y``) on either
+    device."""
+    _odd_y(so)
+    if psi.device.type == "cpu":
+        return gr.rot_sweep_ref(psi, angles, so.x, so.z, so.s, fmode)
+    N = _seq(psi, so)
+    _check("angles", angles, torch.float32, (so.G,), psi.device)
+    fmode = _fmode(fmode)
+    if not so.G:
+        return psi.clone()
+    C = cluster_size("rot_sweep", so.n)
+    if C:
+        return _rot_cluster(psi, angles, so, fmode, C)
+    out, stream = psi.clone(), _stream(psi)
+    graph = _sweep_graph("rot_sweep", so, N, fmode, 0, stream)
+    _replay("rot_sweep", graph, (out.data_ptr(), 0, angles.data_ptr(), 0, 0),
+            psi.device, stream)
+    return out
+
+
+def adjoint_sweep(p, lam, angles, so: convert.SeqOperands, fmode: int):
+    """Reversible adjoint over the groups of ``so`` in reverse order;
+    returns (p_prev, lam_prev, gts) with gts (G,) the per-group gradient
+    entries in forward group order.  Routes as ``rot_sweep`` (one cluster
+    launch and its row sums, or one graph beyond one cluster); ``so`` must
+    carry the odd-Y certificate on either device."""
+    _odd_y(so)
+    if p.device.type == "cpu":
+        return gr.adjoint_sweep_ref(p, lam, angles, so.x, so.z, so.s, fmode)
+    N = _seq(p, so)
+    _check("lam", lam, torch.float32, (2, N), p.device)
+    _check("angles", angles, torch.float32, (so.G,), p.device)
+    fmode = _fmode(fmode)
+    if not so.G:
+        return p.clone(), lam.clone(), torch.empty(0, device=p.device)
+    C = cluster_size("adjoint_sweep", so.n)
+    if C:
+        return _adjoint_cluster(p, lam, angles, so, fmode, C)
+    p_out, l_out = p.clone(), lam.clone()
+    nb = N // 256
+    partials = torch.empty((so.G, nb), dtype=torch.float32, device=p.device)
+    gts = torch.empty(so.G, dtype=torch.float32, device=p.device)
+    stream = _stream(p)
+    graph = _sweep_graph("adjoint_sweep", so, N, fmode, nb, stream)
+    _replay("adjoint_sweep", graph,
+            (p_out.data_ptr(), l_out.data_ptr(), angles.data_ptr(),
+             partials.data_ptr(), gts.data_ptr()), p.device, stream)
+    return p_out, l_out, gts
+
+
+def _sweep_attrs(name: str, so: convert.SeqOperands, C: int
+                 ) -> Dict[str, int]:
+    out = (ctypes.c_int * 6)()
+    rc = _load().ovqe_sweep_attrs(int(name == "adjoint_sweep"), so.n,
+                                  C.bit_length() - 1, so.K, so.G,
+                                  ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"grouped_attributes({name}): CUDA error {rc}")
+    keys = ("registers", "local_bytes", "smem_bytes", "threads", "per",
+            "max_active_clusters")
+    return {"route": "cluster", "cluster": C, **dict(zip(keys, list(out)))}
+
+
+def grouped_attributes(name: str, so: convert.SeqOperands,
+                       C: Optional[int] = None) -> Dict[str, object]:
+    """How ``rot_sweep`` or ``adjoint_sweep`` launches on ``so``: the route
+    (``cluster`` or ``graph``), the cluster's blocks C (``cluster_size``'s
+    unless given; 0 on the graph route), registers and local bytes per
+    thread (the stack frame of sincosf's slow path and any spill), shared
+    memory per block (dynamic on the cluster route, static on the graph
+    route), threads per block, pairs per thread, and the card's max active
+    clusters of that shape (cluster route) or its resident blocks per SM
+    (graph route)."""
+    C = cluster_size(name, so.n) if C is None else C
+    if C:
+        return _sweep_attrs(name, so, C)
+    out = (ctypes.c_int * 4)()
+    rc = _load().ovqe_sweep_group_attrs(int(name == "adjoint_sweep"), so.K,
+                                        ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"grouped_attributes({name}): CUDA error {rc}")
+    return {"route": "graph", "cluster": 0, "registers": out[0],
+            "local_bytes": out[1], "smem_bytes": out[2], "threads": 256,
+            "per": 8, "blocks_per_sm": out[3]}
+
+
+def cluster_floor(G: int, C: int, smem_bytes: int, device,
+                  dsmem: bool = True) -> torch.Tensor:
+    """One launch of the barrier floor of the cluster sweeps: a cluster of
+    C blocks of the sweeps' threads with ``smem_bytes`` of shared memory
+    each doing G dependent steps of one cluster barrier, each with one
+    dependent distributed-shared-memory read (``dsmem``) or none.  Returns
+    its (C,) output (G in every entry).  Not a ported kernel: it is not
+    counted in ``LAUNCHES``."""
+    out = torch.empty(C, dtype=torch.float32, device=device)
+    rc = _load().ovqe_cluster_floor(G, C.bit_length() - 1, int(dsmem),
+                                    smem_bytes, out.data_ptr(), _stream(out))
+    if rc != 0:
+        raise RuntimeError(f"cluster_floor: CUDA error {rc}")
+    return out
 
 
 def ham_apply(psi, x, z, a_re, a_im):
@@ -355,22 +550,23 @@ def _in_place(psi, out, inplace: bool):
 
 
 def _odd_y(ops) -> None:
-    """``ops`` (``BucketOperands`` or ``GroupOperands``) must carry the
-    odd-Y certificate."""
+    """``ops`` (``BucketOperands``, ``GroupOperands`` or ``SeqOperands``)
+    must carry the odd-Y certificate."""
     if not ops.odd_y:
         raise ValueError(
             "rotation operands without the odd-Y certificate "
-            "(streaming.Buckets.odd_y, GroupOperands.odd_y): the kernel "
-            "computes one field per pair and needs F(j ^ x) = -F(j)")
+            "(streaming.Buckets.odd_y, GroupOperands.odd_y, "
+            "SeqOperands.odd_y): the kernel computes one field per pair and "
+            "needs F(j ^ x) = -F(j)")
 
 
 def _aligned(*states: torch.Tensor) -> None:
-    """The fused sweeps and the bucketed H kernels stage states with
-    16-byte (float4) loads."""
+    """The sweeps and the bucketed H kernels stage states with 16-byte
+    (float4) loads."""
     for t in states:
         if t.data_ptr() % 16:
-            raise ValueError("the bucketed kernels take states whose data "
-                             "is 16-byte aligned")
+            raise ValueError("the kernel takes states whose data is 16-byte "
+                             "aligned")
 
 
 def rot_fused(psi, ang, bo: st.BucketOperands, fmode: int,
@@ -582,28 +778,29 @@ def stream_per(N: int) -> int:
 
 
 class _Graph:
-    """An executable CUDA graph of C8's launches on one operand set and the
-    device buffer its kernels read each call's five pointers from
-    (``AdjointArgs`` in ``csrc/stream_group_kernels.cu``)."""
+    """An executable CUDA graph of one operand set's launches, captured by
+    the C entry point ``capture`` of library ``lib``, and the device buffer
+    its kernels read each call's five pointers from (``AdjointArgs`` in
+    ``csrc/stream_group_kernels.cu``, ``SweepArgs`` in
+    ``csrc/grouped_kernels.cu``); ``destroy`` frees it."""
 
-    def __init__(self, go: st.GroupOperands, N: int, per: int, fmode: int,
-                 nb: int):
-        with torch.cuda.device(go.x.device):
-            self.args = torch.empty(5, dtype=torch.int64, device=go.x.device)
+    def __init__(self, lib: str, capture: str, destroy: str, device,
+                 *args):
+        self.lib, self.destroy = lib, destroy
+        with torch.cuda.device(device):
+            self.args = torch.empty(5, dtype=torch.int64, device=device)
             exec_ = ctypes.c_void_p()
-            rc = _load("stream_group").ovqe_adjoint_stream_graph(
-                N, go.x.data_ptr(), go.z_pair.data_ptr(), go.coef.data_ptr(),
-                go.k_live.data_ptr(), go.G, go.K, fmode, per, nb,
-                self.args.data_ptr(), ctypes.addressof(exec_))
+            rc = getattr(_load(lib), capture)(
+                *args, self.args.data_ptr(), ctypes.addressof(exec_))
         if rc != 0:
-            raise RuntimeError(f"adjoint_stream: CUDA error {rc} while "
-                               f"capturing its graph")
+            raise RuntimeError(f"{capture}: CUDA error {rc} while capturing "
+                               f"a graph")
         self.exec = exec_.value
 
     def __del__(self):
-        lib = _libs.get("stream_group")
+        lib = _libs.get(getattr(self, "lib", None))
         if lib is not None and getattr(self, "exec", None):
-            lib.ovqe_graph_destroy(self.exec)
+            getattr(lib, self.destroy)(self.exec)
 
 
 def _adjoint_graph(go: st.GroupOperands, N: int, per: int, fmode: int,
@@ -617,7 +814,11 @@ def _adjoint_graph(go: st.GroupOperands, N: int, per: int, fmode: int,
     key = (N, per, fmode, stream, go.x.data_ptr(), go.z_pair.data_ptr(),
            go.coef.data_ptr(), go.k_live.data_ptr())
     if key not in go.graphs:
-        go.graphs[key] = _Graph(go, N, per, fmode, nb)
+        go.graphs[key] = _Graph(
+            "stream_group", "ovqe_adjoint_stream_graph", "ovqe_graph_destroy",
+            go.x.device, N, go.x.data_ptr(), go.z_pair.data_ptr(),
+            go.coef.data_ptr(), go.k_live.data_ptr(), go.G, go.K, fmode, per,
+            nb)
     return go.graphs[key]
 
 

@@ -6,7 +6,9 @@ forward / scipy_fun_jac``, ``VQEObjective.ham_apply / expectation``).
 Three routes, chosen per objective as the JAX package chooses them:
 
 * per-group (n <= 19): the four wrappers of ``sim/kernels.py`` over the
-  operands of ``sim/convert.py``, one launch per group for the sweeps;
+  operands of ``sim/convert.py``; each sweep is one launch with the state
+  held in one thread-block cluster (``kernels.cluster_size``), or one
+  CUDA graph of per-group launches where one cluster cannot hold it;
 * streaming (n > 19, the port of ``build_streaming_energy_fn``): the
   bucketed wrappers over the operands of ``sim/streaming.py`` (rotation
   runs, K-class Hamiltonian buckets with the diagonal folded in as x = 0
@@ -201,7 +203,8 @@ def stream_policy(n: int, device) -> bool:
 
 
 class BoundAnsatz:
-    """Per-group route: one rotation / adjoint launch per group."""
+    """Per-group route: one rotation and one adjoint sweep per call, each
+    a single cluster launch (a CUDA graph beyond one cluster)."""
 
     def __init__(self, objective: VQEObjective, ops: convert.SeqOperands,
                  hf_init: int):
@@ -223,13 +226,12 @@ class BoundAnsatz:
     def forward(self, theta) -> torch.Tensor:
         """Final statevector planes (2, 2^n) on the objective's device."""
         o = self._ops
-        return K.rot_sweep(self._psi0, self._angles(theta), o.x, o.z, o.s,
-                           o.fmode)
+        return K.rot_sweep(self._psi0, self._angles(theta), o, o.fmode)
 
     def _grad(self, theta, psi, lam) -> np.ndarray:
         o = self._ops
-        _, _, gts = K.adjoint_sweep(psi, lam, self._angles(theta), o.x, o.z,
-                                    o.s, o.fmode)
+        _, _, gts = K.adjoint_sweep(psi, lam, self._angles(theta), o,
+                                    o.fmode)
         return gr.segment_grad(gts, o.op, int(np.asarray(theta).size)).numpy()
 
     def energy(self, theta) -> float:

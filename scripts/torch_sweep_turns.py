@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Two checkouts of the port on one card, in turns: the fused sweeps (A3
+"""Two checkouts of the port on one card, in turns: the per-group sweeps
+(A1 ``rot_sweep``, C7 ``adjoint_sweep``), the fused sweeps (A3
 ``rot_fused``, C9 ``adjoint_fused``), the bucketed H-apply and
 expectation (B6 ``ham_bucketed``, D12 ``expect_bucketed``), the hoisted
 expectation (D13 ``expect_hoisted``), the per-group streaming adjoint (C8
@@ -14,6 +15,17 @@ The turns run parent, change, change, parent; in each a child process
 (at most 900 s) measures, with that tree's modules and kernels (built
 into the tree's own ``build/``):
 
+* A1 and C7 at H8's shapes (the cluster ansatz's 252 groups and the
+  random state and angles of ``chip_smoke.py`` phase 2; CUDA events over
+  50 calls after 3 warm-ups), with SHA-256s of A1's psi and of C7's p,
+  lambda and entries in field modes 0, 1 and 2, and of both on the three
+  synthetic generator families of phase 2 (field modes 0, 1, 2; weight
+  0.3 gives fields off the integers in mode 0); the H8
+  ``energy_and_grad`` of both ansatze at the reference theta (host clock,
+  median of 20 calls; the device busy share over 10 calls under the
+  profiler) with its energy and gradient hash; and H8's
+  ``VQE.algorithm("ucc", ...).execute()`` (host clock) with its energies,
+  ``len_op`` and ``CNOT``;
 * A3 and C9 at H10's shapes (the UCCSD runs of ``chip_smoke.py`` phase 5
   at theta1), B6 over both K classes of H10's H and each class alone, D12
   with ``herm`` over both classes, D13 over the hoisted off-diagonal
@@ -69,6 +81,106 @@ def sha256(a) -> str:
                           .tobytes()).hexdigest()
 
 
+def sweep_calls(K):
+    """A1 and C7 on a ``SeqOperands``, whichever signature the tree's
+    wrappers have (before the cluster sweeps they took its x, z and s)."""
+    import inspect
+    if "so" in inspect.signature(K.rot_sweep).parameters:
+        return K.rot_sweep, K.adjoint_sweep
+    return (lambda psi, ang, so, fm: K.rot_sweep(psi, ang, so.x, so.z, so.s,
+                                                 fm),
+            lambda p, lam, ang, so, fm: K.adjoint_sweep(p, lam, ang, so.x,
+                                                        so.z, so.s, fm))
+
+
+def busy_share(b, theta, calls=10):
+    """(wall ms, device busy ms) per ``energy_and_grad`` under the
+    profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    b.energy_and_grad(theta)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(calls):
+            b.energy_and_grad(theta)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    dev_us = sum(getattr(e, "self_device_time_total", 0)
+                 for e in prof.key_averages())
+    return 1e3 * wall / calls, 1e-3 * dev_us / calls
+
+
+def measure_h8(cs, tree: Path, out: dict) -> None:
+    """The per-group route at H8 (see the module docstring)."""
+    import numpy as np
+    import torch
+    from openvqe_tpu_torch.sim import kernels as K
+    from openvqe_tpu_torch.sim.objective import VQEObjective
+    from openvqe_tpu_torch.vqe import VQE
+    with contextlib.redirect_stdout(io.StringIO()):
+        ham_sp, a1, a2, hf, _ = cs.h8_problem()
+    ref = json.loads((tree / "tests" / "torch_h8_reference.json").read_text())
+    theta = np.asarray(ref["theta"])
+    dev = torch.device("cuda")
+    obj = VQEObjective(ham_sp, device=dev, dtype=torch.float32)
+    bounds = {"cluster": obj.bind(a1, hf), "pool": obj.bind(a2, hf)}
+    b = bounds["cluster"]
+    so = b._ops
+    ang = b._angles(np.random.default_rng(7).normal(scale=0.3, size=len(a2)))
+    psi = cs.rand_state(16, 11, dev)
+    lam = K.ham_apply(psi, *obj.hops.args())
+    rot, adj = sweep_calls(K)
+    out["a1_ms"] = cs.cuda_ms(lambda: rot(psi, ang, so, so.fmode), reps=50)
+    out["c7_ms"] = cs.cuda_ms(lambda: adj(psi, lam, ang, so, so.fmode),
+                              reps=50)
+    for fm in (0, 1, 2):
+        a = rot(psi, ang, so, fm)
+        p, l, g = adj(a, lam, ang, so, fm)
+        out[f"a1_fmode{fm}_sha256"] = sha256(a)
+        out[f"c7_fmode{fm}_state_sha256"] = sha256(torch.cat([p, l]))
+        out[f"c7_fmode{fm}_grad_sha256"] = sha256(g)
+    # the synthetic generators of chip_smoke.py phase 2, one family per
+    # field mode, weight 0.3 (fmode 0) giving non-integer fields
+    ham, fam = cs.synthetic_problem()
+    sobj = VQEObjective(ham, n=16, device=dev, dtype=torch.float32)
+    slam = K.ham_apply(psi, *sobj.hops.args())
+    for fm, gens in fam.items():
+        sb = sobj.bind(gens, 0)
+        sang = sb._angles(np.random.default_rng(5).normal(scale=0.5,
+                                                          size=len(gens)))
+        a = rot(psi, sang, sb._ops, fm)
+        p, l, g = adj(a, slam, sang, sb._ops, fm)
+        out[f"synthetic_fmode{fm}_sha256"] = sha256(
+            torch.cat([a, p, l, g.reshape(1, -1).expand(2, -1)], dim=1))
+    for name, ba in bounds.items():
+        ba.energy_and_grad(theta)
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(20):
+            t = time.perf_counter()
+            e, g = ba.energy_and_grad(theta)
+            ts.append(time.perf_counter() - t)
+        out[f"h8_{name}_energy_and_grad_ms"] = 1e3 * median(ts)
+        out[f"h8_{name}_energy"] = e
+        out[f"h8_{name}_grad_sha256"] = sha256(g)
+        wall, busy = busy_share(ba, theta)
+        out[f"h8_{name}_profiled_ms"] = wall
+        out[f"h8_{name}_busy_ms"] = busy
+        out[f"h8_{name}_busy_share"] = busy / wall
+    torch.cuda.synchronize()
+    t = time.time()
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, res = VQE.algorithm("ucc", "H8", "sUPCCGSD", "JW", False,
+                               {"device": "cuda"}).execute()
+    torch.cuda.synchronize()
+    out["h8_execute_s"] = time.time() - t
+    out["h8_execute"] = [res[k] for k in (
+        "energies1_substracted_from_FCI", "energies2_substracted_from_FCI",
+        "len_op1", "len_op2", "CNOT1", "CNOT2")]
+
+
 def measure(tree: Path, h16: str, quick: bool) -> dict:
     sys.path.insert(0, str(tree))
     spec = importlib.util.spec_from_file_location("tree_chip_smoke",
@@ -85,6 +197,7 @@ def measure(tree: Path, h16: str, quick: bool) -> dict:
     K.build()
     K._load()
     out = {"tree": str(tree), "card": cs.card_line()}
+    measure_h8(cs, tree, out)
     ref10 = json.loads((tree / "tests" / "torch_h10_reference.json"
                         ).read_text())
     ref_adapt = json.loads((tree / "tests" / "torch_adapt_reference.json"
@@ -188,18 +301,27 @@ def measure(tree: Path, h16: str, quick: bool) -> dict:
 ORDER = (0, 1, 1, 0)    # the turns: indices into --trees
 CHILD_TIMEOUT_S = 900.0
 
-METRICS = ("a3_ms", "c9_ms", "b6_ms", "b6_k8_ms", "b6_k64_ms", "d12_herm_ms",
-           "d13_h10_ms", "c8_ms", "h10_energy_and_grad_ms",
-           "h10_fuse0_energy_and_grad_ms", "h10_adapt_s", "h16_sweep_s",
-           "h16_expectation_s", "h16_energy_s", "h16_hoist_expectation_s",
-           "h16_hoist_energy_s")
-VALUES = ("d13_h10_value", "h10_energy_theta0", "h10_energy_theta1",
-          "h10_fuse0_energy_theta0", "h10_fuse0_energy_theta1", "h16_energy",
-          "h16_hoist_energy")
-SAME = ("h10_grad_theta0_sha256", "h10_grad_theta1_sha256",
-        "h10_fuse0_grad_theta0_sha256", "h10_fuse0_grad_theta1_sha256",
-        "c8_theta1_state_sha256", "c8_theta1_grad_sha256",
-        "h10_adapt_indices", "h10_adapt_energies")
+METRICS = ("a1_ms", "c7_ms", "h8_cluster_energy_and_grad_ms",
+           "h8_pool_energy_and_grad_ms", "h8_cluster_profiled_ms",
+           "h8_cluster_busy_ms", "h8_cluster_busy_share",
+           "h8_pool_profiled_ms", "h8_pool_busy_ms", "h8_pool_busy_share",
+           "h8_execute_s", "a3_ms", "c9_ms", "b6_ms", "b6_k8_ms",
+           "b6_k64_ms", "d12_herm_ms", "d13_h10_ms", "c8_ms",
+           "h10_energy_and_grad_ms", "h10_fuse0_energy_and_grad_ms",
+           "h10_adapt_s", "h16_sweep_s", "h16_expectation_s", "h16_energy_s",
+           "h16_hoist_expectation_s", "h16_hoist_energy_s")
+VALUES = ("h8_cluster_energy", "h8_pool_energy", "d13_h10_value",
+          "h10_energy_theta0", "h10_energy_theta1", "h10_fuse0_energy_theta0",
+          "h10_fuse0_energy_theta1", "h16_energy", "h16_hoist_energy")
+SAME = tuple(f"{k}_fmode{f}_{h}" for f in (0, 1, 2) for k, h in (
+    ("a1", "sha256"), ("c7", "state_sha256"), ("c7", "grad_sha256"))) + (
+    "synthetic_fmode0_sha256", "synthetic_fmode1_sha256",
+    "synthetic_fmode2_sha256", "h8_cluster_grad_sha256",
+    "h8_pool_grad_sha256", "h8_execute",
+    "h10_grad_theta0_sha256", "h10_grad_theta1_sha256",
+    "h10_fuse0_grad_theta0_sha256", "h10_fuse0_grad_theta1_sha256",
+    "c8_theta1_state_sha256", "c8_theta1_grad_sha256",
+    "h10_adapt_indices", "h10_adapt_energies")
 
 
 def main() -> int:

@@ -275,10 +275,10 @@ def test_wrappers_on_cpu_run_the_plain_versions(h4):
     psi = torch.as_tensor(psi0)
     ang = torch.as_tensor(-theta[ops.op])
     before = dict(K.LAUNCHES)
-    a = K.rot_sweep(psi, ang, ops.x, ops.z, ops.s, ops.fmode)
+    a = K.rot_sweep(psi, ang, ops, ops.fmode)
     b = tgr.rot_sweep_ref(psi, ang, ops.x, ops.z, ops.s, ops.fmode)
     assert torch.equal(a, b)
-    p, l, gts = K.adjoint_sweep(a, a, ang, ops.x, ops.z, ops.s, ops.fmode)
+    p, l, gts = K.adjoint_sweep(a, a, ang, ops, ops.fmode)
     assert gts.shape == (len(ops.x),)
     np.testing.assert_allclose(p.numpy(), psi0, atol=1e-12)
     assert K.LAUNCHES == before      # no kernel ran

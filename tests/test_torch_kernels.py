@@ -1,6 +1,8 @@
 """The fifteen CUDA kernels of openvqe_tpu_torch/sim/kernels.py against
-their plain PyTorch versions, on the card: the four per-group kernels, the
-four bucketed (streaming) ones with the fused sweeps at every compile-time
+their plain PyTorch versions, on the card: the four per-group kernels (the
+sweeps A1 and C7 at every cluster size, on the graph route beyond one
+cluster, and across cluster sizes bit for bit), the four bucketed
+(streaming) ones with the fused sweeps at every compile-time
 K and the odd-Y refusal, the bucketed H-apply and expectation at every
 compiled term tile (real and complex, herm off and on), the hoisted
 expectation at every compiled PER and term tile, the four per-group
@@ -23,6 +25,7 @@ from openvqe_tpu_torch.sim import kernels as K
 from openvqe_tpu_torch.sim import streaming as st
 from openvqe_tpu_torch.sim.compile import compile_op_sequence
 from openvqe_tpu_torch.sim.objective import StreamBoundAnsatz, VQEObjective
+from test_torch_grouped_fields import odd_y_seq
 from test_torch_stream_group_fields import odd_y_groups
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -88,7 +91,7 @@ def test_kernels_match_plain_versions(dev, fmode):
     ang = b._angles(np.random.default_rng(1).normal(size=len(gens)))
     psi = _state(dev, 2)
     counts = dict(K.LAUNCHES)
-    a = K.rot_sweep(psi, ang, o.x, o.z, o.s, o.fmode)
+    a = K.rot_sweep(psi, ang, o, o.fmode)
     assert float((a - gr.rot_sweep_ref(psi, ang, o.x, o.z, o.s,
                                        o.fmode)).abs().max()) <= TOL
     lam = K.ham_apply(a, *h.args())
@@ -96,7 +99,7 @@ def test_kernels_match_plain_versions(dev, fmode):
     e = float(K.expectation(a, *h.args()))
     e_ref = float(gr.expectation_ref(a, *h.args()))
     assert abs(e - e_ref) <= TOL * max(1.0, abs(e_ref))
-    p, l, g = K.adjoint_sweep(a, lam, ang, o.x, o.z, o.s, o.fmode)
+    p, l, g = K.adjoint_sweep(a, lam, ang, o, o.fmode)
     pr, lr, grf = gr.adjoint_sweep_ref(a, lam, ang, o.x, o.z, o.s, o.fmode)
     assert float((p - pr).abs().max()) <= TOL
     assert float((l - lr).abs().max()) <= TOL
@@ -112,11 +115,105 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     psi = _state(dev, 3)
     ang = torch.zeros(len(o.x), device=dev)
     with pytest.raises(TypeError):
-        K.rot_sweep(psi.double(), ang, o.x, o.z, o.s, 1)
+        K.rot_sweep(psi.double(), ang, o, 1)
     with pytest.raises(ValueError):
-        K.rot_sweep(psi[:, ::2], ang, o.x, o.z, o.s, 1)
+        K.rot_sweep(psi[:, ::2], ang, o, 1)
     with pytest.raises(ValueError):
-        K.rot_sweep(psi, ang, o.x, o.z, o.s, 3)
+        K.rot_sweep(psi, ang, o, 3)
+    # the cluster sweeps stage with 16-byte loads
+    buf = torch.zeros(psi.numel() + 1, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        K.rot_sweep(buf[1:].view(psi.shape), ang, o, 1)
+
+
+# ------------------------------------------- A1 / C7: cluster and graph routes
+
+def _sweep_case(dev, n, K_, fmode, seed=0):
+    msbs = sorted({0, n // 2, n - 1} | ({8, 12, n - 3} & set(range(n))))
+    so = odd_y_seq(n, msbs + msbs[::-1], K_=K_, fmode=fmode, seed=n + K_,
+                   device=dev)
+    rng = np.random.default_rng(seed)
+    ang = torch.as_tensor(rng.normal(scale=0.7, size=so.G),
+                          dtype=torch.float32, device=dev)
+    return so, ang, _state(dev, n + 1, n), _state(dev, n + 2, n)
+
+
+@pytest.mark.parametrize("fmode", [0, 1, 2])
+@pytest.mark.parametrize("K_", [5, 6])
+@pytest.mark.parametrize("n", [1, 2, 5, 9, 10, 11, 12, 13, 14, 15, 16, 17,
+                               18, 19])
+def test_sweeps_at_every_size(dev, n, K_, fmode):
+    """A1 and C7 at every cluster size the wrappers pick (C = 1 up to
+    n = 13, clusters of 4 to 16 blocks, every PER and both term tiles)
+    and on the graph route (A1 at n = 19, C7 at n >= 18), against their
+    plain versions, repeated bit for bit, one launch counted a call."""
+    so, ang, psi, lam = _sweep_case(dev, n, K_, fmode)
+    assert so.odd_y and so.K == K_
+    counts = dict(K.LAUNCHES)
+    a = K.rot_sweep(psi, ang, so, fmode)
+    assert float((a - gr.rot_sweep_ref(psi, ang, so.x, so.z, so.s,
+                                       fmode)).abs().max()) <= TOL
+    assert torch.equal(a, K.rot_sweep(psi, ang, so, fmode))
+    p, l, g = K.adjoint_sweep(a, lam, ang, so, fmode)
+    pr, lr, grf = gr.adjoint_sweep_ref(a, lam, ang, so.x, so.z, so.s, fmode)
+    assert float((p - pr).abs().max()) <= TOL
+    assert float((l - lr).abs().max()) <= TOL
+    assert float((g - grf).abs().max()) <= TOL * max(1.0, float(
+        grf.abs().max()))
+    p2, l2, g2 = K.adjoint_sweep(a, lam, ang, so, fmode)
+    assert torch.equal(p, p2) and torch.equal(l, l2) and torch.equal(g, g2)
+    torch.cuda.synchronize()
+    assert {k: K.LAUNCHES[k] - counts[k] for k in GROUPED} == {
+        "rot_sweep": 2, "adjoint_sweep": 2, "ham_apply": 0,
+        "expectation": 0}
+    for name in ("rot_sweep", "adjoint_sweep"):
+        att = K.grouped_attributes(name, so)
+        C = K.cluster_size(name, n)
+        assert att["route"] == ("cluster" if C else "graph")
+        assert att["cluster"] == C
+        assert att.get("max_active_clusters", 1) >= 1
+
+
+def test_cluster_sizes_agree_at_n16(dev):
+    """A1 at C = 4, 8, 16 and C7 at C = 8, 16 (a 4-block C7 cannot hold
+    p and lambda at n = 16) give the same numbers bit for bit; the
+    wrappers' choice (16) is one of them."""
+    so, ang, psi, lam = _sweep_case(dev, 16, 6, 1)
+    a = {C: K._rot_cluster(psi, ang, so, 1, C) for C in (4, 8, 16)}
+    assert all(torch.equal(v, a[8]) for v in a.values())
+    assert torch.equal(K.rot_sweep(psi, ang, so, 1), a[8])
+    r = {C: K._adjoint_cluster(a[8], lam, ang, so, 1, C) for C in (8, 16)}
+    for i in range(3):
+        assert torch.equal(r[8][i], r[16][i])
+        assert torch.equal(K.adjoint_sweep(a[8], lam, ang, so, 1)[i],
+                           r[8][i])
+    with pytest.raises(RuntimeError):
+        K._adjoint_cluster(a[8], lam, ang, so, 1, 4)
+
+
+def test_cluster_floor_runs_every_step(dev):
+    for C in (1, 2, 8, 16):
+        out = K.cluster_floor(252, C, 65536, dev)
+        torch.cuda.synchronize()
+        assert out.tolist() == [252.0] * C
+
+
+def test_sweeps_rebind_new_operand_sets(dev):
+    """New operand sets (as the ADAPT loops bind each outer iteration) on
+    both routes: each keeps its own graphs and the results stay right."""
+    for n in (12, 19):
+        for seed in range(3):
+            _, ang, psi, lam = _sweep_case(dev, n, 6, 0, seed)
+            so = odd_y_seq(n, [n - 1, seed, n // 2], K_=6, seed=seed,
+                           device=dev)
+            ang = ang[:so.G].contiguous()
+            a = K.rot_sweep(psi, ang, so, 0)
+            assert float((a - gr.rot_sweep_ref(psi, ang, so.x, so.z, so.s,
+                                               0)).abs().max()) <= TOL
+            _, _, g = K.adjoint_sweep(a, lam, ang, so, 0)
+            grf = gr.adjoint_sweep_ref(a, lam, ang, so.x, so.z, so.s, 0)[2]
+            assert float((g - grf).abs().max()) <= TOL
+            assert len(so.graphs) == (2 if n == 19 else 0)
 
 
 # ------------------------------------------------- bucketed (streaming) route
@@ -200,8 +297,7 @@ def test_streaming_kernels_match_plain_versions(dev, fmode, cb):
     o = convert.seq_operands(gr.group_op_sequence(compile_op_sequence(
         gens, n)), dev)
     ang = -torch.as_tensor(theta[o.op], dtype=torch.float32, device=dev)
-    assert float((a - K.rot_sweep(psi, ang, o.x, o.z, o.s, o.fmode)
-                  ).abs().max()) <= TOL
+    assert float((a - K.rot_sweep(psi, ang, o, o.fmode)).abs().max()) <= TOL
 
     lam, lam_ref = None, None
     for hc in obj.hclasses:
@@ -221,7 +317,7 @@ def test_streaming_kernels_match_plain_versions(dev, fmode, cb):
     assert float((g - grf).abs().max()) <= TOL
     assert float((p - psi).abs().max()) <= TOL
     assert torch.equal(g, K.adjoint_fused(a, lam, aa, adj, fmode)[2])
-    _, _, gs = K.adjoint_sweep(a, lam, ang, o.x, o.z, o.s, o.fmode)
+    _, _, gs = K.adjoint_sweep(a, lam, ang, o, o.fmode)
     np.testing.assert_allclose(
         st.bucket_grad(g, adj, len(theta)).numpy(),
         gr.segment_grad(gs, o.op, len(theta)).numpy(), atol=TOL)
