@@ -267,4 +267,46 @@ row_reduce_kernel(const T* __restrict__ partials, int nb, float scale,
   if (threadIdx.x == 0) out[blockIdx.x] = (float)(scale * tot);
 }
 
+// ------------------------------------------------- CUDA graphs of launches
+// The per-group routes of C8 and A1 / C7 capture their G launches once per
+// operand set; their kernels read each call's pointers from a device
+// buffer that a replay fills in stream order.
+
+// launch(stream) captured into an executable graph (*exec) on a stream of
+// its own; nothing executes.  Returns launch's error code, else the
+// capture's.
+template <typename F>
+int capture_graph(const F& launch, void** exec) {
+  cudaStream_t cs;
+  int e = (int)cudaStreamCreateWithFlags(&cs, cudaStreamNonBlocking);
+  if (e) return e;
+  e = (int)cudaStreamBeginCapture(cs, cudaStreamCaptureModeThreadLocal);
+  if (!e) {
+    const int el = launch(cs);
+    cudaGraph_t graph = nullptr;
+    e = (int)cudaStreamEndCapture(cs, &graph);
+    if (!e && el) e = el;
+    if (!e)
+      e = (int)cudaGraphInstantiate((cudaGraphExec_t*)exec, graph, 0ull);
+    if (graph) cudaGraphDestroy(graph);
+  }
+  cudaStreamDestroy(cs);
+  return e;
+}
+
+// Copy one call's arguments (`bytes` of host memory) to the graph's device
+// buffer `args` in stream order, then launch the graph on `stream`.
+inline int graph_replay(void* exec, void* args, const void* host_args,
+                        size_t bytes, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int e = (int)cudaMemcpyAsync(args, host_args, bytes,
+                                     cudaMemcpyHostToDevice, st);
+  if (e) return e;
+  return (int)cudaGraphLaunch((cudaGraphExec_t)exec, st);
+}
+
+inline int graph_destroy(void* exec) {
+  return (int)cudaGraphExecDestroy((cudaGraphExec_t)exec);
+}
+
 }  // namespace

@@ -23,8 +23,9 @@
 //   of data movement at n = 16.  So one launch (sweep_cluster_kernel)
 //   walks every group in order with the state held on chip:
 //   - the state lives in the dynamic shared memory of one thread-block
-//     cluster of C = 2^cbits blocks of 512 threads (C = 1 up to n = 13,
-//     16 at n = 16; kernels.cluster_size picks C from n): block r holds
+//     cluster of C = 2^cbits blocks of 512 threads (C = 1 up to n = 11,
+//     then 2^(n - 10) up to 16; kernels.cluster_size picks C from n):
+//     block r holds
 //     amplitudes [r M, (r + 1) M), M = N / C, of every plane (A1: psi, C7:
 //     p and lambda), copied in once with float4 loads and out once;
 //   - the pair index t of j = insert_zero(t, h), h = msb(x), splits into
@@ -74,7 +75,7 @@
 //
 // Every entry point launches on the caller's stream, never synchronises,
 // allocates no device memory (a graph belongs to the CUDA runtime, made by
-// ovqe_sweep_group_graph and freed by ovqe_grouped_graph_destroy), and
+// ovqe_sweep_group_graph and freed by ovqe_graph_destroy), and
 // returns a CUDA error code (0 on success).
 
 #include <cooperative_groups.h>
@@ -144,7 +145,13 @@ __device__ __forceinline__ float pair_update(float (&a)[4], float (&b)[4],
   const float Fjj = 0.f - Fj;                       // F(j ^ x)
   const float p0j = a[0], p1j = a[1], l0j = a[2], l1j = a[3];
   const float p0k = b[0], p1k = b[1], l0k = b[2], l1k = b[3];
-  const float c = Fj * (l0j * p0k + l1j * p1k) + Fjj * (l0k * p0j + l1k * p1j);
+  // Fj (l0j p0k + l1j p1k) + Fjj (l0k p0j + l1k p1j) with the roundings
+  // nvcc gave it in the kernels C7 replaces (each sum fused into its first
+  // product; checked on the card): left to the compiler, the instance of
+  // one pair a thread rounded it differently.
+  const float c = __fmaf_rn(
+      Fj, __fmaf_rn(l0j, p0k, __fmul_rn(l1j, p1k)),
+      __fmul_rn(Fjj, __fmaf_rn(l0k, p0j, __fmul_rn(l1k, p1j))));
   a[0] = cj * p0j - sj * p0k;
   a[1] = cj * p1j - sj * p1k;
   b[0] = ck * p0k - sk * p0j;
@@ -467,11 +474,10 @@ sweep_cluster_kernel(float* p_in, float* l_in, float* p_out, float* l_out,
 }
 
 // The barrier floor of the cluster sweep: the same cluster shape doing G
-// steps of one cluster barrier, each with (dsmem) or without one
-// distributed-shared-memory read of the next block's word written the
-// step before.
+// steps of one cluster barrier, each with one distributed-shared-memory
+// read of the next block's word written the step before.
 __global__ void __launch_bounds__(1 << GR_SWEEP_TB, 1)
-cluster_floor_kernel(int G, int cbits, int dsmem, float* __restrict__ out) {
+cluster_floor_kernel(int G, int cbits, float* __restrict__ out) {
   extern __shared__ __align__(16) float smem[];
   const unsigned C = 1u << cbits;
   const unsigned rank = cbits ? cg::this_cluster().block_rank() : 0u;
@@ -482,7 +488,7 @@ cluster_floor_kernel(int G, int cbits, int dsmem, float* __restrict__ out) {
                       : smem;
   for (int g = 0; g < G; ++g) {
     if (threadIdx.x == 0)
-      smem[(g + 1) & 1] = (dsmem ? next[g & 1] : smem[g & 1]) + 1.f;
+      smem[(g + 1) & 1] = next[g & 1] + 1.f;
     sweep_sync(cbits);
   }
   if (threadIdx.x == 0) out[rank] = smem[G & 1];
@@ -491,7 +497,7 @@ cluster_floor_kernel(int G, int cbits, int dsmem, float* __restrict__ out) {
 // ------------------------------------------- the per-group route (graphs)
 
 // One call's device pointers, read by the graph's kernels (filled by
-// ovqe_sweep_group_replay in stream order before each replay).
+// ovqe_graph_replay in stream order before each replay).
 struct SweepArgs {
   float* p;          // psi (A1) or p (C7), updated in place
   float* l;          // lambda (C7)
@@ -826,40 +832,25 @@ int ovqe_sweep_group_graph(int adj, long long N, const int* x,
   if (N < 2 * GR_GRAPH_PER * GR_THREADS || N > (1ll << 30) || (N & (N - 1)) ||
       G <= 0 || K <= 0 || (adj && nb != sweep_nb(N)))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t cs;
-  int e = (int)cudaStreamCreateWithFlags(&cs, cudaStreamNonBlocking);
-  if (e) return e;
-  e = (int)cudaStreamBeginCapture(cs, cudaStreamCaptureModeThreadLocal);
-  if (!e) {
-    const SweepArgs* a = (const SweepArgs*)args;
-    const int el =
-        adj ? group_launches<true>(a, N, x, zp, s, kl, G, K, fmode, nb, cs)
-            : group_launches<false>(a, N, x, zp, s, kl, G, K, fmode, nb, cs);
-    cudaGraph_t graph = nullptr;
-    e = (int)cudaStreamEndCapture(cs, &graph);
-    if (!e && el) e = el;
-    if (!e)
-      e = (int)cudaGraphInstantiate((cudaGraphExec_t*)exec, graph, 0ull);
-    if (graph) cudaGraphDestroy(graph);
-  }
-  cudaStreamDestroy(cs);
-  return e;
+  const SweepArgs* a = (const SweepArgs*)args;
+  return capture_graph(
+      [&](cudaStream_t cs) {
+        return adj ? group_launches<true>(a, N, x, zp, s, kl, G, K, fmode,
+                                          nb, cs)
+                   : group_launches<false>(a, N, x, zp, s, kl, G, K, fmode,
+                                           nb, cs);
+      },
+      exec);
 }
 
 // Write one call's SweepArgs (host memory, copied in stream order) to
 // args, then launch the graph on `stream`.
-int ovqe_sweep_group_replay(void* exec, void* args, const void* host_args,
-                            void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  int e = (int)cudaMemcpyAsync(args, host_args, sizeof(SweepArgs),
-                               cudaMemcpyHostToDevice, st);
-  if (e) return e;
-  return (int)cudaGraphLaunch((cudaGraphExec_t)exec, st);
+int ovqe_graph_replay(void* exec, void* args, const void* host_args,
+                      void* stream) {
+  return graph_replay(exec, args, host_args, sizeof(SweepArgs), stream);
 }
 
-int ovqe_grouped_graph_destroy(void* exec) {
-  return (int)cudaGraphExecDestroy((cudaGraphExec_t)exec);
-}
+int ovqe_graph_destroy(void* exec) { return graph_destroy(exec); }
 
 // out[6] of the cluster sweep (adj 0: A1, 1: C7) at (n, cbits, K, G):
 // registers, local bytes per thread, dynamic shared memory, threads per
@@ -896,9 +887,8 @@ int ovqe_sweep_group_attrs(int adj, int K, int* out) {
 
 // The barrier floor: cluster_floor_kernel on 2^cbits blocks of the
 // sweep's threads with `smem` bytes of dynamic shared memory (the sweep's), G
-// steps with (dsmem) or without a distributed-shared-memory read each;
-// out (2^cbits,).
-int ovqe_cluster_floor(int G, int cbits, int dsmem, int smem, float* out,
+// steps with a distributed-shared-memory read each; out (2^cbits,).
+int ovqe_cluster_floor(int G, int cbits, int smem, float* out,
                        void* stream) {
   if (cbits < 0 || (1 << cbits) > GR_MAX_CLUSTER || smem < 8 || G < 0)
     return (int)cudaErrorInvalidValue;
@@ -908,7 +898,7 @@ int ovqe_cluster_floor(int G, int cbits, int dsmem, int smem, float* out,
   if (e) return e;
   if (cbits == 0) cl.cfg.numAttrs = 0;
   return (int)cudaLaunchKernelEx(&cl.cfg, cluster_floor_kernel, G, cbits,
-                                 dsmem, out);
+                                 out);
 }
 
 int ovqe_ham_apply(const float* psi, float* out, long long N, const int* x,

@@ -376,7 +376,7 @@ int ovqe_adjoint_stream(long long N, const int* x, const int* zp,
 }
 
 // ovqe_adjoint_stream captured once into an executable graph (*exec): the
-// launches are the same, and a replay (ovqe_adjoint_stream_replay) reads
+// launches are the same, and a replay (ovqe_graph_replay) reads
 // the call's states, angles and outputs from args, so on an H10 adjoint
 // the host issues one graph launch for the 876 kernels.  The capture runs
 // on a stream of its own and executes nothing.
@@ -384,38 +384,22 @@ int ovqe_adjoint_stream_graph(long long N, const int* x, const int* zp,
                               const float* s, const int* kl, int G, int K,
                               int fmode, int per, int nb, const void* args,
                               void** exec) {
-  cudaStream_t cs;
-  int e = (int)cudaStreamCreateWithFlags(&cs, cudaStreamNonBlocking);
-  if (e) return e;
-  e = (int)cudaStreamBeginCapture(cs, cudaStreamCaptureModeThreadLocal);
-  if (!e) {
-    const int el = ovqe_adjoint_stream(N, x, zp, s, kl, G, K, fmode, per, nb,
-                                       args, cs);
-    cudaGraph_t graph = nullptr;
-    e = (int)cudaStreamEndCapture(cs, &graph);
-    if (!e && el) e = el;
-    if (!e)
-      e = (int)cudaGraphInstantiate((cudaGraphExec_t*)exec, graph, 0ull);
-    if (graph) cudaGraphDestroy(graph);
-  }
-  cudaStreamDestroy(cs);
-  return e;
+  return capture_graph(
+      [&](cudaStream_t cs) {
+        return ovqe_adjoint_stream(N, x, zp, s, kl, G, K, fmode, per, nb,
+                                   args, cs);
+      },
+      exec);
 }
 
 // Write one call's AdjointArgs (host memory, copied in stream order) to
 // args, then launch the graph on `stream`.
-int ovqe_adjoint_stream_replay(void* exec, void* args, const void* host_args,
-                               void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  int e = (int)cudaMemcpyAsync(args, host_args, sizeof(AdjointArgs),
-                               cudaMemcpyHostToDevice, st);
-  if (e) return e;
-  return (int)cudaGraphLaunch((cudaGraphExec_t)exec, st);
+int ovqe_graph_replay(void* exec, void* args, const void* host_args,
+                      void* stream) {
+  return graph_replay(exec, args, host_args, sizeof(AdjointArgs), stream);
 }
 
-int ovqe_graph_destroy(void* exec) {
-  return (int)cudaGraphExecDestroy((cudaGraphExec_t)exec);
-}
+int ovqe_graph_destroy(void* exec) { return graph_destroy(exec); }
 
 // out[7]: resident blocks per SM, registers per thread, local (spill)
 // bytes per thread, static shared memory bytes, threads per block, the

@@ -72,7 +72,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 
@@ -162,11 +162,11 @@ _SIGNATURES = {
         "ovqe_rot_sweep": "PPIIPPPPPIIIP",
         "ovqe_adjoint_sweep": "PPPPIIPPPPPIIIPIPP",
         "ovqe_sweep_group_graph": "ILPPPPIIIIPP",
-        "ovqe_sweep_group_replay": "PPPP",
-        "ovqe_grouped_graph_destroy": "P",
+        "ovqe_graph_replay": "PPPP",
+        "ovqe_graph_destroy": "P",
         "ovqe_sweep_attrs": "IIIIIP",
         "ovqe_sweep_group_attrs": "IIP",
-        "ovqe_cluster_floor": "IIIIPP",
+        "ovqe_cluster_floor": "IIIPP",
         "ovqe_ham_apply": "PPLPPPPIIP",
         "ovqe_expectation": "PLPPPPIIPIPP",
         "ovqe_block_threads": "",
@@ -184,7 +184,7 @@ _SIGNATURES = {
         "ovqe_rot_stream": "PLPPPPPIIIP",
         "ovqe_adjoint_stream": "LPPPPIIIIIPP",
         "ovqe_adjoint_stream_graph": "LPPPPIIIIIPP",
-        "ovqe_adjoint_stream_replay": "PPPP",
+        "ovqe_graph_replay": "PPPP",
         "ovqe_graph_destroy": "P",
         "ovqe_adjoint_stream_attrs": "IIP",
         "ovqe_ham_stream": "PPPLPPPPPIIP",
@@ -274,7 +274,6 @@ def _fmode(fmode: int) -> int:
 
 # ------------------------------------------- per-group route (n <= 19)
 
-CLUSTER_AT_16 = {"rot_sweep": 16, "adjoint_sweep": 16}  # C at n = 16
 _SWEEP_PLANES = {"rot_sweep": 2, "adjoint_sweep": 4}    # psi; p and lambda
 SLICE_BYTES = 1 << 17   # the most state one block of a cluster holds
 MAX_CLUSTER = 16        # GR_MAX_CLUSTER: the largest cluster the card runs
@@ -283,20 +282,18 @@ MAX_CLUSTER = 16        # GR_MAX_CLUSTER: the largest cluster the card runs
 def cluster_size(name: str, n: int) -> int:
     """Blocks of the thread-block cluster that holds the states of A1
     (``rot_sweep``) or C7 (``adjoint_sweep``) at 2^n amplitudes: 1 up to
-    n = 13; above, ``CLUSTER_AT_16[name]`` scaled by 2^(n - 16), at least
-    enough blocks that each holds at most ``SLICE_BYTES`` of the states;
-    0 where 16 blocks cannot hold them (A1 at n >= 19, C7 at n >= 18: the
-    per-group kernels, replayed as one CUDA graph)."""
+    n = 11; above, the most blocks, up to 16, that keep one pair a thread
+    (2^10 amplitudes a block), which ran fastest on an H100 at n = 12, 13,
+    14 and 16 (``scripts/torch_cluster_variants.py``); 0 where 16 blocks
+    of ``SLICE_BYTES`` cannot hold the states (A1 at n >= 19, C7 at
+    n >= 18: the per-group kernels, replayed as one CUDA graph)."""
     if name not in _SWEEP_PLANES:
         raise ValueError(f"not a per-group sweep: {name}")
-    if n <= 13:
+    if n <= 11:
         return 1
-    fit = max(1, (_SWEEP_PLANES[name] * 4 << n) // SLICE_BYTES)
-    if fit > MAX_CLUSTER:
+    if _SWEEP_PLANES[name] * 4 << n > MAX_CLUSTER * SLICE_BYTES:
         return 0
-    c = CLUSTER_AT_16[name]
-    c = c << (n - 16) if n >= 16 else c >> (16 - n)
-    return min(MAX_CLUSTER, max(fit, c))
+    return min(MAX_CLUSTER, 1 << (n - 10))
 
 
 def _seq(psi: torch.Tensor, so: convert.SeqOperands) -> int:
@@ -364,21 +361,11 @@ def _sweep_graph(name: str, so: convert.SeqOperands, N: int, fmode: int,
            so.s.data_ptr(), so.k_live.data_ptr())
     if key not in so.graphs:
         so.graphs[key] = _Graph(
-            "grouped", "ovqe_sweep_group_graph", "ovqe_grouped_graph_destroy",
-            so.x.device, int(name == "adjoint_sweep"), N, so.x.data_ptr(),
+            "grouped", "ovqe_sweep_group_graph", so.x.device,
+            int(name == "adjoint_sweep"), N, so.x.data_ptr(),
             so.z_pair.data_ptr(), so.s.data_ptr(), so.k_live.data_ptr(),
             so.G, so.K, fmode, nb)
     return so.graphs[key]
-
-
-def _replay(name: str, graph: "_Graph", ptrs: tuple, dev,
-            stream: int) -> None:
-    """Fill a per-group route graph's five pointers in stream order and
-    launch it."""
-    host = (ctypes.c_void_p * 5)(*ptrs)
-    with torch.cuda.device(dev):
-        _launch(name, _load().ovqe_sweep_group_replay, graph.exec,
-                graph.args, ctypes.addressof(host), stream)
 
 
 def rot_sweep(psi, angles, so: convert.SeqOperands, fmode: int):
@@ -401,9 +388,8 @@ def rot_sweep(psi, angles, so: convert.SeqOperands, fmode: int):
     if C:
         return _rot_cluster(psi, angles, so, fmode, C)
     out, stream = psi.clone(), _stream(psi)
-    graph = _sweep_graph("rot_sweep", so, N, fmode, 0, stream)
-    _replay("rot_sweep", graph, (out.data_ptr(), 0, angles.data_ptr(), 0, 0),
-            psi.device, stream)
+    _sweep_graph("rot_sweep", so, N, fmode, 0, stream).replay(
+        "rot_sweep", (out.data_ptr(), 0, angles.data_ptr(), 0, 0), stream)
     return out
 
 
@@ -430,10 +416,10 @@ def adjoint_sweep(p, lam, angles, so: convert.SeqOperands, fmode: int):
     partials = torch.empty((so.G, nb), dtype=torch.float32, device=p.device)
     gts = torch.empty(so.G, dtype=torch.float32, device=p.device)
     stream = _stream(p)
-    graph = _sweep_graph("adjoint_sweep", so, N, fmode, nb, stream)
-    _replay("adjoint_sweep", graph,
-            (p_out.data_ptr(), l_out.data_ptr(), angles.data_ptr(),
-             partials.data_ptr(), gts.data_ptr()), p.device, stream)
+    _sweep_graph("adjoint_sweep", so, N, fmode, nb, stream).replay(
+        "adjoint_sweep", (p_out.data_ptr(), l_out.data_ptr(),
+                          angles.data_ptr(), partials.data_ptr(),
+                          gts.data_ptr()), stream)
     return p_out, l_out, gts
 
 
@@ -450,17 +436,17 @@ def _sweep_attrs(name: str, so: convert.SeqOperands, C: int
     return {"route": "cluster", "cluster": C, **dict(zip(keys, list(out)))}
 
 
-def grouped_attributes(name: str, so: convert.SeqOperands,
-                       C: Optional[int] = None) -> Dict[str, object]:
+def grouped_attributes(name: str, so: convert.SeqOperands
+                       ) -> Dict[str, object]:
     """How ``rot_sweep`` or ``adjoint_sweep`` launches on ``so``: the route
-    (``cluster`` or ``graph``), the cluster's blocks C (``cluster_size``'s
-    unless given; 0 on the graph route), registers and local bytes per
+    (``cluster`` or ``graph``), the cluster's blocks C (``cluster_size``'s;
+    0 on the graph route), registers and local bytes per
     thread (the stack frame of sincosf's slow path and any spill), shared
     memory per block (dynamic on the cluster route, static on the graph
     route), threads per block, pairs per thread, and the card's max active
     clusters of that shape (cluster route) or its resident blocks per SM
     (graph route)."""
-    C = cluster_size(name, so.n) if C is None else C
+    C = cluster_size(name, so.n)
     if C:
         return _sweep_attrs(name, so, C)
     out = (ctypes.c_int * 4)()
@@ -473,17 +459,17 @@ def grouped_attributes(name: str, so: convert.SeqOperands,
             "per": 8, "blocks_per_sm": out[3]}
 
 
-def cluster_floor(G: int, C: int, smem_bytes: int, device,
-                  dsmem: bool = True) -> torch.Tensor:
+def cluster_floor(G: int, C: int, smem_bytes: int,
+                  device) -> torch.Tensor:
     """One launch of the barrier floor of the cluster sweeps: a cluster of
     C blocks of the sweeps' threads with ``smem_bytes`` of shared memory
     each doing G dependent steps of one cluster barrier, each with one
-    dependent distributed-shared-memory read (``dsmem``) or none.  Returns
-    its (C,) output (G in every entry).  Not a ported kernel: it is not
-    counted in ``LAUNCHES``."""
+    dependent distributed-shared-memory read.  Returns its (C,) output (G
+    in every entry).  Not a ported kernel: it is not counted in
+    ``LAUNCHES``."""
     out = torch.empty(C, dtype=torch.float32, device=device)
-    rc = _load().ovqe_cluster_floor(G, C.bit_length() - 1, int(dsmem),
-                                    smem_bytes, out.data_ptr(), _stream(out))
+    rc = _load().ovqe_cluster_floor(G, C.bit_length() - 1, smem_bytes,
+                                    out.data_ptr(), _stream(out))
     if rc != 0:
         raise RuntimeError(f"cluster_floor: CUDA error {rc}")
     return out
@@ -782,11 +768,11 @@ class _Graph:
     the C entry point ``capture`` of library ``lib``, and the device buffer
     its kernels read each call's five pointers from (``AdjointArgs`` in
     ``csrc/stream_group_kernels.cu``, ``SweepArgs`` in
-    ``csrc/grouped_kernels.cu``); ``destroy`` frees it."""
+    ``csrc/grouped_kernels.cu``).  Each library frees it with
+    ``ovqe_graph_destroy``."""
 
-    def __init__(self, lib: str, capture: str, destroy: str, device,
-                 *args):
-        self.lib, self.destroy = lib, destroy
+    def __init__(self, lib: str, capture: str, device, *args):
+        self.lib, self.device = lib, device
         with torch.cuda.device(device):
             self.args = torch.empty(5, dtype=torch.int64, device=device)
             exec_ = ctypes.c_void_p()
@@ -797,10 +783,18 @@ class _Graph:
                                f"a graph")
         self.exec = exec_.value
 
+    def replay(self, name: str, ptrs: tuple, stream: int) -> None:
+        """Fill the five pointers in stream order, launch the graph on
+        ``stream`` and count the launch under ``name``."""
+        host = (ctypes.c_void_p * 5)(*ptrs)
+        with torch.cuda.device(self.device):
+            _launch(name, _load(self.lib).ovqe_graph_replay, self.exec,
+                    self.args, ctypes.addressof(host), stream)
+
     def __del__(self):
         lib = _libs.get(getattr(self, "lib", None))
         if lib is not None and getattr(self, "exec", None):
-            getattr(lib, self.destroy)(self.exec)
+            lib.ovqe_graph_destroy(self.exec)
 
 
 def _adjoint_graph(go: st.GroupOperands, N: int, per: int, fmode: int,
@@ -815,10 +809,9 @@ def _adjoint_graph(go: st.GroupOperands, N: int, per: int, fmode: int,
            go.coef.data_ptr(), go.k_live.data_ptr())
     if key not in go.graphs:
         go.graphs[key] = _Graph(
-            "stream_group", "ovqe_adjoint_stream_graph", "ovqe_graph_destroy",
-            go.x.device, N, go.x.data_ptr(), go.z_pair.data_ptr(),
-            go.coef.data_ptr(), go.k_live.data_ptr(), go.G, go.K, fmode, per,
-            nb)
+            "stream_group", "ovqe_adjoint_stream_graph", go.x.device, N,
+            go.x.data_ptr(), go.z_pair.data_ptr(), go.coef.data_ptr(),
+            go.k_live.data_ptr(), go.G, go.K, fmode, per, nb)
     return go.graphs[key]
 
 
@@ -841,7 +834,7 @@ def adjoint_stream(p, lam, ang, go: st.GroupOperands, fmode: int):
     N = _group_ops(p, go, (go.coef,))
     _check("lam", lam, torch.float32, (2, N), p.device)
     _check("ang", ang, torch.float32, (go.G,), p.device)
-    lib = _load("stream_group")
+    _load("stream_group")       # builds and reads _sg_threads
     p_out, l_out = torch.empty_like(p), torch.empty_like(lam)
     p_out.copy_(p)
     l_out.copy_(lam)
@@ -852,13 +845,10 @@ def adjoint_stream(p, lam, ang, go: st.GroupOperands, fmode: int):
         partials = torch.empty((go.G, nb), dtype=torch.float64,
                                device=p.device)
         stream = _stream(p)
-        graph = _adjoint_graph(go, N, per, _fmode(fmode), nb, stream)
-        ptrs = (ctypes.c_void_p * 5)(p_out.data_ptr(), l_out.data_ptr(),
-                                     ang.data_ptr(), partials.data_ptr(),
-                                     gts.data_ptr())
-        with torch.cuda.device(p.device):
-            _launch("adjoint_stream", lib.ovqe_adjoint_stream_replay,
-                    graph.exec, graph.args, ctypes.addressof(ptrs), stream)
+        _adjoint_graph(go, N, per, _fmode(fmode), nb, stream).replay(
+            "adjoint_stream", (p_out.data_ptr(), l_out.data_ptr(),
+                               ang.data_ptr(), partials.data_ptr(),
+                               gts.data_ptr()), stream)
     return p_out, l_out, gts
 
 

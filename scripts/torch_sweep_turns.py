@@ -26,6 +26,13 @@ into the tree's own ``build/``):
   profiler) with its energy and gradient hash; and H8's
   ``VQE.algorithm("ucc", ...).execute()`` (host clock) with its energies,
   ``len_op`` and ``CNOT``;
+* the per-group route below H8: A1 and C7 on the cluster ansatz of H6
+  (n = 12, 135 groups, K = 8) and of BeH2 (n = 14, 189 groups), both
+  STO-3G sUPCCGSD under JW, with a random state and angles (CUDA events
+  over 50 calls after 3 warm-ups) and a SHA-256 of their outputs, and each
+  molecule's ``energy_and_grad`` on both
+  ansatze at theta = 0.01 (host clock, median of 20 calls) with its
+  energy and gradient hash;
 * A3 and C9 at H10's shapes (the UCCSD runs of ``chip_smoke.py`` phase 5
   at theta1), B6 over both K classes of H10's H and each class alone, D12
   with ``herm`` over both classes, D13 over the hoisted off-diagonal
@@ -93,6 +100,74 @@ def sweep_calls(K):
                                                         so.z, so.s, fm))
 
 
+def energy_and_grad_ms(ba, theta, calls=20):
+    """(median host ms, energy, gradient) of ``ba.energy_and_grad(theta)``
+    over ``calls`` calls after one warm-up."""
+    import torch
+    ba.energy_and_grad(theta)
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(calls):
+        t = time.perf_counter()
+        e, g = ba.energy_and_grad(theta)
+        ts.append(time.perf_counter() - t)
+    return 1e3 * median(ts), e, g
+
+
+def ucc_problem(mol: str):
+    """``mol``/STO-3G, sUPCCGSD, JW: Hamiltonian, both ansatze and the HF
+    ket, as ``chip_smoke.h8_problem`` builds H8's."""
+    from openvqe_tpu_torch.algorithms.ucc import UCC
+    from openvqe_tpu_torch.models.molecule_factory import MoleculeFactory
+    mf = MoleculeFactory()
+    ucc = UCC(mol, "sUPCCGSD", "JW", False)
+    with contextlib.redirect_stdout(io.StringIO()):
+        ham, ham_sp, n_elec, noons, orb_e, _ = mf.generate_hamiltonian(
+            mol, display=False)
+        _, cluster_ops, cluster_ops_sp = mf.generate_cluster_ops(
+            mol, "sUPCCGSD", "JW")
+        _, pool = ucc.generate_pool_from_cluster(cluster_ops, ham_sp.nbqbits)
+    hf_init = mf.find_hf_init(ham, n_elec, noons, orb_e)
+    _, hf_init_sp = mf.get_reference_ket(hf_init, ham_sp.nbqbits, "JW")
+    ansatz1, ansatz2 = ucc.get_ansatz(cluster_ops_sp, pool)
+    return ham_sp, ansatz1, ansatz2, hf_init_sp
+
+
+def measure_small(cs, out: dict) -> None:
+    """The per-group route at n = 12 (H6) and 14 (BeH2)."""
+    import numpy as np
+    import torch
+    from openvqe_tpu_torch.sim import kernels as K
+    from openvqe_tpu_torch.sim.objective import VQEObjective
+    dev = torch.device("cuda")
+    rot, adj = sweep_calls(K)
+    for mol in SMALL:
+        ham_sp, a1, a2, hf = ucc_problem(mol)
+        n = ham_sp.nbqbits
+        obj = VQEObjective(ham_sp, device=dev, dtype=torch.float32)
+        bounds = {"cluster": obj.bind(a1, hf), "pool": obj.bind(a2, hf)}
+        so = bounds["cluster"]._ops
+        ang = bounds["cluster"]._angles(
+            np.random.default_rng(7).normal(scale=0.3, size=len(a2)))
+        psi = cs.rand_state(n, 11, dev)
+        lam = K.ham_apply(psi, *obj.hops.args())
+        tag = mol.lower()
+        out[f"{tag}_a1_ms"] = cs.cuda_ms(lambda: rot(psi, ang, so, so.fmode),
+                                         reps=50)
+        out[f"{tag}_c7_ms"] = cs.cuda_ms(
+            lambda: adj(psi, lam, ang, so, so.fmode), reps=50)
+        a = rot(psi, ang, so, so.fmode)
+        p, l, g = adj(a, lam, ang, so, so.fmode)
+        out[f"{tag}_sweeps_sha256"] = sha256(
+            torch.cat([a, p, l, g.reshape(1, -1).expand(2, -1)], dim=1))
+        theta = np.full(len(a2), 0.01)
+        for name, ba in bounds.items():
+            ms, e, g = energy_and_grad_ms(ba, theta)
+            out[f"{tag}_{name}_energy_and_grad_ms"] = ms
+            out[f"{tag}_{name}_energy"] = e
+            out[f"{tag}_{name}_grad_sha256"] = sha256(g)
+
+
 def busy_share(b, theta, calls=10):
     """(wall ms, device busy ms) per ``energy_and_grad`` under the
     profiler."""
@@ -155,14 +230,8 @@ def measure_h8(cs, tree: Path, out: dict) -> None:
         out[f"synthetic_fmode{fm}_sha256"] = sha256(
             torch.cat([a, p, l, g.reshape(1, -1).expand(2, -1)], dim=1))
     for name, ba in bounds.items():
-        ba.energy_and_grad(theta)
-        torch.cuda.synchronize()
-        ts = []
-        for _ in range(20):
-            t = time.perf_counter()
-            e, g = ba.energy_and_grad(theta)
-            ts.append(time.perf_counter() - t)
-        out[f"h8_{name}_energy_and_grad_ms"] = 1e3 * median(ts)
+        ms, e, g = energy_and_grad_ms(ba, theta)
+        out[f"h8_{name}_energy_and_grad_ms"] = ms
         out[f"h8_{name}_energy"] = e
         out[f"h8_{name}_grad_sha256"] = sha256(g)
         wall, busy = busy_share(ba, theta)
@@ -197,6 +266,7 @@ def measure(tree: Path, h16: str, quick: bool) -> dict:
     K.build()
     K._load()
     out = {"tree": str(tree), "card": cs.card_line()}
+    measure_small(cs, out)
     measure_h8(cs, tree, out)
     ref10 = json.loads((tree / "tests" / "torch_h10_reference.json"
                         ).read_text())
@@ -253,14 +323,8 @@ def measure(tree: Path, h16: str, quick: bool) -> dict:
     out["c8_theta1_grad_sha256"] = sha256(gts1)
 
     for tag, ba in (("", b), ("fuse0_", b0)):
-        ba.energy_and_grad(theta0)
-        torch.cuda.synchronize()
-        ts = []
-        for _ in range(20):
-            t = time.perf_counter()
-            e, g = ba.energy_and_grad(theta0)
-            ts.append(time.perf_counter() - t)
-        out[f"h10_{tag}energy_and_grad_ms"] = 1e3 * median(ts)
+        ms, e, g = energy_and_grad_ms(ba, theta0)
+        out[f"h10_{tag}energy_and_grad_ms"] = ms
         e1, g1 = ba.energy_and_grad(theta1)
         for name, (en, gr) in (("theta0", (e, g)), ("theta1", (e1, g1))):
             out[f"h10_{tag}energy_{name}"] = en
@@ -300,19 +364,25 @@ def measure(tree: Path, h16: str, quick: bool) -> dict:
 
 ORDER = (0, 1, 1, 0)    # the turns: indices into --trees
 CHILD_TIMEOUT_S = 900.0
+SMALL = ("H6", "BeH2")  # n = 12 and 14
 
-METRICS = ("a1_ms", "c7_ms", "h8_cluster_energy_and_grad_ms",
-           "h8_pool_energy_and_grad_ms", "h8_cluster_profiled_ms",
-           "h8_cluster_busy_ms", "h8_cluster_busy_share",
-           "h8_pool_profiled_ms", "h8_pool_busy_ms", "h8_pool_busy_share",
-           "h8_execute_s", "a3_ms", "c9_ms", "b6_ms", "b6_k8_ms",
-           "b6_k64_ms", "d12_herm_ms", "d13_h10_ms", "c8_ms",
-           "h10_energy_and_grad_ms", "h10_fuse0_energy_and_grad_ms",
-           "h10_adapt_s", "h16_sweep_s", "h16_expectation_s", "h16_energy_s",
-           "h16_hoist_expectation_s", "h16_hoist_energy_s")
-VALUES = ("h8_cluster_energy", "h8_pool_energy", "d13_h10_value",
-          "h10_energy_theta0", "h10_energy_theta1", "h10_fuse0_energy_theta0",
-          "h10_fuse0_energy_theta1", "h16_energy", "h16_hoist_energy")
+METRICS = tuple(f"{m.lower()}_{k}" for m in SMALL for k in (
+    "a1_ms", "c7_ms", "cluster_energy_and_grad_ms",
+    "pool_energy_and_grad_ms")) + (
+    "a1_ms", "c7_ms", "h8_cluster_energy_and_grad_ms",
+    "h8_pool_energy_and_grad_ms", "h8_cluster_profiled_ms",
+    "h8_cluster_busy_ms", "h8_cluster_busy_share",
+    "h8_pool_profiled_ms", "h8_pool_busy_ms", "h8_pool_busy_share",
+    "h8_execute_s", "a3_ms", "c9_ms", "b6_ms", "b6_k8_ms",
+    "b6_k64_ms", "d12_herm_ms", "d13_h10_ms", "c8_ms",
+    "h10_energy_and_grad_ms", "h10_fuse0_energy_and_grad_ms",
+    "h10_adapt_s", "h16_sweep_s", "h16_expectation_s", "h16_energy_s",
+    "h16_hoist_expectation_s", "h16_hoist_energy_s")
+VALUES = tuple(f"{m.lower()}_{b}_energy" for m in SMALL
+               for b in ("cluster", "pool")) + (
+    "h8_cluster_energy", "h8_pool_energy", "d13_h10_value",
+    "h10_energy_theta0", "h10_energy_theta1", "h10_fuse0_energy_theta0",
+    "h10_fuse0_energy_theta1", "h16_energy", "h16_hoist_energy")
 SAME = tuple(f"{k}_fmode{f}_{h}" for f in (0, 1, 2) for k, h in (
     ("a1", "sha256"), ("c7", "state_sha256"), ("c7", "grad_sha256"))) + (
     "synthetic_fmode0_sha256", "synthetic_fmode1_sha256",
@@ -321,7 +391,9 @@ SAME = tuple(f"{k}_fmode{f}_{h}" for f in (0, 1, 2) for k, h in (
     "h10_grad_theta0_sha256", "h10_grad_theta1_sha256",
     "h10_fuse0_grad_theta0_sha256", "h10_fuse0_grad_theta1_sha256",
     "c8_theta1_state_sha256", "c8_theta1_grad_sha256",
-    "h10_adapt_indices", "h10_adapt_energies")
+    "h10_adapt_indices", "h10_adapt_energies") + tuple(
+    f"{m.lower()}_{k}" for m in SMALL for k in (
+        "sweeps_sha256", "cluster_grad_sha256", "pool_grad_sha256"))
 
 
 def main() -> int:

@@ -383,7 +383,7 @@ def test_one_field_per_pair_on_ucc(ansatze, key):
     so = ansatze[key]
     assert so.odd_y and so.fmode == 1 and so.G > 10
     C = K.cluster_size("adjoint_sweep", so.n)
-    assert C == (1 if so.n == 8 else K.CLUSTER_AT_16["adjoint_sweep"])
+    assert C == (1 if so.n == 8 else 16)
     assert (_check_fields(so, C) > 0) == key.endswith("cluster")
 
 
@@ -431,17 +431,17 @@ def test_emulated_cluster_sweep_is_the_per_group_kernels(n, C, fmode):
 # ------------------------------------------------------------ sizes
 
 def test_cluster_size_for_every_n():
-    """1 up to n = 13; a power of two up to 16 above, with the states'
+    """1 up to n = 11; a power of two up to 16 above, with the states'
     slice at most 128 KB a block and the whole block's shared memory
     (slices, sign table, C7's warp sums, one operand chunk at H8's K = 8)
     within the card's 227 KB; 0 exactly where 16 blocks cannot hold the
     states (A1 from n = 19, C7 from n = 18).  Cluster blocks hold at least
-    2^9 amplitudes, A1 at most 32 pairs a thread and C7 16."""
+    2^10 amplitudes, A1 at most 32 pairs a thread and C7 16."""
     for name, planes, per_max in (("rot_sweep", 2, 1 << (13 - TB)),
                                   ("adjoint_sweep", 4, 1 << (12 - TB))):
         for n in range(1, 20):
             C = K.cluster_size(name, n)
-            if n <= 13:
+            if n <= 11:
                 assert C == 1, (name, n)
             if C == 0:
                 assert planes * 4 << n > 16 * K.SLICE_BYTES
@@ -458,7 +458,10 @@ def test_cluster_size_for_every_n():
                         + (per * T // 32 if planes == 4 else 0)
                         + gc * (2 * 8 + 7))
             assert smem <= SMEM_BLOCK, (name, n, smem)
-        assert K.cluster_size(name, 16) == K.CLUSTER_AT_16[name]
+    assert [K.cluster_size("rot_sweep", n) for n in range(1, 20)] == \
+        [1] * 11 + [4, 8, 16, 16, 16, 16, 16, 0]
+    assert [K.cluster_size("adjoint_sweep", n) for n in range(1, 20)] == \
+        [1] * 11 + [4, 8, 16, 16, 16, 16, 0, 0]
     with pytest.raises(ValueError):
         K.cluster_size("ham_apply", 16)
 

@@ -144,7 +144,7 @@ def _sweep_case(dev, n, K_, fmode, seed=0):
                                18, 19])
 def test_sweeps_at_every_size(dev, n, K_, fmode):
     """A1 and C7 at every cluster size the wrappers pick (C = 1 up to
-    n = 13, clusters of 4 to 16 blocks, every PER and both term tiles)
+    n = 11, clusters of 4 to 16 blocks, every PER and both term tiles)
     and on the graph route (A1 at n = 19, C7 at n >= 18), against their
     plain versions, repeated bit for bit, one launch counted a call."""
     so, ang, psi, lam = _sweep_case(dev, n, K_, fmode)
@@ -189,6 +189,29 @@ def test_cluster_sizes_agree_at_n16(dev):
                            r[8][i])
     with pytest.raises(RuntimeError):
         K._adjoint_cluster(a[8], lam, ang, so, 1, 4)
+
+
+@pytest.mark.parametrize("n", [11, 12, 13, 14])
+def test_cluster_sizes_agree_below_h8(dev, n):
+    """Below H8 every cluster size that holds the states, one pair a
+    thread included, gives A1's psi and C7's p, lambda and entries bit for
+    bit, and the wrappers' choice is one of them."""
+    so, ang, psi, lam = _sweep_case(dev, n, 6, 1)
+
+    def sizes(planes):
+        return [C for C in (1, 2, 4, 8, 16)
+                if planes * 4 << n <= C * K.SLICE_BYTES
+                and (C == 1 or n - C.bit_length() + 1 >= 10)]
+
+    a = {C: K._rot_cluster(psi, ang, so, 1, C) for C in sizes(2)}
+    assert len(a) >= 2 and K.cluster_size("rot_sweep", n) in a
+    ref = K.rot_sweep(psi, ang, so, 1)
+    assert all(torch.equal(v, ref) for v in a.values())
+    r = {C: K._adjoint_cluster(ref, lam, ang, so, 1, C) for C in sizes(4)}
+    assert len(r) >= 2 and K.cluster_size("adjoint_sweep", n) in r
+    want = K.adjoint_sweep(ref, lam, ang, so, 1)
+    for got in r.values():
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 def test_cluster_floor_runs_every_step(dev):
