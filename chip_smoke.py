@@ -14,7 +14,12 @@ imports nothing of JAX and nothing of ``openvqe_tpu``.  Phases:
    own operands and on a synthetic problem (x masks on every bit, non-real
    compiled coefficients so W_im is live, field modes 0, 1 and 2, a
    diagonal and a constant); each kernel and plain version timed with
-   CUDA events; how the cluster sweeps A1 and C7 launch at H8
+   CUDA events; the H-apply's library yardstick at H8 (``spmm_library``:
+   one ``torch.sparse.mm`` of H's CSR, built on the card from the grouped
+   operands, with the state, held against the plain version); how B4
+   launches at H8 (``kernels.ham_attributes``: registers, local bytes,
+   shared memory, threads, blocks per SM, term tile, amplitudes a thread);
+   how the cluster sweeps A1 and C7 launch at H8
    (``kernels.grouped_attributes``: registers, local bytes, shared
    memory, blocks, threads, clusters the card can hold) and the barrier
    floor of each one's cluster shape (``kernels.cluster_floor``);
@@ -41,7 +46,9 @@ imports nothing of JAX and nothing of ``openvqe_tpu``.  Phases:
    registers, spills and shared memory of the instances H10 runs
    (``kernels.sweep_attributes``, ``kernels.bucket_attributes``; phase 1
    prints every kernel's ``nvcc -Xptxas -v`` lines), their resident
-   blocks per SM and their times against their bounds;
+   blocks per SM and their times against their bounds; B6's library
+   yardstick at H10 (``spmm_library``, the CSR of about 11 GB freed
+   before the phase goes on);
 6. per-group streaming kernel parity at n = 20 (the kernels of
    OVQE_STREAM_FUSE=0): each of the four against its plain version and
    against the bucketed kernel of the same function on the same inputs
@@ -50,7 +57,8 @@ imports nothing of JAX and nothing of ``openvqe_tpu``.  Phases:
    bit-identical when repeated, on H10's own operands and on the
    synthetic problems of phase 5 with inert groups added; timed at H10's
    shapes, with the registers, spills, shared memory and resident blocks
-   of the C8 instance H10 runs (``kernels.adjoint_stream_attributes``),
+   of the A2 and C8 instances H10 runs (``kernels.
+   stream_group_attributes``), B5's library yardstick (as B6's),
    the card's L2 copy rate (copies of buffers that stay in L2,
    ``l2_rate``, in CUDA graphs) and the time each kernel's states would
    take to pass once per group at that rate, printed beside its time (a
@@ -70,7 +78,10 @@ imports nothing of JAX and nothing of ``openvqe_tpu``.  Phases:
    sweeps through ``rot_stream`` and ``adjoint_stream`` and the H through
    the bucketed kernels only.  Then |psi|^2 - 1 of both streaming routes,
    the per-call time of all three routes at H10, the device busy share
-   of the new one and how its C8 instance launches;
+   of the new one with the profiler's count per call of host kernel
+   launches, graph launches and A2 and C8 kernels (A2 and C8 replay one
+   CUDA graph a call: fewer host launches than groups), and how its A2
+   and C8 instances launch;
 9. pool-kernel parity at n = 20: the two pool-overlap kernels (E14
    per-group, E15 bucketed) against their plain versions on H10's own
    pool operands (875 groups, K = 8) and on a synthetic pool (non-real
@@ -500,6 +511,73 @@ def bound(nbytes, flops):
     return 1e3 * max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
 
 
+def h_csr(x, z, coef, coef_im, k_live, N):
+    """H without its constant as an N x N CSR matrix on the card, built
+    from grouped operands (x (G,), z (G, K), coefficients, k_live) through
+    the plain field code (``grouped.sign_field``): one entry per row and
+    distinct x mask (the x = 0 groups merged into the diagonal entry, groups
+    of one mask summed), columns sorted, int32 indices, float32 values (a
+    real H: every ``coef_im`` zero).  The yardstick of the H-apply rows, not
+    used by the port."""
+    import torch
+    from openvqe_tpu_torch.sim import grouped as gr
+    check(not bool(coef_im.any()), "the CSR yardstick takes a real H")
+    dev = x.device
+    idx = torch.arange(N, dtype=torch.int64, device=dev)
+    masks = sorted(set(x.tolist()))
+    pos = {m: i for i, m in enumerate(masks)}
+    X = len(masks)
+    vals = torch.zeros((X, N), dtype=torch.float32, device=dev)
+    for g, (xg, kl) in enumerate(zip(x.tolist(), k_live.tolist())):
+        if kl:
+            vals[pos[xg]] += gr.sign_field(z[g, :kl], coef[g, :kl], idx)
+    mt = torch.tensor(masks, dtype=torch.int32, device=dev)
+    cols = torch.empty(N * X, dtype=torch.int32, device=dev)
+    values = torch.empty(N * X, dtype=torch.float32, device=dev)
+    rows = max(1, (1 << 26) // X)
+    for r0 in range(0, N, rows):
+        r1 = min(N, r0 + rows)
+        c = idx[r0:r1, None].to(torch.int32) ^ mt[None, :]
+        c, order = torch.sort(c, dim=1)
+        cols[r0 * X:r1 * X] = c.reshape(-1)
+        values[r0 * X:r1 * X] = torch.gather(vals[:, r0:r1].t(), 1,
+                                             order).reshape(-1)
+        del c, order
+    del vals
+    crow = torch.arange(0, N * X + 1, X, dtype=torch.int32, device=dev)
+    return torch.sparse_csr_tensor(crow, cols, values, (N, N))
+
+
+def spmm_library(name, label, psi, x, z, coef, coef_im, k_live, lam_plain,
+                 card):
+    """``library_ms`` of an H-apply row: one ``torch.sparse.mm`` (cuSPARSE
+    SpMM) of H's CSR (``h_csr``, built on the card and timed apart) with
+    ``psi.t().contiguous()`` (made outside the timed call), CUDA events as
+    ``cuda_ms``; held against the plain version within TOL_STATE.  The
+    matrix is freed before the phase goes on (about 11 GB at H10)."""
+    import torch
+    N = psi.shape[-1]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    A = h_csr(x, z, coef, coef_im, k_live, N)
+    torch.cuda.synchronize()
+    t_build = time.time() - t0
+    b = psi.t().contiguous()
+    out = torch.sparse.mm(A, b)
+    err = float((out.t() - lam_plain).abs().max())
+    check(err <= TOL_STATE, f"{label} SpMM against the plain {name}: {err}")
+    ms = cuda_ms(lambda: torch.sparse.mm(A, b))
+    nnz = A.values().numel()
+    print(f"library {name} at {label} shapes ({card}): torch.sparse.mm of "
+          f"H's CSR ({N} rows, {nnz} non-zeros, "
+          f"{(A.values().numel() * 8 + (N + 1) * 4) / 1e9:.3f} GB; built "
+          f"on the card in {t_build:.2f} s) with psi.t(): {ms:.4f} ms, "
+          f"max |SpMM - plain| {err:.3e}")
+    del A, b, out
+    torch.cuda.empty_cache()
+    return ms
+
+
 # -------------------------------------------------------------------- phases
 
 def phase_build():
@@ -531,7 +609,7 @@ def parity_case(label, psi, ang, sops, hops, errs, card):
     out["rot_sweep"] = float((a - b).abs().max())
     check(out["rot_sweep"] <= TOL_STATE, f"{label} rot_sweep {out}")
 
-    lam_k = K.ham_apply(a, *hops.args())
+    lam_k = K.ham_apply(a, hops)
     lam_p = gr.ham_apply_ref(a, *hops.args())
     out["ham_apply"] = float((lam_k - lam_p).abs().max())
     check(out["ham_apply"] <= TOL_STATE, f"{label} ham_apply {out}")
@@ -597,14 +675,14 @@ def phase_parity(h8, card):
     sops, ang = bound_h8["seq"]
     h = obj.hops
     psi = rand_state(N_QUBITS, 11, dev)
-    lam = K.ham_apply(psi, *h.args())
+    lam = K.ham_apply(psi, h)
     x, z, s, fm = sops.x, sops.z, sops.s, sops.fmode
     fns = {
         "rot_sweep": (lambda: K.rot_sweep(psi, ang, sops, fm),
                       lambda: gr.rot_sweep_ref(psi, ang, x, z, s, fm)),
         "expectation": (lambda: K.expectation(psi, *h.args()),
                         lambda: gr.expectation_ref(psi, *h.args())),
-        "ham_apply": (lambda: K.ham_apply(psi, *h.args()),
+        "ham_apply": (lambda: K.ham_apply(psi, h),
                       lambda: gr.ham_apply_ref(psi, *h.args())),
         "adjoint_sweep": (
             lambda: K.adjoint_sweep(psi, lam, ang, sops, fm),
@@ -624,6 +702,15 @@ def phase_parity(h8, card):
         print(f"time {name} at H8 shapes ({card}): kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({by}; "
               f"{nbytes} B, {flops} f32 ops)")
+    rows["ham_apply"]["library_ms"] = spmm_library(
+        "ham_apply", "H8", psi, h.x, h.z, h.a_re, h.a_im, h.k_live,
+        gr.ham_apply_ref(psi, *h.args()), card)
+    at = K.ham_attributes(h, N_QUBITS)
+    print(f"ham_apply at H8 ({card}): {json.dumps(at)}; "
+          f"{-(-(1 << N_QUBITS) // (at['per'] * at['threads']))} blocks, "
+          f"{h.G} groups (K {h.K}, {'real' if h.real else 'complex'}); "
+          f"{rows['ham_apply']['ms']:.4f} ms against a bound of "
+          f"{rows['ham_apply']['bound_ms']:.6f} ms")
     sweep_clusters(sops, psi, card)
     return rows
 
@@ -936,6 +1023,11 @@ def phase_stream_parity(h10, ref, card):
         print(f"time {name} at H10 shapes ({card}): kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({by}; "
               f"{nbytes} B, {flops} f32 ops)")
+    hgo = h10_ham_groups(obj)
+    rows["ham_bucketed"]["library_ms"] = spmm_library(
+        "ham_bucketed", "H10", psi, hgo.x, hgo.z, hgo.coef, hgo.coef_im,
+        hgo.k_live, ham(st.ham_bucketed_ref), card)
+    del hgo
     for name, ops in (("rot_fused", fwd), ("adjoint_fused", adj)):
         at = K.sweep_attributes(name, ops)
         r = rows[name]
@@ -950,6 +1042,15 @@ def phase_stream_parity(h10, ref, card):
               f"{r['bound_ms']:.6f} ms ({r['ms'] / r['bound_ms']:.2f}x)")
     print_bucket_attributes("ham_bucketed", hcl, "H10", card)
     return rows
+
+
+def h10_ham_groups(obj):
+    """H's groups with the diagonal as per-group operands (kernel B5's;
+    the groups of B6's K classes) on the card."""
+    from openvqe_tpu_torch.sim import streaming as st
+    return st.group_operands(st.stream_ham_data(
+        st.ham_view(obj.gham, obj.n), obj.chunk_bits, with_diag=True),
+        DEVICE)
 
 
 def print_bucket_attributes(name, classes, label, card):
@@ -967,12 +1068,12 @@ def print_bucket_attributes(name, classes, label, card):
               f"{1 << (hc.n - hc.chunk_bits)} blocks")
 
 
-def print_adjoint_stream_attributes(go, label, card):
-    """How C8 launches on ``go`` (kernels.adjoint_stream_attributes)."""
+def print_stream_group_attributes(name, go, label, card):
+    """How A2 or C8 launches on ``go`` (kernels.stream_group_attributes)."""
     from openvqe_tpu_torch.sim import kernels as K
-    at = K.adjoint_stream_attributes(go)
+    at = K.stream_group_attributes(name, go)
     nb = max(1, (1 << (go.n - 1)) // (at["threads"] * at["per"]))
-    print(f"adjoint_stream on {label}'s {go.G} groups ({card}): "
+    print(f"{name} on {label}'s {go.G} groups ({card}): "
           f"{at['per']} pairs a thread, term tile {at['k_tile']}, "
           f"{at['threads']} threads, {at['registers']} registers and "
           f"{at['spill_bytes']} B of local memory a thread, "
@@ -1044,17 +1145,14 @@ def env_vars(**values):
 def group_route(ham, gseq, hf, n):
     """The per-group streaming ansatz of ``gseq`` (its objective built with
     OVQE_STREAM_FUSE=0), the fused one on the same objective data, the
-    fused objective, and B5's operands: H's groups with the diagonal, the
-    groups of B6's K classes."""
-    from openvqe_tpu_torch.sim import streaming as st
+    fused objective, and B5's operands (``h10_ham_groups``)."""
     from openvqe_tpu_torch.sim.objective import VQEObjective
     with env_vars(OVQE_STREAM_FUSE="0"):
         obj = VQEObjective(ham, n=n, device=DEVICE)
     fobj = VQEObjective(ham, n=n, device=DEVICE)
     check(obj.stream and not obj.fuse and fobj.fuse,
           "OVQE_STREAM_FUSE=0 did not select the per-group streaming route")
-    hgo = st.group_operands(st.stream_ham_data(
-        st.ham_view(obj.gham, n), obj.chunk_bits, with_diag=True), DEVICE)
+    hgo = h10_ham_groups(obj)
     return (obj.bind_grouped(gseq, hf), fobj.bind_grouped(gseq, hf), fobj,
             hgo)
 
@@ -1225,7 +1323,11 @@ def phase_stream_group_parity(h10, ref, card):
     print(f"time expect_stream herm=False at H10 shapes ({card}): "
           f"{ms_nh:.4f} ms (the row's time is herm=True, the certificate "
           f"holds for H10)")
-    print_adjoint_stream_attributes(adj, "H10", card)
+    for name, ops in (("rot_stream", fwd), ("adjoint_stream", adj)):
+        print_stream_group_attributes(name, ops, "H10", card)
+    rows["ham_stream"]["library_ms"] = spmm_library(
+        "ham_stream", "H10", psi, hgo.x, hgo.z, hgo.coef, hgo.coef_im,
+        hgo.k_live, st.ham_stream_ref(psi, None, hgo), card)
     rate, ms_s, ms_l = l2_rate()
     state = psi.numel() * 4
     print(f"L2 rate ({card}): {rate / 1e12:.3f} TB/s (copies within L2 of "
@@ -1414,9 +1516,26 @@ def phase_h10_group_main(h10, ref, card, routes):
             ts.append(time.perf_counter() - t)
         print(f"energy_and_grad H10 {label} route on {card}: median "
               f"{1e3 * sorted(ts)[10]:.3f} ms over 20 calls")
-    device_share(b, theta0, card, "H10 UCCSD (OVQE_STREAM_FUSE=0 route)")
-    print_adjoint_stream_attributes(b._adj, "H10 (OVQE_STREAM_FUSE=0 route)",
-                                    card)
+    calls = 10
+    ev = device_share(b, theta0, card, "H10 UCCSD (OVQE_STREAM_FUSE=0 route)",
+                      calls=calls)
+    if ev is not None:
+        # A2 and C8 replay one CUDA graph a call: no host launch per group
+        count = {k: sum(e.count for e in ev if k in e.key) for k in (
+            "cudaLaunchKernel", "cudaGraphLaunch", "rot_stream_kernel",
+            "adjoint_stream_kernel")}
+        print(f"H10 OVQE_STREAM_FUSE=0 energy_and_grad under the profiler, "
+              f"per call: " + ", ".join(f"{k} {v / calls:g}"
+                                        for k, v in count.items())
+              + f" ({b._fwd.G} rotation groups)")
+        if count["cudaGraphLaunch"]:    # the trace holds the runtime calls
+            check(count["cudaLaunchKernel"] < calls * b._fwd.G
+                  and count["cudaGraphLaunch"] >= 2 * calls,
+                  f"the OVQE_STREAM_FUSE=0 sweeps launch from the host: "
+                  f"{count}")
+    for name, ops in (("rot_stream", b._fwd), ("adjoint_stream", b._adj)):
+        print_stream_group_attributes(name, ops,
+                                      "H10 (OVQE_STREAM_FUSE=0 route)", card)
     return launches
 
 

@@ -21,13 +21,28 @@ from . import streaming as st
 
 @dataclass
 class HamOperands:
-    """H = c + sum_g W_g X_{x_g}; the diagonal rides as x = 0 groups."""
+    """H = c + sum_g W_g X_{x_g}; the diagonal rides as x = 0 groups.
+
+    ``k_live`` is one past each group's last term with a non-zero weight
+    (re or im): kernel B4 adds no term past it.  ``real`` is the host
+    certificate that every ``a_im`` is zero, under which B4 computes no
+    W_im.  Build them with ``ham_operands``, never by hand."""
     x: torch.Tensor       # (G,) int32
     z: torch.Tensor       # (G, K) int32
     a_re: torch.Tensor    # (G, K)
     a_im: torch.Tensor    # (G, K)
+    k_live: torch.Tensor  # (G,) int32
+    real: bool
     c_re: float
     c_im: float
+
+    @property
+    def G(self) -> int:
+        return self.x.shape[0]
+
+    @property
+    def K(self) -> int:
+        return self.z.shape[1]
 
     def args(self):
         return self.x, self.z, self.a_re, self.a_im
@@ -67,6 +82,12 @@ class SeqOperands:
         return self.z.shape[1]
 
 
+def _k_live(live: np.ndarray) -> np.ndarray:
+    """One past the last True of each row of ``live`` (G, K); 0 for none."""
+    return np.where(live.any(axis=1),
+                    live.shape[1] - np.argmax(live[:, ::-1], axis=1), 0)
+
+
 def _dev(a, dtype, device) -> torch.Tensor:
     return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                            device=device).contiguous()
@@ -74,8 +95,9 @@ def _dev(a, dtype, device) -> torch.Tensor:
 
 def ham_operands(g, device, dtype=torch.float32) -> HamOperands:
     """Off-diagonal groups followed by the diagonal, chunked into x = 0
-    groups of the same width K.  A Hermitian-flagged sum drops its
-    imaginary parts, as the JAX package's paths do."""
+    groups of the same width K, with each group's live terms and the
+    all-real certificate.  A Hermitian-flagged sum drops its imaginary
+    parts, as the JAX package's paths do."""
     x = np.asarray(g.x, np.int32)
     z = np.asarray(g.z, np.int32).reshape(len(x), -1)
     a_re = np.asarray(g.a_re, np.float64).reshape(z.shape)
@@ -97,7 +119,9 @@ def ham_operands(g, device, dtype=torch.float32) -> HamOperands:
     return HamOperands(
         x=_dev(x, torch.int32, device), z=_dev(z, torch.int32, device),
         a_re=_dev(a_re, dtype, device), a_im=_dev(a_im, dtype, device),
-        c_re=float(g.c_re), c_im=float(g.c_im))
+        k_live=_dev(_k_live((a_re != 0) | (a_im != 0)), torch.int32,
+                    device),
+        real=not np.any(a_im), c_re=float(g.c_re), c_im=float(g.c_im))
 
 
 def seq_operands(g, device, dtype=torch.float32) -> SeqOperands:
@@ -115,12 +139,10 @@ def seq_operands(g, device, dtype=torch.float32) -> SeqOperands:
     keep = ~pad
     x, z, s = x[keep], z[keep], s[keep]
     live = s != 0
-    k_live = np.where(live.any(axis=1),
-                      live.shape[1] - np.argmax(live[:, ::-1], axis=1), 0)
     odd = st._popcount(x[:, None] & z) & 1 == 1
     return SeqOperands(
         n=int(g.n), x=_dev(x, torch.int32, device),
         z=_dev(z, torch.int32, device), s=_dev(s, dtype, device),
         z_pair=_dev(st.pair_masks(x, z), torch.int32, device),
-        k_live=_dev(k_live, torch.int32, device), op=op[keep],
+        k_live=_dev(_k_live(live), torch.int32, device), op=op[keep],
         fmode=int(g.fmode), odd_y=bool(np.all(odd | ~live)))

@@ -20,18 +20,17 @@
 // one full pass per group, and for the sweeps one launch per group.  The
 // designs:
 //
-// * rot_stream (A2) / adjoint_stream (C8): groups do not commute, so the
-//   barrier between two groups is the launch boundary: one C entry point
-//   loops G launches on the host (875 per call at H10, a few us each);
-//   C8's loop is captured once per operand set into a CUDA graph, which
-//   closes most of the card's gaps between its launches (PERF.md).
-//   The rotation is applied in the norm-keeping form
-//   psi + ((cos - 1) psi + sin psi_x) of rot_cm (the JAX kernels apply
-//   cos psi + sin psi_x, whose float32 norm drifts over 875 groups by
-//   2e-6).  A2: one thread per pair {j, j ^ x} (j with bit msb(x) clear),
-//   updated in place, so each pair has one owner; both ends' fields.
-//   C8 (redesigned for Hopper) takes the pairs apart along the bit fields
-//   of the pair index t (j = insert_zero(t, h), h = msb(x)):
+// * rot_stream (A2) / adjoint_stream (C8), both redesigned for Hopper:
+//   groups do not commute, so the barrier between two groups is the
+//   launch boundary: one launch per group (875 at H10), captured once per
+//   operand set into a CUDA graph and replayed, so a call costs the host
+//   one graph launch; the kernels read the call's states and angles (C8:
+//   and its partials and entries) from a device argument buffer
+//   (AdjointArgs) that the replay fills in stream order.  The rotation is
+//   applied in the norm-keeping form psi + ((cos - 1) psi + sin psi_x) of
+//   rot_cm (the JAX kernels apply cos psi + sin psi_x, whose float32 norm
+//   drifts over 875 groups by 2e-6).  Both take the pairs apart along the
+//   bit fields of the pair index t (j = insert_zero(t, h), h = msb(x)):
 //   - t = (block base) | q 2^8 | tid, PER pairs per thread, so a group's
 //     launch has 2^(n-1) / (256 PER) blocks (256 at H10, PER = 8);
 //   - parity(j & z_k) = parity(t & z'_k), z'_k = z_k with bit h taken out
@@ -40,21 +39,32 @@
 //     term and thread, the loop part a row of the fixed PER x PER table
 //     (bucket_fields, common.cuh), each product exact and the terms added
 //     in order, so F(j) is field2's (common.cuh) bit for bit;
+//   - A2's group g + 1 is a programmatic dependent launch of group g
+//     (Hopper's griddepcontrol): its blocks compute the sign table, their
+//     fields and angle terms while group g's blocks finish, then wait for
+//     group g's writes before they touch psi;
 //   - one field per pair: every rotation group is odd-Y (the host
-//     certifies it, GroupOperands.odd_y, and the wrapper refuses operands
-//     without it), so F(j ^ x) = -F(j) exactly, and the partner takes
-//     (cos - 1, -sin); the angle terms (rot_angle) once per thread;
-//   - the states are updated with the expressions of the one-pair design
-//     (A2's, and C8's before this one) on the same numbers, so p and
-//     lambda are that design's bit for bit; the pair's
-//     share of the group's entry -2 sum_j F(j) (lam_j . p_{j^x}) is
-//     F(j) (lam_j . p_jj - lam_jj . p_j), taken before the un-rotation,
-//     summed over the thread's pairs in float32 and over the block in
-//     float64 into partials (G, nb); one adjoint_reduce_kernel launch
-//     sums each row in a fixed order, so the entries repeat bit for bit.
+//     certifies it, GroupOperands.odd_y, and the wrappers refuse operands
+//     without it), so F(j ^ x) = -F(j) exactly (+0 where F(j) = 0), and
+//     the partner takes (cos - 1, -sin) (the same at F = 0, rot_cm being
+//     even and sinf odd in the field); the angle terms (rot_angle) once
+//     per thread;
+//   - the states are updated with the expressions of the one-pair-a-thread
+//     design (A2's and C8's before these) on the same numbers, so psi, p
+//     and lambda are that design's bit for bit (A2's written out with
+//     __fmaf_rn / __fmul_rn / __fadd_rn in the roundings nvcc gave that
+//     kernel); A2 loads a thread's PER pairs before it writes any;
+//   - C8: the pair's share of the group's entry -2 sum_j F(j)
+//     (lam_j . p_{j^x}) is F(j) (lam_j . p_jj - lam_jj . p_j), taken
+//     before the un-rotation, summed over the thread's pairs in float32
+//     and over the block in float64 into partials (G, nb); one
+//     adjoint_reduce_kernel launch sums each row in a fixed order, so the
+//     entries repeat bit for bit.
 //   A state of fewer than 2^9 amplitudes, or too few for the PER asked
 //   for, takes the largest PER whose blocks it fills (PER = 1 and idle
-//   threads below 2^9 amplitudes).
+//   threads below 2^9 amplitudes).  At H10 A2 takes 3.5 ms and C8 7.1 ms
+//   against bounds of 0.36 and 0.51 ms (PERF.md): ~4 and ~8 us a group,
+//   which moves 16 and 32 MB through the L2.
 // * ham_stream (B5): the sum is order-free, so one launch for all groups,
 //   output-stationary: one thread per output amplitude loops over the
 //   groups and their live rows, with both weight fields (the JAX kernel
@@ -67,11 +77,11 @@
 //   end with bit msb(x) clear, doubled; the JAX kernel halves only the
 //   pairs that cross chunks, which gives the same value on such groups.
 //
-// A CUDA graph for A2's 875 launches, and A2 on C8's design, are later
-// work.  Every entry point launches on the caller's stream, never
-// synchronises, allocates no device memory (C8's graph is the driver's
-// object, made by ovqe_adjoint_stream_graph and freed by
-// ovqe_graph_destroy), and returns a CUDA error code (0 on success).
+// Every entry point launches on the caller's stream, never synchronises,
+// allocates no device memory (A2's and C8's graphs belong to the CUDA
+// runtime, made by ovqe_rot_stream_graph and ovqe_adjoint_stream_graph and
+// freed by ovqe_graph_destroy), and returns a CUDA error code (0 on
+// success).
 
 #include "common.cuh"
 
@@ -79,44 +89,9 @@
 
 namespace {
 
-// ---------------------------------------------------------------- kernel 1
-// rot_stream, one launch per group g in order.  Replaces
-// openvqe_tpu/sim/streaming.py::_rot_stream_kernel.  x == 0 is an identity.
-__global__ void __launch_bounds__(SG_THREADS)
-rot_stream_kernel(float* __restrict__ psi, unsigned N,
-                  const int* __restrict__ x, const int* __restrict__ z,
-                  const float* __restrict__ s, const int* __restrict__ kl,
-                  const float* __restrict__ ang, int g, int K, int fmode) {
-  const unsigned t = blockIdx.x * SG_THREADS + threadIdx.x;
-  const unsigned xg = (unsigned)x[g];
-  if (t >= (N >> 1) || xg == 0u) return;
-  const int h = 31 - __clz(xg);
-  const unsigned j = insert_zero(t, h), jj = j ^ xg;
-  float Fj, Fjj, cj, sj, ck, sk;                // cj, ck: cos - 1
-  field2(j, jj, z + (size_t)g * K, s + (size_t)g * K, kl[g], Fj, Fjj);
-  const RotAngle ra = rot_angle(ang[g], fmode);
-  rot_cm(ra, Fj, fmode, cj, sj);
-  rot_cm(ra, Fjj, fmode, ck, sk);
-  float* re = psi;
-  float* im = psi + N;
-  const float a0 = re[j], a1 = im[j], b0 = re[jj], b1 = im[jj];
-  re[j] = a0 + (cj * a0 + sj * b0);
-  im[j] = a1 + (cj * a1 + sj * b1);
-  re[jj] = b0 + (ck * b0 + sk * a0);
-  im[jj] = b1 + (ck * b1 + sk * a1);
-}
-
-// ---------------------------------------------------------------- kernel 2
-// adjoint_stream, one launch per group of the REVERSED sequence, in the
-// operands' order.  Replaces
-// openvqe_tpu/sim/streaming.py::_adj_stream_kernel.  Thread tid of block
-// b owns the pairs t = b PER 2^8 | q 2^8 | tid, q < PER, with t < 2^(n-1)
-// (every t when PER > 1: the entry point sizes PER to the state).  zp holds
-// the operands' z_pair (z with bit msb(x) taken out), s the real
-// coefficients, kl each group's live terms.  The states, angles and
-// partials of the call are read from args (device memory), so one graph of
-// the G launches serves every call on the operand set.  The block's share
-// of group g's entry goes to partials[g][blockIdx.x] (zero for x == 0).
+// The per-call arguments of A2 and C8, read from device memory so that
+// one graph of an operand set's G launches serves every call on it: the
+// state(s) (A2: psi in p), the angles and C8's partials and entries.
 struct AdjointArgs {
   float* p;
   float* l;
@@ -125,8 +100,75 @@ struct AdjointArgs {
   float* gts;
 };
 static_assert(sizeof(AdjointArgs) == 5 * sizeof(void*),
-              "kernels.adjoint_stream fills five pointers");
+              "kernels.rot_stream and adjoint_stream fill five pointers");
 
+// ---------------------------------------------------------------- kernel 1
+// rot_stream, one launch per group g in order.  Replaces
+// openvqe_tpu/sim/streaming.py::_rot_stream_kernel.  Thread tid of block
+// b owns the pairs t = b PER 2^8 | q 2^8 | tid, q < PER, with t < 2^(n-1)
+// (every t when PER > 1: the entry point sizes PER to the state).  zp holds
+// the operands' z_pair (z with bit msb(x) taken out), s the real
+// coefficients, kl each group's live terms.  x == 0 is an identity.
+template <int PER, int KT>
+__global__ void __launch_bounds__(SG_THREADS)
+rot_stream_kernel(const AdjointArgs* __restrict__ args, unsigned N,
+                  const int* __restrict__ x, const int* __restrict__ zp,
+                  const float* __restrict__ s, const int* __restrict__ kl,
+                  int g, int K, int fmode) {
+  // the next group's launch may start (its blocks take slots as this
+  // group's retire); everything up to griddepcontrol.wait reads only the
+  // operands and the angles, which no launch of the graph writes
+  asm volatile("griddepcontrol.launch_dependents;");
+  __shared__ __align__(16) float S[PER * PER];
+  sign_table<PER>(S);
+  __syncthreads();
+  const unsigned xg = (unsigned)x[g];
+  if (xg == 0u) return;
+  float* __restrict__ re = args->p;
+  float* __restrict__ im = re + N;
+  const unsigned tb = (blockIdx.x * PER * SG_THREADS) | threadIdx.x;
+  const int h = 31 - __clz(xg);
+  float F[PER], unused[PER];
+  bucket_fields<PER, KT, true>(F, unused, tb, zp + (size_t)g * K,
+                               s + (size_t)g * K, s + (size_t)g * K, kl[g],
+                               S);
+  const RotAngle ra = rot_angle(args->ang[g], fmode);
+  // the previous group's launch has finished and its writes are visible
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  unsigned j[PER];
+  float a0[PER], a1[PER], b0[PER], b1[PER];
+#pragma unroll
+  for (int q = 0; q < PER; ++q) {
+    const unsigned t = tb | (q * SG_THREADS);
+    if (PER == 1 && t >= (N >> 1)) return;        // a state below 2^9
+    j[q] = insert_zero(t, h);
+    a0[q] = re[j[q]];
+    a1[q] = im[j[q]];
+    b0[q] = re[j[q] ^ xg];
+    b1[q] = im[j[q] ^ xg];
+  }
+  // The one-pair kernel's psi + ((cos - 1) psi + sin psi_x) at each end in
+  // the roundings nvcc gave it: at j its (cos - 1) product fused, at
+  // j ^ x its sin product.
+#pragma unroll
+  for (int q = 0; q < PER; ++q) {
+    float cj, sj;                                 // cj: cos - 1
+    rot_cm(ra, F[q], fmode, cj, sj);
+    const float ck = cj, sk = F[q] == 0.f ? sj : -sj;   // at -F(j)
+    const unsigned jj = j[q] ^ xg;
+    re[j[q]] = __fadd_rn(a0[q], __fmaf_rn(cj, a0[q], __fmul_rn(sj, b0[q])));
+    im[j[q]] = __fadd_rn(a1[q], __fmaf_rn(cj, a1[q], __fmul_rn(sj, b1[q])));
+    re[jj] = __fadd_rn(b0[q], __fmaf_rn(sk, a0[q], __fmul_rn(ck, b0[q])));
+    im[jj] = __fadd_rn(b1[q], __fmaf_rn(sk, a1[q], __fmul_rn(ck, b1[q])));
+  }
+}
+
+// ---------------------------------------------------------------- kernel 2
+// adjoint_stream, one launch per group of the REVERSED sequence, in the
+// operands' order.  Replaces
+// openvqe_tpu/sim/streaming.py::_adj_stream_kernel.  The pairs, zp, s and
+// kl as in rot_stream_kernel.  The block's share of group g's entry goes
+// to partials[g][blockIdx.x] (zero for x == 0).
 template <int PER, int KT>
 __global__ void __launch_bounds__(SG_THREADS)
 adjoint_stream_kernel(const AdjointArgs* __restrict__ args, unsigned N,
@@ -255,10 +297,10 @@ unsigned blocks_for(long long items) {
 
 bool n_ok(long long N) { return N >= 2 && N <= (1ll << 30); }
 
-// C8's pairs per thread: 8, or 1, 2 or 4 on a state whose pairs do not
-// fill 2^8 threads' PER (kernels.stream_per picks it); PER 2^8 threads'
-// pairs no more than the state's 2^(n-1) unless PER = 1.  Its blocks:
-// 2^(n-1) / (256 PER), at least one.
+// A2's and C8's pairs per thread: 8, or 1, 2 or 4 on a state whose pairs
+// do not fill 2^8 threads' PER (kernels.stream_per picks it); PER 2^8
+// threads' pairs no more than the state's 2^(n-1) unless PER = 1.  Their
+// blocks: 2^(n-1) / (256 PER), at least one.
 bool per_known(int per) {
   return per == 1 || per == 2 || per == 4 || per == 8;
 }
@@ -268,11 +310,12 @@ bool per_ok(long long N, int per) {
          (per == 1 || (long long)per * SG_THREADS <= (N >> 1));
 }
 
-unsigned adjoint_blocks(long long N, int per) {
+unsigned pair_blocks(long long N, int per) {
   return blocks_for(((N >> 1) + per - 1) / per);
 }
 
-// The compile-time term tile of C8: 2, or 1 for an odd K (bucket_dispatch).
+// The compile-time term tile of A2 and C8: 2, or 1 for an odd K
+// (bucket_dispatch).
 template <int PER, typename F>
 int with_tile(int K, const F& f) {
   return K % 2 == 0 ? f.template run<PER, 2>() : f.template run<PER, 1>();
@@ -288,8 +331,10 @@ int per_dispatch(int per, int K, const F& f) {
   }
 }
 
-// The G launches of C8 (one per group, in order) for per_dispatch.
-struct AdjointLaunch {
+// The G launches of A2 (adj = false) or C8 (one per group, in order) for
+// per_dispatch.
+struct PairLaunch {
+  bool adj;
   const AdjointArgs* args;
   long long N;
   const int *x, *zp;
@@ -301,8 +346,26 @@ struct AdjointLaunch {
   template <int PER, int KT>
   int run() const {
     for (int g = 0; g < G; ++g) {
-      adjoint_stream_kernel<PER, KT><<<nb, SG_THREADS, 0, st>>>(
-          args, (unsigned)N, x, zp, s, kl, g, K, fmode);
+      if (adj) {
+        adjoint_stream_kernel<PER, KT><<<nb, SG_THREADS, 0, st>>>(
+            args, (unsigned)N, x, zp, s, kl, g, K, fmode);
+      } else {
+        // A2's launches after the first are programmatic dependents of the
+        // one before (rot_stream_kernel waits on it in griddepcontrol.wait)
+        cudaLaunchAttribute at[1];
+        at[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+        at[0].val.programmaticStreamSerializationAllowed = 1;
+        cudaLaunchConfig_t cfg{};
+        cfg.gridDim = dim3(nb);
+        cfg.blockDim = dim3(SG_THREADS);
+        cfg.stream = st;
+        cfg.attrs = at;
+        cfg.numAttrs = g > 0 ? 1 : 0;
+        const int e = (int)cudaLaunchKernelEx(
+            &cfg, rot_stream_kernel<PER, KT>, args, (unsigned)N, x, zp, s,
+            kl, g, K, fmode);
+        if (e) return e;
+      }
       const cudaError_t e = cudaGetLastError();
       if (e != cudaSuccess) return (int)e;
     }
@@ -311,12 +374,15 @@ struct AdjointLaunch {
 };
 
 // Resident blocks per SM, registers and local (spill) bytes per thread,
-// static shared memory, threads and the term tile of C8's instance.
-struct AdjointAttrs {
+// static shared memory, threads, the term tile and PER of A2's (adj =
+// false) or C8's instance.
+struct PairAttrs {
+  bool adj;
   int* out;
   template <int PER, int KT>
   int run() const {
-    const void* fn = (const void*)adjoint_stream_kernel<PER, KT>;
+    const void* fn = adj ? (const void*)adjoint_stream_kernel<PER, KT>
+                         : (const void*)rot_stream_kernel<PER, KT>;
     cudaFuncAttributes a;
     int e = (int)cudaFuncGetAttributes(&a, fn);
     if (e) return e;
@@ -341,19 +407,32 @@ extern "C" {
 
 int ovqe_sg_block_threads(void) { return SG_THREADS; }
 
-int ovqe_rot_stream(float* psi, long long N, const int* x, const int* z,
-                    const float* s, const int* kl, const float* ang, int G,
-                    int K, int fmode, void* stream) {
-  if (!n_ok(N)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  const unsigned nb = blocks_for(N >> 1);
-  for (int g = 0; g < G; ++g) {
-    rot_stream_kernel<<<nb, SG_THREADS, 0, st>>>(psi, (unsigned)N, x, z, s,
-                                                 kl, ang, g, K, fmode);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  return 0;
+// A2 on the operand set (x, zp, s, kl) of G groups: G launches in order on
+// `stream`; the state and the angles are those args points to.
+int ovqe_rot_stream(long long N, const int* x, const int* zp, const float* s,
+                    const int* kl, int G, int K, int fmode, int per, int nb,
+                    const void* args, void* stream) {
+  if (!n_ok(N) || !per_ok(N, per) || (unsigned)nb != pair_blocks(N, per))
+    return (int)cudaErrorInvalidValue;
+  if (G <= 0) return 0;
+  return per_dispatch(per, K, PairLaunch{false, (const AdjointArgs*)args, N,
+                                         x, zp, s, kl, G, K, fmode,
+                                         (unsigned)nb, (cudaStream_t)stream});
+}
+
+// ovqe_rot_stream captured once into an executable graph (*exec), as
+// ovqe_adjoint_stream_graph captures C8: at H10 one graph launch for the
+// 875 kernels.
+int ovqe_rot_stream_graph(long long N, const int* x, const int* zp,
+                          const float* s, const int* kl, int G, int K,
+                          int fmode, int per, int nb, const void* args,
+                          void** exec) {
+  return capture_graph(
+      [&](cudaStream_t cs) {
+        return ovqe_rot_stream(N, x, zp, s, kl, G, K, fmode, per, nb, args,
+                               cs);
+      },
+      exec);
 }
 
 // C8 on the operand set (x, zp, s, kl) of G groups: G launches in order,
@@ -363,13 +442,13 @@ int ovqe_adjoint_stream(long long N, const int* x, const int* zp,
                         const float* s, const int* kl, int G, int K,
                         int fmode, int per, int nb, const void* args,
                         void* stream) {
-  if (!n_ok(N) || !per_ok(N, per) || (unsigned)nb != adjoint_blocks(N, per))
+  if (!n_ok(N) || !per_ok(N, per) || (unsigned)nb != pair_blocks(N, per))
     return (int)cudaErrorInvalidValue;
   if (G <= 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
   const AdjointArgs* a = (const AdjointArgs*)args;
-  const int e = per_dispatch(
-      per, K, AdjointLaunch{a, N, x, zp, s, kl, G, K, fmode, (unsigned)nb, st});
+  const int e = per_dispatch(per, K, PairLaunch{true, a, N, x, zp, s, kl, G,
+                                                K, fmode, (unsigned)nb, st});
   if (e) return e;
   adjoint_reduce_kernel<<<G, SG_THREADS, 0, st>>>(a, nb);
   return (int)cudaGetLastError();
@@ -403,10 +482,11 @@ int ovqe_graph_destroy(void* exec) { return graph_destroy(exec); }
 
 // out[7]: resident blocks per SM, registers per thread, local (spill)
 // bytes per thread, static shared memory bytes, threads per block, the
-// term tile and PER of adjoint_stream for operands of this K.
-int ovqe_adjoint_stream_attrs(int per, int K, int* out) {
+// term tile and PER of rot_stream (adj = 0) or adjoint_stream (adj = 1)
+// for operands of this K.
+int ovqe_stream_group_attrs(int adj, int per, int K, int* out) {
   if (!per_known(per)) return (int)cudaErrorInvalidValue;
-  return per_dispatch(per, K, AdjointAttrs{out});
+  return per_dispatch(per, K, PairAttrs{adj != 0, out});
 }
 
 int ovqe_ham_stream(const float* psi, const float* acc_in, float* out,

@@ -34,32 +34,33 @@ libraries are bound with ``ctypes``.
 
 Wrapper rules: a tensor on the CPU goes to the plain PyTorch version
 (``sim/grouped.py``, ``sim/streaming.py``); a CUDA tensor goes to the
-kernel, or the wrapper raises.  There is no fallback.  Per-group operands
-are those of ``sim/convert.py``: for the H kernels x (G,) int32, z (G, K)
-int32, coefficients (G, K) float32; for the sweeps a
-``convert.SeqOperands`` with angles (G,) float32; bucketed operands are a
-``streaming.BucketOperands`` with angles (B, gcap) float32; per-group
-streaming operands a ``streaming.GroupOperands`` with angles (G,)
-float32; pool-overlap rows are (G, 2) or (B, gcap, 2) float32 (re, im);
-state planes are (2, 2^n) float32, all contiguous and on one device.
-Outputs are allocated with ``torch.empty`` and the kernels run on the
-current stream.  ``LAUNCHES`` counts, per wrapper, the calls that launched
-the kernel.  ``rot_sweep`` and ``adjoint_sweep`` (A1, C7) run one launch
-per sweep, the state held in the shared memory of one thread-block cluster
-(``cluster_size`` picks its blocks from n; a cluster the card refuses
-raises); where one cluster cannot hold the states (A1 at n >= 19, C7 at
-n >= 18) their per-group kernels replay one CUDA graph per operand set.
-``rot_sweep``, ``adjoint_sweep``, ``rot_fused``, ``adjoint_fused`` and
-``adjoint_stream`` compute one field per pair and take only operands that
-carry the odd-Y certificate (``SeqOperands.odd_y``,
+kernel, or the wrapper raises.  There is no fallback.  Per-group operands are
+those of ``sim/convert.py``: for the H-apply a ``convert.HamOperands``, for
+the expectation its x (G,) int32, z (G, K) int32 and coefficients (G, K)
+float32; for the sweeps a ``convert.SeqOperands`` with angles (G,) float32;
+bucketed operands are a ``streaming.BucketOperands`` with angles (B, gcap)
+float32; per-group streaming operands a ``streaming.GroupOperands`` with
+angles (G,) float32; pool-overlap rows are (G, 2) or (B, gcap, 2) float32
+(re, im); state planes are (2, 2^n) float32, all contiguous and on one
+device.  Outputs are allocated with ``torch.empty`` and the kernels run on
+the current stream.  ``LAUNCHES`` counts, per wrapper, the calls that
+launched the kernel.  ``rot_sweep`` and ``adjoint_sweep`` (A1, C7) run one
+launch per sweep, the state held in the shared memory of one thread-block
+cluster (``cluster_size`` picks its blocks from n; a cluster the card
+refuses raises); where one cluster cannot hold the states (A1 at n >= 19,
+C7 at n >= 18) their per-group kernels replay one CUDA graph per operand
+set, as ``rot_stream`` and ``adjoint_stream`` (A2, C8) do on every
+call.  ``rot_sweep``, ``adjoint_sweep``, ``rot_fused``, ``adjoint_fused``,
+``rot_stream`` and ``adjoint_stream`` compute one field per pair and take
+only operands that carry the odd-Y certificate (``SeqOperands.odd_y``,
 ``BucketOperands.odd_y``, ``GroupOperands.odd_y``), on either device:
 without it they raise ``ValueError``.  The kernels that stage states with
 16-byte loads (``rot_sweep`` and ``adjoint_sweep`` on a cluster,
 ``rot_fused``, ``adjoint_fused``, ``ham_bucketed``, ``expect_bucketed``,
 ``expect_hoisted``) refuse a state on the card whose data is not 16-byte
-aligned.  ``grouped_attributes``, ``sweep_attributes``,
-``bucket_attributes`` and ``adjoint_stream_attributes`` report how A1 /
-C7, A3 / C9, B6 / D12 / D13 and C8 launch (registers, spills, shared
+aligned.  ``grouped_attributes``, ``ham_attributes``, ``sweep_attributes``,
+``bucket_attributes`` and ``stream_group_attributes`` report how A1 / C7,
+B4, A3 / C9, B6 / D12 / D13 and A2 / C8 launch (registers, spills, shared
 memory, resident blocks per SM or clusters); ``cluster_floor`` runs the
 barrier floor of the cluster sweeps.
 """
@@ -167,7 +168,8 @@ _SIGNATURES = {
         "ovqe_sweep_attrs": "IIIIIP",
         "ovqe_sweep_group_attrs": "IIP",
         "ovqe_cluster_floor": "IIIPP",
-        "ovqe_ham_apply": "PPLPPPPIIP",
+        "ovqe_ham_apply": "PPLPPPPPIIIIP",
+        "ovqe_ham_attrs": "IIIIP",
         "ovqe_expectation": "PLPPPPIIPIPP",
         "ovqe_block_threads": "",
     },
@@ -181,12 +183,13 @@ _SIGNATURES = {
         "ovqe_bucket_attrs": "IIIIP",
     },
     "stream_group": {
-        "ovqe_rot_stream": "PLPPPPPIIIP",
+        "ovqe_rot_stream": "LPPPPIIIIIPP",
+        "ovqe_rot_stream_graph": "LPPPPIIIIIPP",
         "ovqe_adjoint_stream": "LPPPPIIIIIPP",
         "ovqe_adjoint_stream_graph": "LPPPPIIIIIPP",
         "ovqe_graph_replay": "PPPP",
         "ovqe_graph_destroy": "P",
-        "ovqe_adjoint_stream_attrs": "IIP",
+        "ovqe_stream_group_attrs": "IIIP",
         "ovqe_ham_stream": "PPPLPPPPPIIP",
         "ovqe_expect_stream": "PLPPPPPIIIPIPP",
         "ovqe_sg_block_threads": "",
@@ -475,18 +478,67 @@ def cluster_floor(G: int, C: int, smem_bytes: int,
     return out
 
 
-def ham_apply(psi, x, z, a_re, a_im):
-    """sum_g W_g(j) psi[j ^ x_g] (x = 0 groups carry the diagonal; the
-    identity offset is the caller's)."""
-    if psi.device.type == "cpu":
-        return gr.ham_apply_ref(psi, x, z, a_re, a_im)
+HAM_PER = 2             # amplitudes a thread of B4 (ham_apply): the
+                        # fastest at H8 on an H100, level at H6 and BeH2
+HAM_THREADS = 128       # GR_HAM_THREADS of csrc/grouped_kernels.cu
+
+
+def ham_per(N: int) -> int:
+    """B4's amplitudes per thread on a state of N amplitudes: ``HAM_PER``,
+    or the largest power of two below it whose blocks of ``HAM_THREADS``
+    the state fills (1, with idle threads, below ``HAM_THREADS``)."""
+    per = HAM_PER
+    while per > 1 and per * HAM_THREADS > N:
+        per //= 2
+    return per
+
+
+def _ham_ops(psi: torch.Tensor, ho: convert.HamOperands) -> int:
+    """Check B4's operands against the state; return N."""
     N = _state("psi", psi)
-    G, K = _groups(psi, x, z, (a_re, a_im))
-    lib = _load()
+    _groups(psi, ho.x, ho.z, (ho.a_re, ho.a_im))
+    _check("k_live", ho.k_live, torch.int32, (ho.G,), psi.device)
+    return N
+
+
+def _ham(psi, ho: convert.HamOperands, per: int):
+    """B4's launch at ``per`` amplitudes a thread (``ham_per``'s on the
+    entry point's path)."""
+    N = _ham_ops(psi, ho)
     out = torch.empty_like(psi)
-    _launch("ham_apply", lib.ovqe_ham_apply, psi, out, N, x, z, a_re, a_im,
-            G, K, _stream(psi))
+    _launch("ham_apply", _load().ovqe_ham_apply, psi, out, N, ho.x, ho.z,
+            ho.a_re, ho.a_im, ho.k_live, ho.G, ho.K, int(ho.real), per,
+            _stream(psi))
     return out
+
+
+def ham_apply(psi, ho: convert.HamOperands):
+    """sum_g W_g(j) psi[j ^ x_g] over the groups of ``ho`` (x = 0 groups
+    carry the diagonal; the identity offset is the caller's).  On the card
+    one launch, ``ham_per(N)`` amplitudes a thread; each group adds its
+    ``ho.k_live`` terms, and W_im only where ``ho.real`` is false."""
+    if psi.device.type == "cpu":
+        return gr.ham_apply_ref(psi, *ho.args())
+    N = _ham_ops(psi, ho)
+    if not ho.G:
+        return torch.zeros_like(psi)
+    return _ham(psi, ho, ham_per(N))
+
+
+def ham_attributes(ho: convert.HamOperands, n: int) -> Dict[str, int]:
+    """How ``ham_apply`` launches on ``ho`` at a 2^n state: registers and
+    local (spill) bytes per thread, dynamic shared memory and threads per
+    block, resident blocks per SM, the compiled term tile and the
+    amplitudes per thread (the instance is chosen by PER, K and
+    ``ho.real``)."""
+    out = (ctypes.c_int * 7)()
+    rc = _load().ovqe_ham_attrs(ham_per(1 << n), ho.K, int(ho.real),
+                                max(1, ho.G), ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"ham_attributes: CUDA error {rc}")
+    keys = ("registers", "local_bytes", "smem_bytes", "threads",
+            "blocks_per_sm", "k_tile", "per")
+    return dict(zip(keys, list(out)))
 
 
 def expectation(psi, x, z, a_re, a_im):
@@ -729,34 +781,50 @@ def _group_ops(psi: torch.Tensor, go: st.GroupOperands,
 
 def rot_stream(psi, ang, go: st.GroupOperands, fmode: int,
                inplace: bool = False):
-    """The rotation sweep over the groups of ``go`` in order, one launch
-    per group; ang (G,) holds -theta[op] per group.  ``inplace`` rotates
-    psi itself and returns it (no second state)."""
+    """The rotation sweep over the groups of ``go`` in order; ang (G,)
+    holds -theta[op] per group.  ``inplace`` rotates psi itself and
+    returns it (no second state).  ``go`` must carry the odd-Y
+    certificate (``go.odd_y``) on either device.  On the card the G
+    launches (one per group, ``stream_per(N)`` pairs a thread) are one
+    CUDA graph, captured on the first call for ``go`` (and this N, PER,
+    field mode and stream) and replayed after, as ``adjoint_stream``'s;
+    one host thread at a time may call it on one ``go``."""
+    _odd_y(go)
     if psi.device.type == "cpu":
         return _in_place(psi, st.rot_stream_ref(psi, ang, go, fmode),
                          inplace)
     N = _group_ops(psi, go, (go.coef,))
     _check("ang", ang, torch.float32, (go.G,), psi.device)
-    lib = _load("stream_group")
+    fmode = _fmode(fmode)
     out = psi if inplace else torch.empty_like(psi).copy_(psi)
     if go.G:
-        _launch("rot_stream", lib.ovqe_rot_stream, out, N, go.x, go.z,
-                go.coef, go.k_live, ang, go.G, go.K, _fmode(fmode),
-                _stream(psi))
+        _rot_stream(out, ang, go, fmode, stream_per(N))
     return out
 
 
-STREAM_PER = 8          # pairs per thread of C8 (adjoint_stream)
+def _rot_stream(psi, ang, go: st.GroupOperands, fmode: int, per: int):
+    """A2 on psi in place at ``per`` pairs a thread (``stream_per``'s on
+    the entry point's path): one replay of the operand set's graph."""
+    N = psi.shape[-1]
+    _load("stream_group")       # builds and reads _sg_threads
+    nb = -(-(N // 2 // per) // _sg_threads)
+    stream = _stream(psi)
+    _stream_graph("rot_stream", go, N, per, fmode, nb, stream).replay(
+        "rot_stream", (psi.data_ptr(), 0, ang.data_ptr(), 0, 0), stream)
+
+
+STREAM_PER = 8          # pairs per thread of A2 and C8
 
 
 def stream_per(N: int) -> int:
-    """C8's pairs per thread on a state of N amplitudes: ``STREAM_PER``, or
-    the largest power of two below it whose 256-thread blocks the state's
-    N / 2 pairs fill (1 below 2^9 amplitudes, with idle threads).  A state
-    size the kernel does not take (not a power of two from 2 to 2^30)
-    raises ``ValueError``."""
+    """A2's and C8's pairs per thread on a state of N amplitudes:
+    ``STREAM_PER``, or the largest power of two below it whose 256-thread
+    blocks the state's N / 2 pairs fill (1 below 2^9 amplitudes, with idle
+    threads).  A state size the kernel does not take (not a power of two
+    from 2 to 2^30) raises ``ValueError``."""
     if N < 2 or N > 1 << 30 or N & (N - 1):
-        raise ValueError(f"no C8 launch for a state of {N} amplitudes")
+        raise ValueError(f"no A2 or C8 launch for a state of {N} "
+                         f"amplitudes")
     per = STREAM_PER
     while per > 1 and per * 256 > N // 2:
         per //= 2
@@ -797,19 +865,20 @@ class _Graph:
             lib.ovqe_graph_destroy(self.exec)
 
 
-def _adjoint_graph(go: st.GroupOperands, N: int, per: int, fmode: int,
-                   nb: int, stream: int) -> _Graph:
-    """The graph of ``go`` for this state size, PER, field mode and
-    stream, captured on first use and kept in ``go.graphs``.  Its kernels
-    hold go's device pointers, which key it too.  Each stream has a graph
-    and an argument buffer of its own: a replay fills the buffer and
-    launches the graph in that stream's order, so calls on two streams
-    cannot overwrite what the other's replay still reads."""
-    key = (N, per, fmode, stream, go.x.data_ptr(), go.z_pair.data_ptr(),
-           go.coef.data_ptr(), go.k_live.data_ptr())
+def _stream_graph(name: str, go: st.GroupOperands, N: int, per: int,
+                  fmode: int, nb: int, stream: int) -> _Graph:
+    """The graph of A2 (``rot_stream``) or C8 (``adjoint_stream``) on
+    ``go`` for this state size, PER, field mode and stream, captured on
+    first use and kept in ``go.graphs``.  Its kernels hold go's device
+    pointers, which key it too.  Each stream has a graph and an argument
+    buffer of its own: a replay fills the buffer and launches the graph in
+    that stream's order, so calls on two streams cannot overwrite what the
+    other's replay still reads."""
+    key = (name, N, per, fmode, stream, go.x.data_ptr(),
+           go.z_pair.data_ptr(), go.coef.data_ptr(), go.k_live.data_ptr())
     if key not in go.graphs:
         go.graphs[key] = _Graph(
-            "stream_group", "ovqe_adjoint_stream_graph", go.x.device, N,
+            "stream_group", f"ovqe_{name}_graph", go.x.device, N,
             go.x.data_ptr(), go.z_pair.data_ptr(), go.coef.data_ptr(),
             go.k_live.data_ptr(), go.G, go.K, fmode, per, nb)
     return go.graphs[key]
@@ -845,23 +914,29 @@ def adjoint_stream(p, lam, ang, go: st.GroupOperands, fmode: int):
         partials = torch.empty((go.G, nb), dtype=torch.float64,
                                device=p.device)
         stream = _stream(p)
-        _adjoint_graph(go, N, per, _fmode(fmode), nb, stream).replay(
+        _stream_graph("adjoint_stream", go, N, per, _fmode(fmode), nb,
+                      stream).replay(
             "adjoint_stream", (p_out.data_ptr(), l_out.data_ptr(),
                                ang.data_ptr(), partials.data_ptr(),
                                gts.data_ptr()), stream)
     return p_out, l_out, gts
 
 
-def adjoint_stream_attributes(go: st.GroupOperands) -> Dict[str, int]:
-    """How ``adjoint_stream`` launches on ``go`` at a 2^n state: resident
-    blocks per SM, registers and local (spill) bytes per thread, static
-    shared memory per block, threads per block, the compiled term tile and
-    the pairs per thread."""
+def stream_group_attributes(name: str, go: st.GroupOperands
+                            ) -> Dict[str, int]:
+    """How ``rot_stream`` or ``adjoint_stream`` launches on ``go`` at a
+    2^n state: resident blocks per SM, registers and local (spill) bytes
+    per thread, static shared memory per block, threads per block, the
+    compiled term tile and the pairs per thread."""
+    if name not in ("rot_stream", "adjoint_stream"):
+        raise ValueError(f"not a per-group streaming sweep: {name}")
     out = (ctypes.c_int * 7)()
-    rc = _load("stream_group").ovqe_adjoint_stream_attrs(
-        stream_per(1 << go.n), go.K, ctypes.addressof(out))
+    rc = _load("stream_group").ovqe_stream_group_attrs(
+        int(name == "adjoint_stream"), stream_per(1 << go.n), go.K,
+        ctypes.addressof(out))
     if rc != 0:
-        raise RuntimeError(f"adjoint_stream_attributes: CUDA error {rc}")
+        raise RuntimeError(f"stream_group_attributes({name}): CUDA error "
+                           f"{rc}")
     keys = ("blocks_per_sm", "registers", "spill_bytes", "smem_bytes",
             "threads", "k_tile", "per")
     return dict(zip(keys, list(out)))

@@ -159,7 +159,7 @@ class VQEObjective:
     def _lam0(self, psi) -> torch.Tensor:
         """H|psi> without the identity offset."""
         if not self.stream:
-            return K.ham_apply(psi, *self.hops.args())
+            return K.ham_apply(psi, self.hops)
         acc = None
         for hc in self.hclasses:
             acc = K.ham_bucketed(psi, acc, hc)

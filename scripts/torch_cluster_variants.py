@@ -92,7 +92,7 @@ def main() -> int:
         obj = VQEObjective(ham_sp, device=dev, dtype=torch.float32)
         n = ham_sp.nbqbits
         psi = cs.rand_state(n, 11, dev)
-        lam = K.ham_apply(psi, *obj.hops.args())
+        lam = K.ham_apply(psi, obj.hops)
         theta = rng.normal(scale=0.3, size=len(a2))
         for kind, gens in (("cluster", a1), ("pool", a2)):
             b = obj.bind(gens, hf)

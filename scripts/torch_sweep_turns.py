@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Two checkouts of the port on one card, in turns: the per-group sweeps
-(A1 ``rot_sweep``, C7 ``adjoint_sweep``), the fused sweeps (A3
-``rot_fused``, C9 ``adjoint_fused``), the bucketed H-apply and
-expectation (B6 ``ham_bucketed``, D12 ``expect_bucketed``), the hoisted
-expectation (D13 ``expect_hoisted``), the per-group streaming adjoint (C8
-``adjoint_stream``) and the paths that run them.
+(A1 ``rot_sweep``, C7 ``adjoint_sweep``) and H-apply (B4 ``ham_apply``),
+the fused sweeps (A3 ``rot_fused``, C9 ``adjoint_fused``), the bucketed
+H-apply and expectation (B6 ``ham_bucketed``, D12 ``expect_bucketed``),
+the hoisted expectation (D13 ``expect_hoisted``), the per-group streaming
+sweep and adjoint (A2 ``rot_stream``, C8 ``adjoint_stream``) and the paths
+that run them.
 
     python3 scripts/torch_sweep_turns.py --trees PARENT CHANGE \\
         [--h16 PICKLE] [--quick]
@@ -20,7 +21,13 @@ into the tree's own ``build/``):
   50 calls after 3 warm-ups), with SHA-256s of A1's psi and of C7's p,
   lambda and entries in field modes 0, 1 and 2, and of both on the three
   synthetic generator families of phase 2 (field modes 0, 1, 2; weight
-  0.3 gives fields off the integers in mode 0); the H8
+  0.3 gives fields off the integers in mode 0); B4 on H8's H and on the
+  complex H of those synthetic families (compiled coefficients with
+  W_im), timed, with a SHA-256 of its lambda for every instance the
+  change tree compiles (1, 2, 4 and 8 amplitudes a thread; K and K + 1,
+  a zero column appended, for both term tiles; on the parent tree its
+  one kernel under the same names); D10's value on H8 (an unchanged
+  control); the H8
   ``energy_and_grad`` of both ansatze at the reference theta (host clock,
   median of 20 calls; the device busy share over 10 calls under the
   profiler) with its energy and gradient hash; and H8's
@@ -29,7 +36,8 @@ into the tree's own ``build/``):
 * the per-group route below H8: A1 and C7 on the cluster ansatz of H6
   (n = 12, 135 groups, K = 8) and of BeH2 (n = 14, 189 groups), both
   STO-3G sUPCCGSD under JW, with a random state and angles (CUDA events
-  over 50 calls after 3 warm-ups) and a SHA-256 of their outputs, and each
+  over 50 calls after 3 warm-ups) and a SHA-256 of their outputs, B4 on
+  each one's H (timed, with a SHA-256 of its lambda), and each
   molecule's ``energy_and_grad`` on both
   ansatze at theta = 0.01 (host clock, median of 20 calls) with its
   energy and gradient hash;
@@ -39,8 +47,10 @@ into the tree's own ``build/``):
   classes of OVQE_EXP_HOIST=1 (and its value), C8 on the reversed UCCSD
   groups of the OVQE_STREAM_FUSE=0 objective at theta1, from that route's
   forward state and lambda (and SHA-256s of the p and lambda it returns
-  and of its gradient entries): CUDA events over 20 calls after 3
-  warm-ups;
+  and of its gradient entries), A2 on the forward UCCSD groups of that
+  objective at theta1 (timed in field modes 0, 1 and 2, with a SHA-256 of
+  psi in each for every instance: 1, 2, 4 and 8 pairs a thread, K and
+  K + 1): CUDA events over 20 calls after 3 warm-ups;
 * the H10 fused ``energy_and_grad`` and the OVQE_STREAM_FUSE=0 one at
   theta0 (host clock, median of 20 calls, each returning host numbers),
   and each one's energy and gradient at theta0 and theta1 (the gradient
@@ -100,6 +110,44 @@ def sweep_calls(K):
                                                         so.z, so.s, fm))
 
 
+def ham_call(K):
+    """B4 on a ``convert.HamOperands``, whichever signature the tree's
+    wrapper has (before its redesign it took the operands' x, z, a_re and
+    a_im)."""
+    import inspect
+    if "ho" in inspect.signature(K.ham_apply).parameters:
+        return K.ham_apply
+    return lambda psi, ho: K.ham_apply(psi, *ho.args())
+
+
+def padded(ops, **fields):
+    """``ops`` (a dataclass of operands) with one zero column appended to
+    each named (G, K) field: the same function at K + 1, which takes the
+    other compiled term tile where the kernel has one."""
+    import dataclasses
+    import torch
+    pad = {f: torch.nn.functional.pad(getattr(ops, f), (0, 1))
+           for f in fields}
+    if "graphs" in {f.name for f in dataclasses.fields(ops)}:
+        pad["graphs"] = {}
+    return dataclasses.replace(ops, **pad)
+
+
+def b4_instances(K, psi, ho, tag, out):
+    """SHA-256 of B4's lambda at every amplitudes-a-thread count and both
+    term tiles (K and K + 1; the change tree's ``kernels._ham``), or of
+    the one kernel the parent tree has under the same names."""
+    ham = ham_call(K)
+    k = ho.z.shape[1]
+    for odd, ops in ((k % 2, ho), ((k + 1) % 2,
+                                   padded(ho, z=1, a_re=1, a_im=1))):
+        kt = 1 if odd else 2
+        for per in (1, 2, 4, 8):
+            lam = (K._ham(psi, ops, per) if hasattr(K, "_ham")
+                   else ham(psi, ops))
+            out[f"b4_{tag}_per{per}_kt{kt}_sha256"] = sha256(lam)
+
+
 def energy_and_grad_ms(ba, theta, calls=20):
     """(median host ms, energy, gradient) of ``ba.energy_and_grad(theta)``
     over ``calls`` calls after one warm-up."""
@@ -150,8 +198,12 @@ def measure_small(cs, out: dict) -> None:
         ang = bounds["cluster"]._angles(
             np.random.default_rng(7).normal(scale=0.3, size=len(a2)))
         psi = cs.rand_state(n, 11, dev)
-        lam = K.ham_apply(psi, *obj.hops.args())
+        happly = ham_call(K)
+        lam = happly(psi, obj.hops)
         tag = mol.lower()
+        out[f"{tag}_b4_ms"] = cs.cuda_ms(lambda: happly(psi, obj.hops),
+                                         reps=50)
+        out[f"{tag}_b4_sha256"] = sha256(lam)
         out[f"{tag}_a1_ms"] = cs.cuda_ms(lambda: rot(psi, ang, so, so.fmode),
                                          reps=50)
         out[f"{tag}_c7_ms"] = cs.cuda_ms(
@@ -205,7 +257,11 @@ def measure_h8(cs, tree: Path, out: dict) -> None:
     so = b._ops
     ang = b._angles(np.random.default_rng(7).normal(scale=0.3, size=len(a2)))
     psi = cs.rand_state(16, 11, dev)
-    lam = K.ham_apply(psi, *obj.hops.args())
+    happly = ham_call(K)
+    lam = happly(psi, obj.hops)
+    out["b4_ms"] = cs.cuda_ms(lambda: happly(psi, obj.hops), reps=50)
+    b4_instances(K, psi, obj.hops, "h8", out)
+    out["d10_h8_value"] = float(K.expectation(psi, *obj.hops.args()))
     rot, adj = sweep_calls(K)
     out["a1_ms"] = cs.cuda_ms(lambda: rot(psi, ang, so, so.fmode), reps=50)
     out["c7_ms"] = cs.cuda_ms(lambda: adj(psi, lam, ang, so, so.fmode),
@@ -220,7 +276,10 @@ def measure_h8(cs, tree: Path, out: dict) -> None:
     # field mode, weight 0.3 (fmode 0) giving non-integer fields
     ham, fam = cs.synthetic_problem()
     sobj = VQEObjective(ham, n=16, device=dev, dtype=torch.float32)
-    slam = K.ham_apply(psi, *sobj.hops.args())
+    slam = happly(psi, sobj.hops)
+    out["b4_complex_ms"] = cs.cuda_ms(lambda: happly(psi, sobj.hops),
+                                      reps=50)
+    b4_instances(K, psi, sobj.hops, "complex", out)
     for fm, gens in fam.items():
         sb = sobj.bind(gens, 0)
         sang = sb._angles(np.random.default_rng(5).normal(scale=0.5,
@@ -312,7 +371,21 @@ def measure(tree: Path, h16: str, quick: bool) -> dict:
     with cs.env_vars(OVQE_STREAM_FUSE="0"):
         obj0 = VQEObjective(h10.ham, device="cuda")
         b0 = obj0.bind(h10.gens, h10.hf)
-    adj0 = b0._adj
+    adj0, fwd0 = b0._adj, b0._fwd
+    af0 = st.group_angles(fwd0, theta1, torch.float32, psi.device)
+    for fm in (0, 1, 2):
+        out[f"a2_fmode{fm}_ms"] = cs.cuda_ms(
+            lambda: K.rot_stream(psi, af0, fwd0, fm))
+    for kt, ops in ((2, fwd0), (1, padded(fwd0, z=1, coef=1, coef_im=1,
+                                          z_pair=1))):
+        for per in (1, 2, 4, 8):
+            for fm in (0, 1, 2):
+                if hasattr(K, "_rot_stream"):
+                    a = psi.clone()
+                    K._rot_stream(a, af0, ops, fm, per)
+                else:
+                    a = K.rot_stream(psi, af0, ops, fm)
+                out[f"a2_fmode{fm}_per{per}_kt{kt}_sha256"] = sha256(a)
     psi1 = b0.forward(theta1)
     _, lam1 = obj0._energy_and_lam(psi1)
     aa0 = st.group_angles(adj0, theta1, torch.float32, psi.device)
@@ -367,9 +440,11 @@ CHILD_TIMEOUT_S = 900.0
 SMALL = ("H6", "BeH2")  # n = 12 and 14
 
 METRICS = tuple(f"{m.lower()}_{k}" for m in SMALL for k in (
-    "a1_ms", "c7_ms", "cluster_energy_and_grad_ms",
+    "a1_ms", "c7_ms", "b4_ms", "cluster_energy_and_grad_ms",
     "pool_energy_and_grad_ms")) + (
-    "a1_ms", "c7_ms", "h8_cluster_energy_and_grad_ms",
+    "a1_ms", "c7_ms", "b4_ms", "b4_complex_ms", "a2_fmode0_ms",
+    "a2_fmode1_ms", "a2_fmode2_ms",
+    "h8_cluster_energy_and_grad_ms",
     "h8_pool_energy_and_grad_ms", "h8_cluster_profiled_ms",
     "h8_cluster_busy_ms", "h8_cluster_busy_share",
     "h8_pool_profiled_ms", "h8_pool_busy_ms", "h8_pool_busy_share",
@@ -380,7 +455,7 @@ METRICS = tuple(f"{m.lower()}_{k}" for m in SMALL for k in (
     "h16_hoist_expectation_s", "h16_hoist_energy_s")
 VALUES = tuple(f"{m.lower()}_{b}_energy" for m in SMALL
                for b in ("cluster", "pool")) + (
-    "h8_cluster_energy", "h8_pool_energy", "d13_h10_value",
+    "h8_cluster_energy", "h8_pool_energy", "d10_h8_value", "d13_h10_value",
     "h10_energy_theta0", "h10_energy_theta1", "h10_fuse0_energy_theta0",
     "h10_fuse0_energy_theta1", "h16_energy", "h16_hoist_energy")
 SAME = tuple(f"{k}_fmode{f}_{h}" for f in (0, 1, 2) for k, h in (
@@ -393,7 +468,12 @@ SAME = tuple(f"{k}_fmode{f}_{h}" for f in (0, 1, 2) for k, h in (
     "c8_theta1_state_sha256", "c8_theta1_grad_sha256",
     "h10_adapt_indices", "h10_adapt_energies") + tuple(
     f"{m.lower()}_{k}" for m in SMALL for k in (
-        "sweeps_sha256", "cluster_grad_sha256", "pool_grad_sha256"))
+        "sweeps_sha256", "b4_sha256", "cluster_grad_sha256",
+        "pool_grad_sha256")) + tuple(
+    f"b4_{t}_per{p}_kt{k}_sha256" for t in ("h8", "complex")
+    for p in (1, 2, 4, 8) for k in (1, 2)) + tuple(
+    f"a2_fmode{f}_per{p}_kt{k}_sha256" for f in (0, 1, 2)
+    for p in (1, 2, 4, 8) for k in (1, 2))
 
 
 def main() -> int:

@@ -258,7 +258,7 @@ def test_kernel_operands_fold_the_diagonal(h4, problem15):
         psi = torch.as_tensor(psi0)
         ref = jgr.grouped_ham_apply(jnp.asarray(psi0), *hargs,
                                     include_const=False)
-        out = K.ham_apply(psi, *hops.args())     # CPU tensor: plain version
+        out = K.ham_apply(psi, hops)     # CPU tensor: plain version
         np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-10)
         e_ref = float(jgr.grouped_expectation(jnp.asarray(psi0), *hargs))
         e = float(K.expectation(psi, *hops.args())) \

@@ -1,12 +1,14 @@
 """The fifteen CUDA kernels of openvqe_tpu_torch/sim/kernels.py against
 their plain PyTorch versions, on the card: the four per-group kernels (the
 sweeps A1 and C7 at every cluster size, on the graph route beyond one
-cluster, and across cluster sizes bit for bit), the four bucketed
+cluster, and across cluster sizes bit for bit; the H-apply B4 at every
+compiled PER, term tile and REAL, bit for bit across PER), the four bucketed
 (streaming) ones with the fused sweeps at every compile-time
 K and the odd-Y refusal, the bucketed H-apply and expectation at every
 compiled term tile (real and complex, herm off and on), the hoisted
 expectation at every compiled PER and term tile, the four per-group
-streaming ones (OVQE_STREAM_FUSE=0, the adjoint at each PER) and the two
+streaming ones (OVQE_STREAM_FUSE=0, the sweep and the adjoint at each
+PER) and the two
 pool-overlap kernels.  A
 CUDA kernel has no CPU mode, so these tests are marked ``cuda`` and skip
 on a machine without a card; on one they run with
@@ -26,6 +28,7 @@ from openvqe_tpu_torch.sim import streaming as st
 from openvqe_tpu_torch.sim.compile import compile_op_sequence
 from openvqe_tpu_torch.sim.objective import StreamBoundAnsatz, VQEObjective
 from test_torch_grouped_fields import odd_y_seq
+from test_torch_ham_fields import _complex_set
 from test_torch_stream_group_fields import odd_y_groups
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -94,7 +97,7 @@ def test_kernels_match_plain_versions(dev, fmode):
     a = K.rot_sweep(psi, ang, o, o.fmode)
     assert float((a - gr.rot_sweep_ref(psi, ang, o.x, o.z, o.s,
                                        o.fmode)).abs().max()) <= TOL
-    lam = K.ham_apply(a, *h.args())
+    lam = K.ham_apply(a, h)
     assert float((lam - gr.ham_apply_ref(a, *h.args())).abs().max()) <= TOL
     e = float(K.expectation(a, *h.args()))
     e_ref = float(gr.expectation_ref(a, *h.args()))
@@ -124,6 +127,41 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     buf = torch.zeros(psi.numel() + 1, device=dev)
     with pytest.raises(ValueError, match="aligned"):
         K.rot_sweep(buf[1:].view(psi.shape), ang, o, 1)
+
+
+# ------------------------------------------------ B4: each compiled instance
+
+# (n, groups, K, real): several staged runs of 32-term groups and a group
+# count that is no multiple of the prefetch depth; an odd K (term tile 1)
+B4_CASES = [(12, 301, 32, True), (12, 301, 32, False), (10, 23, 7, True),
+            (10, 23, 7, False)]
+
+
+@pytest.mark.parametrize("per", [1, 2, 4, 8])
+def test_ham_apply_at_each_per(dev, per):
+    """B4 at every compiled PER, term tile and REAL (``kernels._ham``)
+    against ham_apply_ref, and bit for bit against PER 1 (the same sum in
+    the same order); PER 1 also on a state below one block (idle
+    threads).  The wrapper takes ``ham_per``'s PER."""
+    cases = B4_CASES + ([(5, 9, 6, False)] if per == 1 else [])
+    for n, G, k, real in cases:
+        hs = _complex_set(n=n, G=G, K_=k, seed=G + k)
+        hs.hermitian = real                 # drops a_im: the REAL instance
+        ho = convert.ham_operands(hs, dev)
+        assert ho.real == real and ho.K == k
+        psi = _state(dev, 7, n)
+        lam = K._ham(psi, ho, per)
+        ref = gr.ham_apply_ref(psi, *ho.args())
+        assert float((lam - ref).abs().max()) <= \
+            TOL * max(1.0, float(ref.abs().max())), (n, G, k, real)
+        assert torch.equal(lam, K._ham(psi, ho, 1))
+        assert torch.equal(K.ham_apply(psi, ho),
+                           K._ham(psi, ho, K.ham_per(1 << n)))
+        at = K.ham_attributes(ho, n)
+        assert at["per"] == K.ham_per(1 << n) and at["local_bytes"] == 0
+        assert at["k_tile"] == (2 if k % 2 == 0 else 1)
+        assert at["threads"] == K.HAM_THREADS and at["blocks_per_sm"] >= 1
+    torch.cuda.synchronize()
 
 
 # ------------------------------------------- A1 / C7: cluster and graph routes
@@ -775,7 +813,7 @@ def test_adjoint_stream_at_each_per(dev, fmode, per):
         assert K.stream_per(1 << n) == per
         go = odd_y_groups(n, msbs, K_=k, fmode=fmode, seed=n, device=dev)
         assert go.odd_y
-        at = K.adjoint_stream_attributes(go)
+        at = K.stream_group_attributes("adjoint_stream", go)
         assert at["per"] == per and at["k_tile"] == (2 if k % 2 == 0 else 1)
         assert at["threads"] == 256 and at["blocks_per_sm"] >= 1
         psi, lam = _state(dev, 5, n), _state(dev, 6, n)
@@ -801,6 +839,36 @@ def test_adjoint_stream_at_each_per(dev, fmode, per):
         3 * len(ADJOINT_CASES[per])
 
 
+@pytest.mark.parametrize("per", [1, 2, 4, 8])
+@pytest.mark.parametrize("fmode", [0, 1, 2])
+def test_rot_stream_at_each_per(dev, fmode, per):
+    """A2 at each PER it is compiled for, reached through the state size
+    (``kernels.stream_per``), on C8's cases: psi within 1e-6 of
+    rot_stream_ref, in place and not; the graph captured on the first call
+    replays with new angles and another state, and repeats bit for bit;
+    one launch counted per call."""
+    counts = K.LAUNCHES["rot_stream"]
+    for n, msbs, k in ADJOINT_CASES[per]:
+        go = odd_y_groups(n, msbs, K_=k, fmode=fmode, seed=n, device=dev)
+        at = K.stream_group_attributes("rot_stream", go)
+        assert at["per"] == per and at["k_tile"] == (2 if k % 2 == 0 else 1)
+        assert at["threads"] == 256 and at["blocks_per_sm"] >= 1
+        psi = _state(dev, 5, n)
+        ang = torch.as_tensor(np.random.default_rng(n).normal(
+            scale=0.7, size=go.G), dtype=torch.float32, device=dev)
+        a = K.rot_stream(psi, ang, go, fmode)
+        ref = st.rot_stream_ref(psi, ang, go, fmode)
+        assert float((a - ref).abs().max()) <= 1e-6
+        b = _state(dev, 6, n)
+        ang2 = 0.5 * ang + 0.1
+        ref2 = st.rot_stream_ref(b, ang2, go, fmode)
+        assert K.rot_stream(b, ang2, go, fmode, inplace=True) is b
+        assert float((b - ref2).abs().max()) <= 1e-6
+        assert torch.equal(K.rot_stream(psi, ang, go, fmode), a)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["rot_stream"] - counts == 3 * len(ADJOINT_CASES[per])
+
+
 def test_adjoint_stream_refuses_operands_without_the_certificate(dev):
     go = odd_y_groups(12, [3, 9, 11], device="cpu")
     z = go.z.numpy().astype(np.int64)
@@ -815,6 +883,10 @@ def test_adjoint_stream_refuses_operands_without_the_certificate(dev):
     with pytest.raises(ValueError, match="odd-Y"):
         K.adjoint_stream(psi, psi.clone(), ang, bad, 0)
     assert K.LAUNCHES["adjoint_stream"] == before
+    before = K.LAUNCHES["rot_stream"]
+    with pytest.raises(ValueError, match="odd-Y"):
+        K.rot_stream(psi, ang, bad, 0)
+    assert K.LAUNCHES["rot_stream"] == before
 
 
 def test_stream_group_wrappers_reject_what_the_kernels_do_not_take(

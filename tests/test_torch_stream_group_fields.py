@@ -17,7 +17,15 @@ CPU:
   lowered by the rule of ``kernels.stream_per``),
   against ``adjoint_stream_ref``: p and lambda bit for bit in float32 (the
   coefficients are dyadic, so every field is exact in any order),
-  gradient entries within 1e-6.
+  gradient entries within 1e-6;
+* the same for kernel A2 (``rot_stream_kernel``): C8's pair split and
+  field, the partner's terms (cos - 1, -sin), (cos - 1, sin) where
+  F(j) = 0 (the partner's field is +0 there too), and the one-pair-a-thread
+  kernel's update expressions, at PER = 4 and 8, in field modes 0, 1 and
+  2, at the smallest states and on the H4 and H6 UCCSD sequences, against
+  ``rot_stream_ref``: the state bit for bit in float32 (+0 and -0 told
+  apart: the states hold both); ``kernels.rot_stream`` refuses operands
+  without the odd-Y certificate.
 """
 
 import contextlib
@@ -170,32 +178,45 @@ def test_certificate_rejects_an_even_y_group():
 
 # --------------------------------------------- C8 emulated, against plain
 
-def emulate_adjoint_stream(p, lam, ang, go, fmode, per):
-    """C8 as the kernel computes it (see the module docstring), in float32
-    numpy: returns (p_prev, lam_prev, gts) and the per-group fields."""
-    N = p.shape[-1]
+def _pair_fields(go, N, per):
+    """The pair index t < N / 2 and, per group, the field F(j) at
+    j = insert_zero(t, msb(x)) as A2 and C8 compute it: t = block base |
+    q 2^8 | tid, one popcount of (block base | tid) & z'_k per term, the
+    loop part from the PER x PER table, terms 0 .. k_live - 1 in whole
+    tiles of the compiled tile, float32 adds of exact products."""
     half = N // 2
-    per = _lowered(N, per)
     lp = per.bit_length() - 1
-    nb = max(1, half // (T * per))
     t = np.arange(half, dtype=np.int64)
     tid, q = t & (T - 1), (t >> 8) & (per - 1)
     tb = ((t >> (8 + lp)) << (8 + lp)) | tid            # block base | tid
     S = (1 - 2 * _par(np.arange(per)[:, None] & np.arange(per)[None, :])
          ).astype(np.float32)
     kt = 2 if go.K % 2 == 0 else 1
-    x, zp = go.x.numpy().astype(np.int64), go.z_pair.numpy().astype(np.int64)
+    zp = go.z_pair.numpy().astype(np.int64)
     cf, kl = go.coef.numpy(), go.k_live.numpy()
-    p, l = p.numpy().copy(), lam.numpy().copy()
-    gts = np.zeros(go.G, np.float32)
     fields = []
     for g in range(go.G):
-        h = int(x[g]).bit_length() - 1
         F = np.zeros(half, np.float32)
         for k in range(-(-int(kl[g]) // kt) * kt):
             c = np.where(_par(tb & zp[g, k]) == 1, -cf[g, k], cf[g, k])
             F = F + c.astype(np.float32) * S[(zp[g, k] >> 8) & (per - 1)][q]
         fields.append(F)
+    return t, fields
+
+
+def emulate_adjoint_stream(p, lam, ang, go, fmode, per):
+    """C8 as the kernel computes it (see the module docstring), in float32
+    numpy: returns (p_prev, lam_prev, gts) and the per-group fields."""
+    N = p.shape[-1]
+    half = N // 2
+    per = _lowered(N, per)
+    nb = max(1, half // (T * per))
+    t, fields = _pair_fields(go, N, per)
+    x = go.x.numpy().astype(np.int64)
+    p, l = p.numpy().copy(), lam.numpy().copy()
+    gts = np.zeros(go.G, np.float32)
+    for g, F in enumerate(fields):
+        h = int(x[g]).bit_length() - 1
         cm, s = (v.numpy() for v in st.rot_cm_sin(ang[g], torch.as_tensor(F),
                                                   fmode))
         sk = -s                                   # F(j ^ x) = -F(j)
@@ -281,3 +302,110 @@ def test_stream_per_rejects_what_the_kernel_does_not_take():
     assert K.stream_per(1 << 20) == K.STREAM_PER == 8
     for n in range(1, 31):
         assert K.stream_per(1 << n) == _lowered(1 << n, K.STREAM_PER)
+
+
+# --------------------------------------------- A2 emulated, against plain
+
+def emulate_rot_stream(psi, ang, go, fmode, per):
+    """A2 as the kernel computes it (see the module docstring), in float32
+    numpy: the rotated state and the per-group fields."""
+    N = psi.shape[-1]
+    t, fields = _pair_fields(go, N, _lowered(N, per))
+    x = go.x.numpy().astype(np.int64)
+    a = psi.numpy().copy()
+    for g, F in enumerate(fields):
+        cm, s = (v.numpy() for v in st.rot_cm_sin(ang[g], torch.as_tensor(F),
+                                                  fmode))
+        sk = np.where(F == 0, s, -s)              # at F(j ^ x): -F, or +0
+        j = _insert_zero(t, int(x[g]).bit_length() - 1)
+        jj = j ^ x[g]
+        a0, a1, b0, b1 = a[0, j], a[1, j], a[0, jj], a[1, jj]
+        a[0, j], a[1, j] = a0 + (cm * a0 + s * b0), a1 + (cm * a1 + s * b1)
+        a[0, jj] = b0 + (cm * b0 + sk * a0)
+        a[1, jj] = b1 + (cm * b1 + sk * a1)
+    return torch.as_tensor(a), fields
+
+
+def _signed_zeros(n, seed):
+    """A float32 state with exact +0 and -0 entries among random ones."""
+    psi = _state(n, seed)
+    psi[:, ::7] = 0.0
+    psi[:, 3::11] = -0.0
+    return psi
+
+
+def _cancelling(go, groups=None):
+    """``go`` with its first group cut to two terms of equal weight, whose
+    field vanishes on half the pairs (the first, so that it meets the
+    state's signed zeros before other groups overwrite them); only its
+    first ``groups`` groups if given."""
+    cf = go.coef.numpy().copy()
+    cf[0] = 0.0
+    cf[0, 0] = cf[0, 3] = 0.5
+    keep = slice(0, groups)
+    return st.group_operands(st.build_stream_data(
+        go.n, go.x.numpy()[keep], go.z.numpy()[keep], cf[keep],
+        op=np.arange(go.G)[keep], chunk_bits=go.n - 1, fmode=go.fmode),
+        "cpu", torch.float32)
+
+
+def _check_rot_stream(go, fmode, per, seed):
+    psi = _signed_zeros(go.n, seed)
+    ang = torch.as_tensor(np.random.default_rng(seed).normal(
+        scale=0.7, size=go.G).astype(np.float32))
+    a, fields = emulate_rot_stream(psi, ang, go, fmode, per)
+    ref = st.rot_stream_ref(psi, ang, go, fmode)
+    assert torch.equal(a.view(torch.int32), ref.view(torch.int32))
+    assert not torch.equal(ref, psi)
+    return sum(int((F == 0).sum()) for F in fields)
+
+
+@pytest.mark.parametrize("fmode", [0, 1, 2])
+@pytest.mark.parametrize("per", [4, 8])
+def test_emulated_rot_stream_matches_plain_version(per, fmode):
+    """n = 14 (2^13 pairs: 4 or 8 blocks), msb(x) inside the thread, loop
+    and block bits; a first group whose field vanishes on half the pairs,
+    checked alone too (later groups overwrite the zeros it writes)."""
+    lp = per.bit_length() - 1
+    msbs = [0, 3, 7, 8, 7 + lp, 8 + lp, 13]
+    go = odd_y_groups(14, msbs, fmode=fmode, seed=per)
+    assert go.odd_y and _lowered(1 << 14, per) == per
+    for groups in (None, 1):
+        assert _check_rot_stream(_cancelling(go, groups), fmode, per,
+                                 seed=per + fmode) >= 4096
+
+
+@pytest.mark.parametrize("n,per", [(2, 8), (8, 8), (9, 8), (10, 16),
+                                   (11, 8)])
+def test_emulated_rot_stream_at_the_smallest_states(n, per):
+    """PER lowered as ``kernels.stream_per`` lowers it (1 below 2^9
+    amplitudes); an odd K takes the term tile 1."""
+    msbs = sorted({0, n // 2, n - 1})
+    go = odd_y_groups(n, msbs, K_=5, seed=n)
+    _check_rot_stream(go, 0, per, seed=n)
+
+
+@pytest.mark.parametrize("mol", MOLS)
+def test_emulated_rot_stream_on_uccsd(uccsd, mol):
+    """The forward UCCSD sequence (field mode 1), as the objective's sweep
+    runs it, at PER = 8 (lowered to 2 at H4's 8 qubits)."""
+    fwd, _ = uccsd[mol]
+    assert fwd.fmode == 1
+    _check_rot_stream(fwd, fwd.fmode, 8, seed=4)
+
+
+def test_rot_stream_refuses_operands_without_the_certificate():
+    """On the CPU too, before the plain version runs; in place or not."""
+    go = odd_y_groups(10, [3, 8, 9])
+    z = go.z.numpy().astype(np.int64)
+    z[0, 0] = 0                          # even and live
+    bad = st.group_operands(st.build_stream_data(
+        10, go.x.numpy(), z, go.coef.numpy(), op=np.arange(go.G),
+        chunk_bits=9), "cpu", torch.float32)
+    assert not bad.odd_y and float(bad.coef[0, 0]) != 0.0
+    psi = _state(10, 2)
+    ang = torch.full((bad.G,), 0.3)
+    for inplace in (False, True):
+        with pytest.raises(ValueError, match="odd-Y"):
+            K.rot_stream(psi, ang, bad, 0, inplace=inplace)
+    assert K.rot_stream(psi, ang, go, 0).shape == psi.shape
