@@ -86,7 +86,10 @@ imports nothing of JAX and nothing of ``openvqe_tpu``.  Phases:
    per-group, E15 bucketed) against their plain versions on H10's own
    pool operands (875 groups, K = 8) and on a synthetic pool (non-real
    coefficients, x_hi = 0 and != 0, a full bucket), bit-identical when
-   repeated; timed at H10's shapes;
+   repeated, with the registers, spills, shared memory, resident blocks
+   per SM, term tile, amplitudes a thread and (E14) groups a block walks
+   of the instances each pool runs (``kernels.pool_attributes``); timed
+   at H10's shapes;
 10. fermionic ADAPT-VQE on H10 with the UCCSD pool
    (``fermionic_adapt_vqe``, BFGS, 3 outer iterations, the default
    ``fidelity_max_qubits`` so the Lanczos reference runs), counters set to
@@ -471,11 +474,11 @@ def work(name, psi, ops=None, hops=None, herm=False):
                 + amps * int(per_slot[hc.x_hi != 0].sum())
         return nbytes, flops
     if name in ("pool_overlap", "pool_bucketed"):
-        # ops: the pool's (x, z, cre, cim) tensors or one BucketOperands;
+        # ops: the pool's convert.PoolOperands or one BucketOperands;
         # 2 operations per live coefficient (re and im fields) and the
         # complex product and multiply-add with conj(sigma) per group
         if name == "pool_overlap":
-            x, z, cre, cim = ops
+            x, z, cre, cim = ops.args()
             G, real = x.numel(), not bool(cim.any())
             opnd = (x.numel() + z.numel() + cre.numel() + cim.numel()) * 4
             rows = G * 2 * 4
@@ -1564,30 +1567,25 @@ def pool_synthetic(n, cb, seed=9):
 
 
 def pool_operands(gpool, cb, dev):
-    """E14's (x, z, cre, cim) tensors and E15's bucket operands (with the
+    """E14's ``convert.PoolOperands`` and E15's bucket operands (with the
     slot -> group map) of one pool."""
-    import torch
+    from openvqe_tpu_torch.sim import convert
     from openvqe_tpu_torch.sim import streaming as st
-
-    def t(a, dt):
-        return torch.as_tensor(a, dtype=dt, device=dev).contiguous()
-
-    flat = (t(gpool.x, torch.int32), t(gpool.z, torch.int32),
-            t(gpool.a_re, torch.float32), t(gpool.a_im, torch.float32))
     sd = st.build_stream_data(gpool.n, gpool.x, gpool.z, gpool.a_re,
                               op=gpool.op, coef_im=gpool.a_im, chunk_bits=cb)
     bk, slot_group = st.build_pool_buckets(sd)
-    return flat, st.bucket_operands(bk, dev), slot_group
+    return (convert.pool_operands(gpool, dev), st.bucket_operands(bk, dev),
+            slot_group)
 
 
-def parity_pool_case(label, sigma, psi, flat, bo, slot_group, errs):
+def parity_pool_case(label, sigma, psi, po, bo, slot_group, errs, card):
     import torch
     from openvqe_tpu_torch.sim import kernels as K
     from openvqe_tpu_torch.sim import streaming as st
-    rows = K.pool_overlap(sigma, psi, *flat)
-    ref = st.pool_overlap_ref(sigma, psi, *flat)
+    rows = K.pool_overlap(sigma, psi, po)
+    ref = st.pool_overlap_ref(sigma, psi, *po.args())
     d14 = float((rows - ref).abs().max())
-    same14 = torch.equal(rows, K.pool_overlap(sigma, psi, *flat))
+    same14 = torch.equal(rows, K.pool_overlap(sigma, psi, po))
     brows = K.pool_bucketed(sigma, psi, bo)
     d15 = float((brows - st.pool_bucketed_ref(sigma, psi, bo)).abs().max())
     same15 = torch.equal(brows, K.pool_bucketed(sigma, psi, bo))
@@ -1595,11 +1593,15 @@ def parity_pool_case(label, sigma, psi, flat, bo, slot_group, errs):
     d_map = float((brows.cpu()[live]
                    - ref.cpu()[slot_group[slot_group >= 0]]).abs().max())
     torch.cuda.synchronize()
-    print(f"parity {label}: {len(flat[0])} groups (K {flat[1].shape[1]}), "
+    n = psi.shape[-1].bit_length() - 1
+    print(f"parity {label}: {po.G} groups (K {po.K}, real {po.real}), "
           f"{bo.B} buckets at 2^{bo.chunk_bits} (real {bo.real}); max "
           f"|kernel - plain|: pool_overlap {d14:.3e}, pool_bucketed "
           f"{d15:.3e}, bucket rows vs per-group rows {d_map:.3e}; "
           f"bit-identical repeat: {same14}, {same15}")
+    for name, ops in (("pool_overlap", po), ("pool_bucketed", bo)):
+        print(f"{name} instance on the {label} ({card}): "
+              f"{json.dumps(K.pool_attributes(name, ops, n))}")
     check(max(d14, d15, d_map) <= TOL_STATE,
           f"{label} pool rows off: {d14} {d15} {d_map}")
     check(same14 and same15, f"{label} pool rows are not reproducible")
@@ -1608,7 +1610,6 @@ def parity_pool_case(label, sigma, psi, flat, bo, slot_group, errs):
 
 
 def phase_pool_parity(h10, card):
-    import numpy as np
     import torch
     from openvqe_tpu_torch.sim import grouped as gr
     from openvqe_tpu_torch.sim import kernels as K
@@ -1624,19 +1625,21 @@ def phase_pool_parity(h10, card):
     errs = {}
     psi = rand_state(h10.n, 13, dev)
     sigma = obj.ham_apply(psi).contiguous()
-    flat, bo, sg = pool_operands(gpool, obj.chunk_bits, dev)
-    parity_pool_case("H10 UCCSD pool", sigma, psi, flat, bo, sg, errs)
+    po, bo, sg = pool_operands(gpool, obj.chunk_bits, dev)
+    parity_pool_case("H10 UCCSD pool", sigma, psi, po, bo, sg, errs, card)
     sp = pool_synthetic(N_H10, st.CHUNK_BITS)
-    sflat, sbo, ssg = pool_operands(sp, st.CHUNK_BITS, dev)
-    check(not sbo.real and (sbo.act_host.sum(1) == st.HAM_BUCKET_CAP).any()
+    spo, sbo, ssg = pool_operands(sp, st.CHUNK_BITS, dev)
+    check(not sbo.real and not spo.real
+          and (sbo.act_host.sum(1) == st.HAM_BUCKET_CAP).any()
           and (sbo.x_hi == 0).any() and (sbo.x_hi != 0).any(),
           "synthetic pool misses W_im, a full bucket, x_hi = 0 or != 0")
     parity_pool_case(f"synthetic pool n={N_H10}", rand_state(N_H10, 14, dev),
-                     rand_state(N_H10, 15, dev), sflat, sbo, ssg, errs)
+                     rand_state(N_H10, 15, dev), spo, sbo, ssg, errs, card)
 
-    fns = {"pool_overlap": (lambda: K.pool_overlap(sigma, psi, *flat),
-                            lambda: st.pool_overlap_ref(sigma, psi, *flat),
-                            flat),
+    fns = {"pool_overlap": (lambda: K.pool_overlap(sigma, psi, po),
+                            lambda: st.pool_overlap_ref(sigma, psi,
+                                                        *po.args()),
+                            po),
            "pool_bucketed": (lambda: K.pool_bucketed(sigma, psi, bo),
                              lambda: st.pool_bucketed_ref(sigma, psi, bo),
                              bo)}

@@ -2,8 +2,9 @@
 
 This is how the "weights" of a problem cross into the port: the fields of
 a grouped Hamiltonian (``x, z, a_re, a_im, z_diag, a_diag_re, a_diag_im,
-c_re, c_im``, optionally ``hermitian``) and of a grouped ansatz
-(``x, z, s, op, fmode``) as numpy arrays.  Any object with those attributes
+c_re, c_im``, optionally ``hermitian``), of a grouped ansatz
+(``x, z, s, op, fmode``) and of a grouped ADAPT pool (``x, z, a_re,
+a_im``) as numpy arrays.  Any object with those attributes
 will do: the port's ``sim/grouped.py`` dataclasses, or the JAX package's,
 which is how the tests hand identical operands to both sides without the
 port importing JAX.
@@ -35,6 +36,33 @@ class HamOperands:
     real: bool
     c_re: float
     c_im: float
+
+    @property
+    def G(self) -> int:
+        return self.x.shape[0]
+
+    @property
+    def K(self) -> int:
+        return self.z.shape[1]
+
+    def args(self):
+        return self.x, self.z, self.a_re, self.a_im
+
+
+@dataclass
+class PoolOperands:
+    """Pool groups (one operator and one x mask each) as the per-group
+    pool-overlap kernel E14 takes them.  ``k_live`` is one past each
+    group's last term with a non-zero weight (re or im): E14 adds no term
+    past it.  ``real`` is the host certificate that every ``a_im`` is
+    zero (UCCSD and GSD pools), under which E14 computes no W_im.  Build
+    them with ``pool_operands``, never by hand."""
+    x: torch.Tensor       # (G,) int32
+    z: torch.Tensor       # (G, K) int32
+    a_re: torch.Tensor    # (G, K)
+    a_im: torch.Tensor    # (G, K)
+    k_live: torch.Tensor  # (G,) int32
+    real: bool
 
     @property
     def G(self) -> int:
@@ -122,6 +150,22 @@ def ham_operands(g, device, dtype=torch.float32) -> HamOperands:
         k_live=_dev(_k_live((a_re != 0) | (a_im != 0)), torch.int32,
                     device),
         real=not np.any(a_im), c_re=float(g.c_re), c_im=float(g.c_im))
+
+
+def pool_operands(g, device, dtype=torch.float32) -> PoolOperands:
+    """The groups of a grouped pool (``grouped.GroupedPool`` or any object
+    with its ``x, z, a_re, a_im``) with their live terms and the all-real
+    certificate, once per screen."""
+    x = np.asarray(g.x, np.int32)
+    z = np.asarray(g.z, np.int32)
+    a_re = np.asarray(g.a_re, np.float64).reshape(z.shape)
+    a_im = np.asarray(g.a_im, np.float64).reshape(z.shape)
+    return PoolOperands(
+        x=_dev(x, torch.int32, device), z=_dev(z, torch.int32, device),
+        a_re=_dev(a_re, dtype, device), a_im=_dev(a_im, dtype, device),
+        k_live=_dev(_k_live((a_re != 0) | (a_im != 0)), torch.int32,
+                    device),
+        real=not np.any(a_im))
 
 
 def seq_operands(g, device, dtype=torch.float32) -> SeqOperands:

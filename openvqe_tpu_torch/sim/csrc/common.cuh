@@ -64,33 +64,10 @@ __device__ __forceinline__ void wfield(unsigned j, const int* __restrict__ z,
   wim = b;
 }
 
-// Weight fields of one group at a thread's PER amplitudes of a chunk
-// (amplitude base | (threadIdx.x + q * THREADS)); real skips W_im.  A
-// popcount per term and amplitude: B6 and D12 hoist the signs instead
-// (bucket_fields below).
-template <int PER, int THREADS>
-__device__ __forceinline__ void wfields(unsigned base, const int* zg,
-                                        const float* rg, const float* ig,
-                                        int K, bool real, float* wre,
-                                        float* wim) {
-#pragma unroll
-  for (int q = 0; q < PER; ++q) wre[q] = wim[q] = 0.f;
-  for (int k = 0; k < K; ++k) {
-    const float r = rg[k], i = real ? 0.f : ig[k];
-    if (r == 0.f && i == 0.f) continue;
-    const unsigned zk = (unsigned)zg[k];
-#pragma unroll
-    for (int q = 0; q < PER; ++q) {
-      const float sg = sgn(base | (threadIdx.x + q * THREADS), zk);
-      wre[q] += sg * r;
-      wim[q] += sg * i;
-    }
-  }
-}
-
 // --------------------------- the sign algebra of the bucket kernels
-// (B6, D12 and D13 in streaming_kernels.cu; C8 in stream_group_kernels.cu
-// splits its pair index the same way).  Thread tid of a bucket block
+// (B6, D12 and D13 in streaming_kernels.cu, E15 in pool_kernels.cu; B4 and
+// E14 split their amplitude index the same way, C8 and A1 / C7 their pair
+// index).  Thread tid of a bucket block
 // (output chunk c, base = c << cb) owns the amplitudes j = base | l,
 // l = tid + q T with T = ST_THREADS = 2^8 and q < PER = 2^(cb - 8): three
 // disjoint bit fields, so for every term
@@ -103,7 +80,7 @@ __device__ __forceinline__ void wfields(unsigned base, const int* zg,
 // fields of a group cost, per live term, one popcount and PER FMAs
 // c'_k S[m_k][q] with c'_k = +-c_k: each product is exact, and the terms
 // add in the order k = 0 .. k_live - 1, so every field is the one the
-// per-amplitude popcount gave (wfields above), bit for bit.
+// per-amplitude popcount gave (wfield above), bit for bit.
 
 // S[m][q] for m, q < PER, built once per block of THREADS threads (read
 // after a barrier).

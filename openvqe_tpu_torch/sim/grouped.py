@@ -498,23 +498,20 @@ def build_grouped_pool_gradient_fn(gpool: GroupedPool, lham, device, dtype):
     """grads_host(psi) -> complex (n_ops,) v_i = <H psi|A_i|psi>: sigma from
     ``lham`` (the objective's H pass), then every (op, x) group in one
     ``kernels.pool_overlap`` call (the E14 kernel on a CUDA state, its plain
-    version on the CPU).  Counterpart of the JAX package's XLA
+    version on the CPU) over the pool's ``convert.PoolOperands``, built
+    once here.  Counterpart of the JAX package's XLA
     ``build_grouped_pool_gradient_fn``, the n <= 19 screen; the streaming
     screen runs it too unless OVQE_STREAM_FUSE selects the bucketed kernel,
     so no plain version runs on the card."""
+    from . import convert
     from . import kernels as K
 
-    def dev(a, dt):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
-                               device=device).contiguous()
-
-    x, z = dev(gpool.x, torch.int32), dev(gpool.z, torch.int32)
-    cre, cim = dev(gpool.a_re, dtype), dev(gpool.a_im, dtype)
+    po = convert.pool_operands(gpool, device, dtype)
 
     def grads_host(psi) -> np.ndarray:
         psi = torch.as_tensor(psi).to(device=device, dtype=dtype).contiguous()
         sigma = lham(psi).contiguous()
-        return segment_rows(K.pool_overlap(sigma, psi, x, z, cre, cim),
-                            gpool.op, gpool.n_ops)
+        return segment_rows(K.pool_overlap(sigma, psi, po), gpool.op,
+                            gpool.n_ops)
 
     return grads_host

@@ -40,8 +40,9 @@ the expectation its x (G,) int32, z (G, K) int32 and coefficients (G, K)
 float32; for the sweeps a ``convert.SeqOperands`` with angles (G,) float32;
 bucketed operands are a ``streaming.BucketOperands`` with angles (B, gcap)
 float32; per-group streaming operands a ``streaming.GroupOperands`` with
-angles (G,) float32; pool-overlap rows are (G, 2) or (B, gcap, 2) float32
-(re, im); state planes are (2, 2^n) float32, all contiguous and on one
+angles (G,) float32; for the per-group pool overlap a
+``convert.PoolOperands``; pool-overlap rows are (G, 2) or (B, gcap, 2)
+float32 (re, im); state planes are (2, 2^n) float32, all contiguous and on one
 device.  Outputs are allocated with ``torch.empty`` and the kernels run on
 the current stream.  ``LAUNCHES`` counts, per wrapper, the calls that
 launched the kernel.  ``rot_sweep`` and ``adjoint_sweep`` (A1, C7) run one
@@ -59,10 +60,10 @@ without it they raise ``ValueError``.  The kernels that stage states with
 ``rot_fused``, ``adjoint_fused``, ``ham_bucketed``, ``expect_bucketed``,
 ``expect_hoisted``) refuse a state on the card whose data is not 16-byte
 aligned.  ``grouped_attributes``, ``ham_attributes``, ``sweep_attributes``,
-``bucket_attributes`` and ``stream_group_attributes`` report how A1 / C7,
-B4, A3 / C9, B6 / D12 / D13 and A2 / C8 launch (registers, spills, shared
-memory, resident blocks per SM or clusters); ``cluster_floor`` runs the
-barrier floor of the cluster sweeps.
+``bucket_attributes``, ``stream_group_attributes`` and ``pool_attributes``
+report how A1 / C7, B4, A3 / C9, B6 / D12 / D13, A2 / C8 and E14 / E15
+launch (registers, spills, shared memory, resident blocks per SM or
+clusters); ``cluster_floor`` runs the barrier floor of the cluster sweeps.
 """
 
 from __future__ import annotations
@@ -195,8 +196,9 @@ _SIGNATURES = {
         "ovqe_sg_block_threads": "",
     },
     "pool": {
-        "ovqe_pool_overlap": "PPLPPPPIIPIPP",
+        "ovqe_pool_overlap": "PPLPPPPPIIIPIPP",
         "ovqe_pool_bucketed": "PPLIPPPPPPIIIIPPP",
+        "ovqe_pool_attrs": "IIIIIIP",
         "ovqe_pool_blocks": "L",
     },
 }
@@ -979,28 +981,39 @@ def expect_stream(psi, go: st.GroupOperands, herm: bool = False):
 POOL_MAX_GCAP = 16      # PB_MAX_GCAP of csrc/pool_kernels.cu
 
 
-def pool_overlap(sigma, psi, x, z, cre, cim):
-    """(G, 2) rows (re, im) of <sigma| W_g X^{x_g} |psi>, every group in
-    one launch; x (G,), z (G, K) int32, cre, cim (G, K)."""
-    if psi.device.type == "cpu":
-        return st.pool_overlap_ref(sigma, psi, x, z, cre, cim)
+def _pool_ops(sigma, psi, po: convert.PoolOperands) -> int:
+    """Check E14's operands against the states; return N."""
     N = _state("psi", psi)
     _check("sigma", sigma, torch.float32, (2, N), psi.device)
-    G, K = _groups(psi, x, z, (cre, cim))
+    _groups(psi, po.x, po.z, (po.a_re, po.a_im))
+    _check("k_live", po.k_live, torch.int32, (po.G,), psi.device)
+    return N
+
+
+def pool_overlap(sigma, psi, po: convert.PoolOperands):
+    """(G, 2) rows (re, im) of <sigma| W_g X^{x_g} |psi> over the groups of
+    ``po`` (``convert.pool_operands``), every group in one launch; each
+    group adds its ``po.k_live`` terms, and W_im only where ``po.real`` is
+    false."""
+    if psi.device.type == "cpu":
+        return st.pool_overlap_ref(sigma, psi, *po.args())
+    N = _pool_ops(sigma, psi, po)
     lib = _load("pool")
-    out = torch.empty((G, 2), dtype=torch.float32, device=psi.device)
-    if G:
+    out = torch.empty((po.G, 2), dtype=torch.float32, device=psi.device)
+    if po.G:
         nb = lib.ovqe_pool_blocks(N)
-        partials = torch.empty((2 * G, nb), dtype=torch.float64,
+        partials = torch.empty((2 * po.G, nb), dtype=torch.float64,
                                device=psi.device)
-        _launch("pool_overlap", lib.ovqe_pool_overlap, sigma, psi, N, x, z,
-                cre, cim, G, K, partials, nb, out, _stream(psi))
+        _launch("pool_overlap", lib.ovqe_pool_overlap, sigma, psi, N, po.x,
+                po.z, po.a_re, po.a_im, po.k_live, po.G, po.K, int(po.real),
+                partials, nb, out, _stream(psi))
     return out
 
 
 def pool_bucketed(sigma, psi, bo: st.BucketOperands):
     """(B, gcap, 2) rows (re, im) of the pool groups in ``bo``, one launch
-    over all buckets; zeros in padding slots."""
+    over all buckets; each slot adds its ``bo.k_live`` terms (zeros in
+    padding slots), and W_im only where ``bo.real`` is false."""
     if psi.device.type == "cpu":
         return st.pool_bucketed_ref(sigma, psi, bo)
     N = _buckets(psi, bo, (bo.coef, bo.coef_im))
@@ -1014,7 +1027,30 @@ def pool_bucketed(sigma, psi, bo: st.BucketOperands):
     out = torch.empty((bo.B, bo.gcap, 2), dtype=torch.float32,
                       device=psi.device)
     _launch("pool_bucketed", lib.ovqe_pool_bucketed, sigma, psi, N,
-            bo.chunk_bits, bo.x_hi, bo.x_lo, bo.act, bo.z, bo.coef,
+            bo.chunk_bits, bo.x_hi, bo.x_lo, bo.k_live, bo.z, bo.coef,
             bo.coef_im, bo.B, bo.gcap, bo.K, int(bo.real), partials, out,
             _stream(psi))
     return out
+
+
+def pool_attributes(name: str, ops, n: int) -> Dict[str, int]:
+    """How ``pool_overlap`` (``ops`` a ``convert.PoolOperands``) or
+    ``pool_bucketed`` (``ops`` a ``streaming.BucketOperands``) launches on
+    a 2^n state: registers and local (spill) bytes per thread, dynamic
+    shared memory and threads per block, resident blocks per SM, the
+    compiled term tile, the amplitudes per thread and (E14) the groups a
+    block walks (the instance is chosen by K, realness and, for E15, the
+    chunk)."""
+    if name not in ("pool_overlap", "pool_bucketed"):
+        raise ValueError(f"not a pool kernel: {name}")
+    bucketed = name == "pool_bucketed"
+    out = (ctypes.c_int * 8)()
+    rc = _load("pool").ovqe_pool_attrs(
+        int(bucketed), ops.K, int(ops.real), n,
+        ops.chunk_bits if bucketed else 0, 1 if bucketed else max(1, ops.G),
+        ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"pool_attributes({name}): CUDA error {rc}")
+    keys = ("registers", "local_bytes", "smem_bytes", "threads",
+            "blocks_per_sm", "k_tile", "per", "run")
+    return dict(zip(keys, list(out)))

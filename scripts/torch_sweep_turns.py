@@ -8,7 +8,7 @@ sweep and adjoint (A2 ``rot_stream``, C8 ``adjoint_stream``) and the paths
 that run them.
 
     python3 scripts/torch_sweep_turns.py --trees PARENT CHANGE \\
-        [--h16 PICKLE] [--quick]
+        [--h16 PICKLE] [--quick | --pool]
 
 Each tree is a checkout of the repository (for example unpacked with
 ``git archive``) that holds ``chip_smoke.py`` and ``openvqe_tpu_torch``.
@@ -56,6 +56,19 @@ into the tree's own ``build/``):
   and each one's energy and gradient at theta0 and theta1 (the gradient
   as a SHA-256 of its float64 entries), which the table compares across
   the turns bit for bit;
+* the pool-overlap kernels E14 ``pool_overlap`` and E15
+  ``pool_bucketed`` (``measure_pool``) on H10's UCCSD pool (875 groups,
+  n = 20, sigma = H psi of a random state), on the synthetic pool of
+  ``chip_smoke.py`` phase 9 (n = 20, complex weights), on a synthetic
+  pool of 256 groups with one group per x_hi bucket (n = 20, 2^12
+  chunks), on the fermionic ADAPT pool of H8 (spin_complement_gsd
+  under JW, 3,276 groups, n = 16) and, E14 alone (E15 takes 2^9
+  amplitudes at least), of H4 (210 groups, n = 8): CUDA events over 20
+  calls after 3 warm-ups, with a SHA-256 of the rows of every instance the
+  change compiles (E14 on H10's, H4's and the synthetic pool at K and
+  K + 1, a zero column appended; E15 on H10's and the synthetic pool with
+  2^8 .. 2^12 chunks at K and K + 1; on the parent tree its kernels under
+  the same names); ``--pool`` measures only these;
 * unless ``--quick``, the H10 fermionic ADAPT run of ``chip_smoke.py``
   phase 10 (3 outer iterations, the float32 Lanczos reference included;
   host clock);
@@ -146,6 +159,105 @@ def b4_instances(K, psi, ho, tag, out):
             lam = (K._ham(psi, ops, per) if hasattr(K, "_ham")
                    else ham(psi, ops))
             out[f"b4_{tag}_per{per}_kt{kt}_sha256"] = sha256(lam)
+
+
+def gsd_pool(orbitals: int, electrons: int):
+    """The fermionic ADAPT pool (spin_complement_gsd under JW) of
+    a molecule with this many spatial orbitals and electrons, grouped."""
+    from openvqe_tpu_torch.ops import generators
+    from openvqe_tpu_torch.sim import grouped as gr
+    from openvqe_tpu_torch.sim.compile import compile_pool
+    pool = generators.spin_complement_gsd(electrons, orbitals, "JW")[2]
+    return gr.group_pool(compile_pool(pool, 2 * orbitals))
+
+
+def spread_pool(n: int, cb: int, seed: int = 5):
+    """A real pool with one group on each x_hi at chunk 2^cb (2^(n - cb)
+    groups), each with 8 live terms, as a UCCSD double's."""
+    import numpy as np
+    from openvqe_tpu_torch.sim import grouped as gr
+    rng = np.random.default_rng(seed)
+    G = 1 << (n - cb)
+    x = (np.arange(G, dtype=np.int64) << cb) | rng.integers(1, 1 << cb, G)
+    return gr.GroupedPool(n=n, x=x.astype(np.int32),
+                          z=rng.integers(0, 1 << n, (G, 8)).astype(np.int32),
+                          a_re=rng.choice([-0.125, 0.125], (G, 8)),
+                          a_im=np.zeros((G, 8)),
+                          op=np.arange(G, dtype=np.int32), n_ops=G)
+
+
+def pool_padded(gp):
+    """``gp`` with a zero column appended to z and the weights: the same
+    rows at K + 1, which takes the other compiled term tile."""
+    import numpy as np
+    from openvqe_tpu_torch.sim import grouped as gr
+
+    def p(a):
+        return np.pad(a, ((0, 0), (0, 1)))
+    return gr.GroupedPool(n=gp.n, x=gp.x, z=p(gp.z), a_re=p(gp.a_re),
+                          a_im=p(gp.a_im), op=gp.op, n_ops=gp.n_ops)
+
+
+def pool_e14(K, gp, dev):
+    """E14 on ``gp`` as a function of (sigma, psi), whichever operands the
+    tree's wrapper takes (before its redesign the pool's x, z, a_re and
+    a_im)."""
+    import inspect
+    import torch
+    from openvqe_tpu_torch.sim import convert
+    if "po" in inspect.signature(K.pool_overlap).parameters:
+        po = convert.pool_operands(gp, dev)
+        return lambda sigma, psi: K.pool_overlap(sigma, psi, po)
+    flat = [torch.as_tensor(a, dtype=dt, device=dev).contiguous()
+            for a, dt in ((gp.x, torch.int32), (gp.z, torch.int32),
+                          (gp.a_re, torch.float32), (gp.a_im, torch.float32))]
+    return lambda sigma, psi: K.pool_overlap(sigma, psi, *flat)
+
+
+def pool_e15(K, gp, cb, dev):
+    """E15 on ``gp`` bucketed at chunk 2^cb as a function of (sigma,
+    psi)."""
+    from openvqe_tpu_torch.sim import streaming as st
+    sd = st.build_stream_data(gp.n, gp.x, gp.z, gp.a_re, op=gp.op,
+                              coef_im=gp.a_im, chunk_bits=cb)
+    bo = st.bucket_operands(st.build_pool_buckets(sd)[0], dev)
+    return lambda sigma, psi: K.pool_bucketed(sigma, psi, bo)
+
+
+def measure_pool(cs, h10, obj, out: dict) -> None:
+    """E14 and E15 (see the module docstring)."""
+    import torch
+    from openvqe_tpu_torch.sim import grouped as gr
+    from openvqe_tpu_torch.sim import kernels as K
+    from openvqe_tpu_torch.sim import streaming as st
+    from openvqe_tpu_torch.sim.compile import compile_pool
+    dev = torch.device("cuda")
+    psi = cs.rand_state(20, 13, dev)
+    pools = {"h10": (gr.group_pool(compile_pool(h10.pool, h10.n)),
+                     obj.ham_apply(psi).contiguous(), psi),
+             "synthetic": (cs.pool_synthetic(20, st.CHUNK_BITS),
+                           cs.rand_state(20, 14, dev),
+                           cs.rand_state(20, 15, dev)),
+             "spread": (spread_pool(20, st.CHUNK_BITS),
+                        cs.rand_state(20, 16, dev),
+                        cs.rand_state(20, 17, dev)),
+             "h8": (gsd_pool(8, 8), cs.rand_state(16, 18, dev),
+                    cs.rand_state(16, 19, dev)),
+             "h4": (gsd_pool(4, 4), cs.rand_state(8, 20, dev),
+                    cs.rand_state(8, 21, dev))}
+    for tag, (gp, sigma, p) in pools.items():
+        e14 = pool_e14(K, gp, dev)
+        out[f"e14_{tag}_ms"] = cs.cuda_ms(lambda: e14(sigma, p))
+        if gp.n > 8:
+            e15 = pool_e15(K, gp, st.chunk_bits_for(gp.n), dev)
+            out[f"e15_{tag}_ms"] = cs.cuda_ms(lambda: e15(sigma, p))
+        if tag in ("h10", "synthetic", "h4"):
+            for kt, g in ((2, gp), (1, pool_padded(gp))):
+                out[f"e14_{tag}_kt{kt}_sha256"] = sha256(
+                    pool_e14(K, g, dev)(sigma, p))
+                for cb in range(8, 13) if tag != "h4" else ():
+                    out[f"e15_{tag}_cb{cb}_kt{kt}_sha256"] = sha256(
+                        pool_e15(K, g, cb, dev)(sigma, p))
 
 
 def energy_and_grad_ms(ba, theta, calls=20):
@@ -309,7 +421,7 @@ def measure_h8(cs, tree: Path, out: dict) -> None:
         "len_op1", "len_op2", "CNOT1", "CNOT2")]
 
 
-def measure(tree: Path, h16: str, quick: bool) -> dict:
+def measure(tree: Path, h16: str, quick: bool, pool: bool) -> dict:
     sys.path.insert(0, str(tree))
     spec = importlib.util.spec_from_file_location("tree_chip_smoke",
                                                   tree / "chip_smoke.py")
@@ -325,15 +437,18 @@ def measure(tree: Path, h16: str, quick: bool) -> dict:
     K.build()
     K._load()
     out = {"tree": str(tree), "card": cs.card_line()}
+    with contextlib.redirect_stdout(io.StringIO()):
+        h10 = cs.h10_problem()
+    obj = VQEObjective(h10.ham, device="cuda")
+    measure_pool(cs, h10, obj, out)
+    if pool:
+        return out
     measure_small(cs, out)
     measure_h8(cs, tree, out)
     ref10 = json.loads((tree / "tests" / "torch_h10_reference.json"
                         ).read_text())
     ref_adapt = json.loads((tree / "tests" / "torch_adapt_reference.json"
                             ).read_text())
-    with contextlib.redirect_stdout(io.StringIO()):
-        h10 = cs.h10_problem()
-    obj = VQEObjective(h10.ham, device="cuda")
     b = obj.bind(h10.gens, h10.hf)
     pts = ref10["points"]
     theta0 = np.asarray(pts["theta0"]["theta"])
@@ -436,6 +551,7 @@ def measure(tree: Path, h16: str, quick: bool) -> dict:
 
 
 ORDER = (0, 1, 1, 0)    # the turns: indices into --trees
+POOLS = ("h10", "synthetic", "spread", "h8", "h4")
 CHILD_TIMEOUT_S = 900.0
 SMALL = ("H6", "BeH2")  # n = 12 and 14
 
@@ -452,7 +568,8 @@ METRICS = tuple(f"{m.lower()}_{k}" for m in SMALL for k in (
     "b6_k64_ms", "d12_herm_ms", "d13_h10_ms", "c8_ms",
     "h10_energy_and_grad_ms", "h10_fuse0_energy_and_grad_ms",
     "h10_adapt_s", "h16_sweep_s", "h16_expectation_s", "h16_energy_s",
-    "h16_hoist_expectation_s", "h16_hoist_energy_s")
+    "h16_hoist_expectation_s", "h16_hoist_energy_s") + tuple(
+    f"{k}_{t}_ms" for t in POOLS for k in ("e14", "e15"))
 VALUES = tuple(f"{m.lower()}_{b}_energy" for m in SMALL
                for b in ("cluster", "pool")) + (
     "h8_cluster_energy", "h8_pool_energy", "d10_h8_value", "d13_h10_value",
@@ -473,7 +590,11 @@ SAME = tuple(f"{k}_fmode{f}_{h}" for f in (0, 1, 2) for k, h in (
     f"b4_{t}_per{p}_kt{k}_sha256" for t in ("h8", "complex")
     for p in (1, 2, 4, 8) for k in (1, 2)) + tuple(
     f"a2_fmode{f}_per{p}_kt{k}_sha256" for f in (0, 1, 2)
-    for p in (1, 2, 4, 8) for k in (1, 2))
+    for p in (1, 2, 4, 8) for k in (1, 2)) + tuple(
+    f"e14_{t}_kt{k}_sha256" for t in ("h10", "synthetic", "h4")
+    for k in (1, 2)) + tuple(
+    f"e15_{t}_cb{c}_kt{k}_sha256" for t in ("h10", "synthetic")
+    for c in range(8, 13) for k in (1, 2))
 
 
 def main() -> int:
@@ -484,10 +605,12 @@ def main() -> int:
     ap.add_argument("--measure", default="", help=argparse.SUPPRESS)
     ap.add_argument("--quick", action="store_true",
                     help="the kernels and energy_and_grad only")
+    ap.add_argument("--pool", action="store_true",
+                    help="the pool-overlap kernels only")
     args = ap.parse_args()
     if args.measure:
         print("TURN " + json.dumps(measure(Path(args.measure).resolve(),
-                                           args.h16, args.quick)),
+                                           args.h16, args.quick, args.pool)),
               flush=True)
         return 0
     if not args.trees:
@@ -501,7 +624,8 @@ def main() -> int:
     for i in ORDER:
         cmd = [sys.executable, str(Path(__file__).resolve()), "--measure",
                str(trees[i])] + (["--h16", h16] if h16 else []) \
-            + (["--quick"] if args.quick else [])
+            + (["--quick"] if args.quick else []) \
+            + (["--pool"] if args.pool else [])
         t = time.time()
         proc = subprocess.run(cmd, cwd=str(trees[i]), capture_output=True,
                               text=True, timeout=CHILD_TIMEOUT_S)

@@ -9,7 +9,8 @@ compiled term tile (real and complex, herm off and on), the hoisted
 expectation at every compiled PER and term tile, the four per-group
 streaming ones (OVQE_STREAM_FUSE=0, the sweep and the adjoint at each
 PER) and the two
-pool-overlap kernels.  A
+pool-overlap kernels (E14 and E15 at every compiled PER, term tile and
+REAL, also on states with +-0 entries and E14 at n = 8).  A
 CUDA kernel has no CPU mode, so these tests are marked ``cuda`` and skip
 on a machine without a card; on one they run with
 ``python -m pytest tests/test_torch_kernels.py -q``.
@@ -926,23 +927,37 @@ def _pool(n, cb, real, seed=9):
                           op=(np.arange(G) % 23).astype(np.int32), n_ops=23)
 
 
+def _pool_padded(gp, pad):
+    """``gp`` with ``pad`` zero columns appended to z and the weights: the
+    same rows at K + pad, which takes the other compiled term tile."""
+    def p(a):
+        return np.pad(a, ((0, 0), (0, pad)))
+    return gr.GroupedPool(n=gp.n, x=gp.x, z=p(gp.z), a_re=p(gp.a_re),
+                          a_im=p(gp.a_im), op=gp.op, n_ops=gp.n_ops)
+
+
+def _signed_zeros(t, seed):
+    """``t`` with a fifth of its entries set to +0 and a fifth to -0."""
+    r = np.random.default_rng(seed).integers(0, 5, size=tuple(t.shape))
+    t = t.clone()
+    t[torch.as_tensor(r == 0, device=t.device)] = 0.0
+    t[torch.as_tensor(r == 1, device=t.device)] = -0.0
+    return t
+
+
 @pytest.mark.parametrize("real", [False, True])
 @pytest.mark.parametrize("cb", [8, 11])
 def test_pool_kernels_match_plain_versions(dev, cb, real):
     gp = _pool(N, cb, real)
     sigma, psi = _state(dev, 4), _state(dev, 5)
-
-    def t(a, dt):
-        return torch.as_tensor(a, dtype=dt, device=dev).contiguous()
-
-    args = (t(gp.x, torch.int32), t(gp.z, torch.int32),
-            t(gp.a_re, torch.float32), t(gp.a_im, torch.float32))
+    po = convert.pool_operands(gp, dev)
+    assert po.real is real
     counts = dict(K.LAUNCHES)
-    rows = K.pool_overlap(sigma, psi, *args)
-    rows_ref = st.pool_overlap_ref(sigma, psi, *args)
+    rows = K.pool_overlap(sigma, psi, po)
+    rows_ref = st.pool_overlap_ref(sigma, psi, *po.args())
     assert rows.shape == (len(gp.x), 2)
     assert float((rows - rows_ref).abs().max()) <= TOL
-    assert torch.equal(rows, K.pool_overlap(sigma, psi, *args))
+    assert torch.equal(rows, K.pool_overlap(sigma, psi, po))
 
     sd = st.build_stream_data(N, gp.x, gp.z, gp.a_re, op=gp.op,
                               coef_im=gp.a_im, chunk_bits=cb)
@@ -964,6 +979,67 @@ def test_pool_kernels_match_plain_versions(dev, cb, real):
         {k: want.get(k, 0) for k in K.KERNELS}
 
 
+@pytest.mark.parametrize("pad", [0, 1])
+@pytest.mark.parametrize("real", [False, True])
+def test_pool_overlap_at_each_instance(dev, real, pad):
+    """E14 at both term tiles (K = 4 and 5, a zero column) and REAL or
+    not, at n = 8 (one tile outgrows the state: idle amplitudes), 12 and
+    13, also on states with +-0 entries: against its plain version, and
+    bit for bit when repeated."""
+    for n, cb in ((8, 7), (12, 8), (13, 11)):
+        gp = _pool_padded(_pool(n, cb, real, seed=n), pad)
+        po = convert.pool_operands(gp, dev)
+        assert po.real is real and po.K == 4 + pad
+        for zeros in (False, True):
+            sigma, psi = _state(dev, 4, n), _state(dev, 5, n)
+            if zeros:
+                sigma, psi = _signed_zeros(sigma, 1), _signed_zeros(psi, 2)
+            rows = K.pool_overlap(sigma, psi, po)
+            ref = st.pool_overlap_ref(sigma, psi, *po.args())
+            assert float((rows - ref).abs().max()) <= TOL, (n, zeros)
+            assert torch.equal(rows, K.pool_overlap(sigma, psi, po))
+        at = K.pool_attributes("pool_overlap", po, n)
+        assert at["k_tile"] == (2 if po.K % 2 == 0 else 1)
+        assert at["local_bytes"] == 0 and at["blocks_per_sm"] >= 1
+        assert at["per"] == 16 and 1 <= at["run"] <= po.G
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("pad", [0, 1])
+@pytest.mark.parametrize("real", [False, True])
+@pytest.mark.parametrize("cb", [8, 9, 10, 11, 12])
+def test_pool_bucketed_at_each_instance(dev, cb, real, pad):
+    """E15 at every PER (chunk 2^8 .. 2^12 at n = 13), both term tiles
+    and REAL or not, also on states with +-0 entries: against its plain
+    version and the per-group rows, and bit for bit when repeated."""
+    n = 13
+    gp = _pool_padded(_pool(n, cb, real, seed=cb), pad)
+    sd = st.build_stream_data(n, gp.x, gp.z, gp.a_re, op=gp.op,
+                              coef_im=gp.a_im, chunk_bits=cb)
+    bk, slot_group = st.build_pool_buckets(sd)
+    bo = st.bucket_operands(bk, dev)
+    assert bo.real is real and bo.K == 4 + pad
+    live = torch.from_numpy(slot_group >= 0)
+    for zeros in (False, True):
+        sigma, psi = _state(dev, 6, n), _state(dev, 7, n)
+        if zeros:
+            sigma, psi = _signed_zeros(sigma, 3), _signed_zeros(psi, 4)
+        rows = K.pool_bucketed(sigma, psi, bo)
+        assert float((rows - st.pool_bucketed_ref(sigma, psi, bo)).abs()
+                     .max()) <= TOL, zeros
+        assert torch.equal(rows, K.pool_bucketed(sigma, psi, bo))
+        flat = st.pool_overlap_ref(sigma, psi, *convert.pool_operands(
+            gp, dev).args())
+        assert float((rows.cpu()[live] - flat.cpu()[slot_group[
+            slot_group >= 0]]).abs().max()) <= TOL
+        assert not rows.cpu()[~live].any()
+    at = K.pool_attributes("pool_bucketed", bo, n)
+    assert at["per"] == 1 << (cb - 8) and at["registers"] <= 64
+    assert at["k_tile"] == (2 if bo.K % 2 == 0 else 1)
+    assert at["blocks_per_sm"] >= 1
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("fuse", [False, True])
 def test_pool_screen_launches_its_kernel(dev, fuse):
     """The streaming screen on the card: v against the plain rows summed
@@ -975,9 +1051,8 @@ def test_pool_screen_launches_its_kernel(dev, fuse):
     counts = dict(K.LAUNCHES)
     v = screen(psi)
     ref = gr.segment_rows(st.pool_overlap_ref(
-        sigma, psi, *(torch.as_tensor(a, device=dev) for a in (
-            gp.x, gp.z, gp.a_re.astype(np.float32),
-            gp.a_im.astype(np.float32)))), gp.op, gp.n_ops)
+        sigma, psi, *convert.pool_operands(gp, dev).args()), gp.op,
+        gp.n_ops)
     np.testing.assert_allclose(v, ref, atol=TOL)
     name = "pool_bucketed" if fuse else "pool_overlap"
     assert {k: K.LAUNCHES[k] - counts[k] for k in K.KERNELS} == \
@@ -985,14 +1060,18 @@ def test_pool_screen_launches_its_kernel(dev, fuse):
 
 
 def test_pool_wrappers_reject_what_the_kernels_do_not_take(dev):
+    import dataclasses
     gp = _pool(N, 8, real=True)
     sigma, psi = _state(dev, 4), _state(dev, 5)
-    x, z = (torch.as_tensor(a, device=dev) for a in (gp.x, gp.z))
-    cre = torch.as_tensor(gp.a_re, dtype=torch.float32, device=dev)
+    po = convert.pool_operands(gp, dev)
     with pytest.raises(TypeError):
-        K.pool_overlap(sigma.double(), psi, x, z, cre, cre)
+        K.pool_overlap(sigma.double(), psi, po)
     with pytest.raises(ValueError):
-        K.pool_overlap(sigma, psi, x, z, cre[:, :1].contiguous(), cre)
+        K.pool_overlap(sigma, psi, dataclasses.replace(
+            po, a_re=po.a_re[:, :1].contiguous()))
+    with pytest.raises(ValueError):
+        K.pool_overlap(sigma, psi, dataclasses.replace(
+            po, k_live=po.k_live[:1].contiguous()))
     sd = st.build_stream_data(N, gp.x, gp.z, gp.a_re, op=gp.op,
                               coef_im=gp.a_im, chunk_bits=6)
     bo = st.bucket_operands(st.build_pool_buckets(sd)[0], dev)
