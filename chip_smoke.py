@@ -17,8 +17,9 @@ imports nothing of JAX and nothing of ``openvqe_tpu``.  Phases:
    CUDA events; the H-apply's library yardstick at H8 (``spmm_library``:
    one ``torch.sparse.mm`` of H's CSR, built on the card from the grouped
    operands, with the state, held against the plain version); how B4
-   launches at H8 (``kernels.ham_attributes``: registers, local bytes,
-   shared memory, threads, blocks per SM, term tile, amplitudes a thread);
+   and D10 launch at H8 (``kernels.ham_attributes``,
+   ``kernels.expect_attributes``: registers, local bytes, shared memory,
+   threads, blocks per SM, term tile, amplitudes a thread);
    how the cluster sweeps A1 and C7 launch at H8
    (``kernels.grouped_attributes``: registers, local bytes, shared
    memory, blocks, threads, clusters the card can hold) and the barrier
@@ -56,9 +57,11 @@ imports nothing of JAX and nothing of ``openvqe_tpu``.  Phases:
    with the diagonal against D12, with herm off and on), gradient entries
    bit-identical when repeated, on H10's own operands and on the
    synthetic problems of phase 5 with inert groups added; timed at H10's
-   shapes, with the registers, spills, shared memory and resident blocks
-   of the A2 and C8 instances H10 runs (``kernels.
-   stream_group_attributes``), B5's library yardstick (as B6's),
+   shapes (D11 with herm on, the row's time, and off), with the
+   registers, spills, shared memory and resident blocks of the A2, C8 and
+   D11 instances H10 runs (``kernels.stream_group_attributes``,
+   ``kernels.expect_stream_attributes``), B5's library yardstick (as
+   B6's),
    the card's L2 copy rate (copies of buffers that stay in L2,
    ``l2_rate``, in CUDA graphs) and the time each kernel's states would
    take to pass once per group at that rate, printed beside its time (a
@@ -617,12 +620,12 @@ def parity_case(label, psi, ang, sops, hops, errs, card):
     out["ham_apply"] = float((lam_k - lam_p).abs().max())
     check(out["ham_apply"] <= TOL_STATE, f"{label} ham_apply {out}")
 
-    e_k = K.expectation(a, *hops.args())
+    e_k = K.expectation(a, hops)
     e_p = gr.expectation_ref(a, *hops.args())
     out["expectation"] = abs(float(e_k) - float(e_p))
     check(out["expectation"] <= TOL_ENERGY_REL * max(1.0, abs(float(e_p))),
           f"{label} expectation {float(e_k)} vs {float(e_p)}")
-    check(float(K.expectation(a, *hops.args())) == float(e_k),
+    check(float(K.expectation(a, hops)) == float(e_k),
           f"{label} expectation is not deterministic")
 
     lam = lam_p.contiguous()
@@ -683,7 +686,7 @@ def phase_parity(h8, card):
     fns = {
         "rot_sweep": (lambda: K.rot_sweep(psi, ang, sops, fm),
                       lambda: gr.rot_sweep_ref(psi, ang, x, z, s, fm)),
-        "expectation": (lambda: K.expectation(psi, *h.args()),
+        "expectation": (lambda: K.expectation(psi, h),
                         lambda: gr.expectation_ref(psi, *h.args())),
         "ham_apply": (lambda: K.ham_apply(psi, h),
                       lambda: gr.ham_apply_ref(psi, *h.args())),
@@ -714,6 +717,11 @@ def phase_parity(h8, card):
           f"{h.G} groups (K {h.K}, {'real' if h.real else 'complex'}); "
           f"{rows['ham_apply']['ms']:.4f} ms against a bound of "
           f"{rows['ham_apply']['bound_ms']:.6f} ms")
+    at = K.expect_attributes(h, N_QUBITS)
+    print(f"expectation at H8 ({card}): {json.dumps(at)}; "
+          f"{-(-(1 << N_QUBITS) // (at['per'] * at['threads']))} blocks; "
+          f"{rows['expectation']['ms']:.4f} ms against a bound of "
+          f"{rows['expectation']['bound_ms']:.6f} ms")
     sweep_clusters(sops, psi, card)
     return rows
 
@@ -1328,6 +1336,13 @@ def phase_stream_group_parity(h10, ref, card):
           f"holds for H10)")
     for name, ops in (("rot_stream", fwd), ("adjoint_stream", adj)):
         print_stream_group_attributes(name, ops, "H10", card)
+    at = K.expect_stream_attributes(hgo, h10.n)
+    print(f"expect_stream at H10 ({card}): {json.dumps(at)}; "
+          f"{-(-(1 << h10.n) // (at['per'] * at['threads']))} blocks, "
+          f"{hgo.G} groups (K {hgo.K}, "
+          f"{'real' if hgo.real else 'complex'}); "
+          f"{rows['expect_stream']['ms']:.4f} ms (herm) and {ms_nh:.4f} ms "
+          f"against a bound of {rows['expect_stream']['bound_ms']:.6f} ms")
     rows["ham_stream"]["library_ms"] = spmm_library(
         "ham_stream", "H10", psi, hgo.x, hgo.z, hgo.coef, hgo.coef_im,
         hgo.k_live, st.ham_stream_ref(psi, None, hgo), card)

@@ -13,14 +13,8 @@
 // and, for the sweeps, the G dependent steps (rotations do not commute)
 // are what remain.
 //
-// * expect_kernel (D10): one thread per amplitude, output-stationary over
-//   all groups in one launch; coalesced gathers (for a fixed x the lanes
-//   of a warp read j ^ x for 32 consecutive j, a permutation of one
-//   aligned 32-element segment).  Each thread pays a wfield (common.cuh)
-//   per group: a popcount, a select and two FMAs per term slot, K of them
-//   (32 at H8, of which ~5.6 are live), with W_im computed on a real H.
-// * ham_kernel (B4), redesigned for Hopper.  The one-amplitude design of
-//   D10 ran B4 at H8 in 0.96 ms, about 1.9 us a group per thread,
+// * ham_kernel (B4), redesigned for Hopper.  The one-amplitude design
+//   (D10's first) ran B4 at H8 in 0.96 ms, about 1.9 us a group per thread,
 //   latency-bound: 65,536 threads (a quarter of the card's resident
 //   capacity), three dependent global loads and a popcount per term slot,
 //   one partner gather in flight.  So, as B6 (streaming_kernels.cu):
@@ -36,10 +30,11 @@
 //     (HamOperands.real: every a_im zero, as convert.ham_operands leaves a
 //     Hermitian sum) computes no W_im;
 //   - the groups' operands are staged into shared memory once per block,
-//     in runs of up to GR_HAM_OPS_BYTES;
+//     in runs of whole rows of K, with cp.async;
 //   - the partners psi[j ^ x] of group g + 1 (L2 gathers: H8's state is
 //     512 KB) are loaded while group g is added (loading 2, 4 or 8 groups
 //     ahead, GR_HAM_DEPTH, ran slower on an H100; PERF.md);
+//   the walk is group_walk (common.cuh), which D10 and D11 share;
 //   - each amplitude's sum keeps the group order and the roundings of the
 //     one-amplitude kernel, so lambda is that kernel's bit for bit
 //     (written out with __fadd_rn / __fmul_rn / __fmaf_rn: nvcc contracts
@@ -47,6 +42,17 @@
 //   Splitting the group loop across threads would change the sum order;
 //   it is not done.  At H8 B4 runs 0.17 ms against a bound of 0.0096 ms
 //   (operations; PERF.md); what holds it there is not measured.
+// * expect_kernel (D10), redesigned for Hopper.  Its first design gave
+//   each thread one amplitude and paid a wfield per group (a popcount, a
+//   select and two FMAs per term slot, K = 32 at H8 of which ~5.6 live,
+//   W_im on a real H), with one partner gather in flight: B4's first
+//   design, 0.97 ms at H8.  Now it is B4's walk (GR_EXP_THREADS threads,
+//   kernels.expect_per amplitudes a thread, k_live, REAL, staged runs,
+//   partners GR_EXP_DEPTH groups ahead) contracted with conj(psi_j) per
+//   amplitude in the one-amplitude kernel's roundings (expect_term,
+//   common.cuh), then summed per 128 consecutive amplitudes (a q slice of
+//   a block) in that kernel's block-sum order, so the value is its bit for
+//   bit.
 // * rot_sweep (A1) and adjoint_sweep (C7), redesigned for Hopper.  The TPU
 //   kernels walk the G groups as one sequential grid with the state
 //   resident in VMEM; a launch per group cost ~3.5 us here against ~0.2 us
@@ -114,7 +120,7 @@
 
 namespace cg = cooperative_groups;
 
-#define OVQE_THREADS 128        // D10 blocks; C7's 128-pair sums
+#define OVQE_THREADS 128        // D10's amplitudes a partial; C7's pair sums
 #define GR_THREADS ST_THREADS   // 256: the per-group route's blocks
 #define GR_MAX_CLUSTER 16       // blocks of the largest (non-portable) cluster
 #define GR_OPS_BYTES 16384      // shared memory of one operand chunk
@@ -122,16 +128,16 @@ namespace cg = cooperative_groups;
 #define GR_SWEEP_TB 9           // log2 threads of a cluster sweep block
 #define GR_HAM_TB 7             // log2 threads of a B4 block
 #define GR_HAM_THREADS (1 << GR_HAM_TB)
-#define GR_HAM_OPS_BYTES 32768  // shared memory of one staged run of groups
 #define GR_HAM_DEPTH 1          // groups whose partners B4 loads ahead
+#define GR_HAM_BLOCKS 4         // B4 blocks an SM at least: at most 128
+                                // registers (unbounded, ptxas spilled 4-16
+                                // bytes in two instances; PERF.md)
+#define GR_EXP_TB 7             // log2 threads of a D10 block
+#define GR_EXP_THREADS (1 << GR_EXP_TB)
+#define GR_EXP_DEPTH 1          // groups whose partners D10 loads ahead
+#define GR_WALK_COMPACT 0       // B4 and D10 stage whole rows of K
 
 namespace {
-
-// Floats of B4's sign table, rounded up to whole float4s (the staged
-// operands follow it).
-__host__ __device__ constexpr int ham_table_floats(int per) {
-  return (per * per + 3) / 4 * 4;
-}
 
 // v with bit b taken out (the bits above it shifted down one).
 __device__ __forceinline__ unsigned remove_bit(unsigned v, int b) {
@@ -598,138 +604,104 @@ sweep_reduce_kernel(const SweepArgs* __restrict__ args, int nb) {
 // amplitudes base | q T | tid, base = b PER T, q < PER, T = GR_HAM_THREADS
 // (idle threads where one block of PER = 1 outgrows the state), and
 // accumulates out[j] = sum_g W_g(j) psi[j ^ x_g] over all groups in order,
-// in registers: no scatter, no atomics.  x == 0 groups carry the
-// diagonal.  The groups' operands are staged into shared memory in runs
-// of rg groups (kl, then z, ar and, unless REAL, ai, K each); a group adds
-// its first kl[g] terms (bucket_fields: one popcount of (base | tid) & z_k
-// per term, the loop part a row of the PER x PER table S).  The partners
-// of group g + D (D = GR_HAM_DEPTH) are loaded while group g is added,
-// into a ring of D register slots (the group loop unrolled by D, so a
-// slot is a compile-time index).  Each amplitude's sum
-// is the one-amplitude-a-thread kernel's, in its roundings: REAL adds
-// W_re psi_re and W_re psi_im, each product rounded, where that kernel
-// added the W_im product too, an exact zero; the complex instance fuses
-// what it fused.
+// in registers (group_walk, common.cuh: operands staged in runs of whole
+// rows, partners GR_HAM_DEPTH groups ahead): no scatter, no atomics.  x == 0
+// groups carry the diagonal.  Each amplitude's sum is the
+// one-amplitude-a-thread kernel's, in its roundings: REAL adds W_re psi_re
+// and W_re psi_im, each product rounded, where that kernel added the W_im
+// product too, an exact zero; the complex instance fuses what it fused.
+template <int PER, bool REAL>
+struct HamEpi {
+  float acc0[PER], acc1[PER];
+  __device__ __forceinline__ unsigned take(unsigned) const {
+    return (1u << PER) - 1u;
+  }
+  __device__ __forceinline__ void add(int q, unsigned, float wr, float wi,
+                                      float b0, float b1) {
+    if (REAL) {
+      acc0[q] = __fadd_rn(acc0[q], __fmul_rn(wr, b0));
+      acc1[q] = __fadd_rn(acc1[q], __fmul_rn(wr, b1));
+    } else {
+      acc0[q] = __fadd_rn(acc0[q], __fmaf_rn(wr, b0, -__fmul_rn(wi, b1)));
+      acc1[q] = __fadd_rn(acc1[q], __fmaf_rn(wr, b1, __fmul_rn(wi, b0)));
+    }
+  }
+};
+
 template <int PER, int KT, bool REAL>
-__global__ void __launch_bounds__(GR_HAM_THREADS)
+__global__ void __launch_bounds__(GR_HAM_THREADS, GR_HAM_BLOCKS)
 ham_kernel(const float* __restrict__ psi, float* __restrict__ out, unsigned N,
            const int* __restrict__ x, const int* __restrict__ z,
            const float* __restrict__ ar, const float* __restrict__ ai,
-           const int* __restrict__ kl, int G, int K, int rg) {
-  extern __shared__ float4 ham_sm[];
+           const int* __restrict__ kl, int G, int K, int slots) {
   constexpr unsigned T = GR_HAM_THREADS;
-  float* S = reinterpret_cast<float*>(ham_sm);
-  int* skl = reinterpret_cast<int*>(S + ham_table_floats(PER));
-  int* sz = skl + rg;
-  float* sar = reinterpret_cast<float*>(sz + (size_t)rg * K);
-  float* sai = REAL ? sar : sar + (size_t)rg * K;
-  sign_table<PER, T>(S);
-  constexpr int D = GR_HAM_DEPTH;
+  const WalkSmem<PER, REAL> s{slots};
+  sign_table<PER, T>(s.S());
   const unsigned jt = (blockIdx.x * PER * T) | threadIdx.x;
   const bool on = PER > 1 || jt < N;
-  // partners of the next D groups: group g's in slot g % D
-  float acc0[PER], acc1[PER], nb0[D][PER], nb1[D][PER];
+  HamEpi<PER, REAL> e;
 #pragma unroll
-  for (int q = 0; q < PER; ++q) acc0[q] = acc1[q] = 0.f;
-#pragma unroll
-  for (int u = 0; u < D; ++u) {
-    const unsigned xu = u < G ? (unsigned)__ldg(x + u) : 0u;
-#pragma unroll
-    for (int q = 0; q < PER; ++q) {
-      const unsigned o = (jt | (q * T)) ^ xu;
-      nb0[u][q] = on && u < G ? psi[o] : 0.f;
-      nb1[u][q] = on && u < G ? psi[N + o] : 0.f;
-    }
-  }
-  for (int g0 = 0; g0 < G; g0 += rg) {          // rg: a multiple of D
-    const int ng = G - g0 < rg ? G - g0 : rg;
-    __syncthreads();            // the previous run's operands are read
-    for (int i = threadIdx.x; i < ng; i += T) skl[i] = kl[g0 + i];
-    const size_t o0 = (size_t)g0 * K;
-    for (int i = threadIdx.x; i < ng * K; i += T) {
-      sz[i] = z[o0 + i];
-      sar[i] = ar[o0 + i];
-      if (!REAL) sai[i] = ai[o0 + i];
-    }
-    __syncthreads();
-    for (int r0 = 0; r0 < ng; r0 += D) {
-#pragma unroll
-      for (int u = 0; u < D; ++u) {
-        const int r = r0 + u;
-        if (r >= ng) break;
-        float b0[PER], b1[PER];
-#pragma unroll
-        for (int q = 0; q < PER; ++q) {
-          b0[q] = nb0[u][q];
-          b1[q] = nb1[u][q];
-        }
-        if (g0 + r + D < G) {
-          const unsigned xn = (unsigned)__ldg(x + g0 + r + D);
-#pragma unroll
-          for (int q = 0; q < PER; ++q) {
-            const unsigned o = (jt | (q * T)) ^ xn;
-            if (on) {
-              nb0[u][q] = psi[o];
-              nb1[u][q] = psi[N + o];
-            }
-          }
-        }
-        float wr[PER], wi[PER];
-        bucket_fields<PER, KT, REAL, GR_HAM_TB>(wr, wi, jt, sz + r * K,
-                                                sar + r * K, sai + r * K,
-                                                skl[r], S);
-#pragma unroll
-        for (int q = 0; q < PER; ++q) {
-          if (REAL) {
-            acc0[q] = __fadd_rn(acc0[q], __fmul_rn(wr[q], b0[q]));
-            acc1[q] = __fadd_rn(acc1[q], __fmul_rn(wr[q], b1[q]));
-          } else {
-            acc0[q] = __fadd_rn(acc0[q], __fmaf_rn(wr[q], b0[q],
-                                                   -__fmul_rn(wi[q], b1[q])));
-            acc1[q] = __fadd_rn(acc1[q], __fmaf_rn(wr[q], b1[q],
-                                                   __fmul_rn(wi[q], b0[q])));
-          }
-        }
-      }
-    }
-  }
+  for (int q = 0; q < PER; ++q) e.acc0[q] = e.acc1[q] = 0.f;
+  group_walk<PER, KT, REAL, GR_HAM_TB, GR_HAM_DEPTH, GR_WALK_COMPACT != 0>(
+      e, psi, N, jt, on, x, z, ar, ai, kl, G, K, s);
   if (!on) return;
 #pragma unroll
   for (int q = 0; q < PER; ++q) {
     const unsigned j = jt | (q * T);
-    out[j] = acc0[q];
-    out[N + j] = acc1[q];
+    out[j] = e.acc0[q];
+    out[N + j] = e.acc1[q];
   }
 }
 
 // ---------------------------------------------------------------- kernel 2
 // expectation, stage 1.  Replaces
-// openvqe_tpu/sim/pallas_kernels.py::_expect_kernel.  Each thread owns one
-// amplitude j and loops over every group, contracted with conj(psi_j) on
-// the spot:
-//     sum_g W_re Re(conj(psi_j) psi_{j^x}) - W_im Im(conj(psi_j) psi_{j^x}),
-// then a block sum into partials[blockIdx.x]; stage 2 is row_reduce_kernel
-// with one block, so the result does not depend on scheduling.
-__global__ void __launch_bounds__(OVQE_THREADS)
+// openvqe_tpu/sim/pallas_kernels.py::_expect_kernel.  B4's walk at
+// GR_EXP_THREADS threads and PER amplitudes a thread, contracted on the
+// spot with conj(psi_j) (loaded once, before the walk):
+//     sum_g W_re Re(conj(psi_j) psi_{j^x}) - W_im Im(conj(psi_j) psi_{j^x})
+// in float32 per amplitude, in the order and roundings of the
+// one-amplitude-a-thread kernel it replaces (expect_term); then one block
+// sum per q slice and per OVQE_THREADS consecutive amplitudes, which are
+// that kernel's block of the same amplitudes, into partials[j / 128];
+// stage 2 is row_reduce_kernel with one block, so the value is that
+// kernel's bit for bit and does not depend on scheduling.
+template <int PER, bool REAL>
+struct ExpectEpi {
+  float a0[PER], a1[PER], acc[PER];
+  __device__ __forceinline__ unsigned take(unsigned) const {
+    return (1u << PER) - 1u;
+  }
+  __device__ __forceinline__ void add(int q, unsigned, float wr, float wi,
+                                      float b0, float b1) {
+    acc[q] = __fadd_rn(acc[q],
+                       expect_term<REAL>(wr, wi, a0[q], a1[q], b0, b1));
+  }
+};
+
+template <int PER, int KT, bool REAL>
+__global__ void __launch_bounds__(GR_EXP_THREADS)
 expect_kernel(const float* __restrict__ psi, unsigned N,
               const int* __restrict__ x, const int* __restrict__ z,
               const float* __restrict__ ar, const float* __restrict__ ai,
-              int G, int K, float* __restrict__ partials) {
-  const unsigned j = blockIdx.x * blockDim.x + threadIdx.x;
-  float acc = 0.f;
-  if (j < N) {
-    const float a0 = psi[j], a1 = psi[N + j];
-    for (int g = 0; g < G; ++g) {
-      const unsigned jx = j ^ (unsigned)x[g];
-      const float b0 = psi[jx], b1 = psi[N + jx];
-      float wre, wim;
-      wfield(j, z + (size_t)g * K, ar + (size_t)g * K, ai + (size_t)g * K,
-             K, wre, wim);
-      acc += wre * (a0 * b0 + a1 * b1) - wim * (a0 * b1 - a1 * b0);
-    }
+              const int* __restrict__ kl, int G, int K, int slots,
+              float* __restrict__ partials, int nb) {
+  constexpr unsigned T = GR_EXP_THREADS;
+  const WalkSmem<PER, REAL> s{slots};
+  sign_table<PER, T>(s.S());
+  const unsigned jt = (blockIdx.x * PER * T) | threadIdx.x;
+  const bool on = PER > 1 || jt < N;
+  ExpectEpi<PER, REAL> e;
+#pragma unroll
+  for (int q = 0; q < PER; ++q) {
+    const unsigned j = jt | (q * T);
+    e.a0[q] = on ? psi[j] : 0.f;
+    e.a1[q] = on ? psi[N + j] : 0.f;
+    e.acc[q] = 0.f;
   }
-  const float tot = block_sum<OVQE_THREADS>(acc);
-  if (threadIdx.x == 0) partials[blockIdx.x] = tot;
+  group_walk<PER, KT, REAL, GR_EXP_TB, GR_EXP_DEPTH, GR_WALK_COMPACT != 0>(
+      e, psi, N, jt, on, x, z, ar, ai, kl, G, K, s);
+  const int p0 = blockIdx.x * PER * (T / OVQE_THREADS);
+  block_sums<T, OVQE_THREADS, PER>(e.acc, partials + p0, nb - p0);
 }
 
 unsigned blocks_for(unsigned items) {
@@ -904,47 +876,34 @@ bool sweep_n_ok(int n, int cbits) {
 
 int sweep_nb(long long N) { return N >= 256 ? (int)(N / 256) : 1; }
 
-// ----------------------------------------------------------- B4 dispatch
+// --------------------------------------------------- B4 and D10 dispatch
 
-bool ham_per_ok(long long N, int per) {
+// PER amplitudes a thread of T: 1, 2, 4 or 8, PER T <= N unless PER = 1.
+bool walk_per_ok(long long N, int per, int threads) {
   return (per == 1 || per == 2 || per == 4 || per == 8) &&
-         (per == 1 || (long long)per * GR_HAM_THREADS <= N);
+         (per == 1 || (long long)per * threads <= N);
 }
 
-// Groups of one staged run (a multiple of GR_HAM_DEPTH, or all G) and the
-// dynamic shared memory of a B4 block.
-int ham_rg(int G, int K, bool real) {
-  int rg = GR_HAM_OPS_BYTES / (4 * (K * (real ? 2 : 3) + 1));
-  rg -= rg % GR_HAM_DEPTH;
-  if (rg < GR_HAM_DEPTH) rg = GR_HAM_DEPTH;
-  return G < rg ? G : rg;
-}
-
-size_t ham_smem(int per, int rg, int K, bool real) {
-  return 4 * ((size_t)ham_table_floats(per) +
-              (size_t)rg * (1 + K * (real ? 2 : 3)));
-}
-
-// B4's instance f.run<PER, KT, REAL>(): the term tile KT 2, or 1 for an
-// odd K (as B6's bucket_dispatch).
-template <int PER, typename F>
-int ham_tile(int K, int real, const F& f) {
-  if (K % 2 == 0)
-    return real ? f.template run<PER, 2, true>()
-                : f.template run<PER, 2, false>();
-  return real ? f.template run<PER, 1, true>()
-              : f.template run<PER, 1, false>();
-}
-
-template <typename F>
-int ham_dispatch(int per, int K, int real, const F& f) {
-  switch (per) {
-    case 1: return ham_tile<1>(K, real, f);
-    case 2: return ham_tile<2>(K, real, f);
-    case 4: return ham_tile<4>(K, real, f);
-    default: return ham_tile<8>(K, real, f);
+// B4 (EXP false) or D10 (EXP true): its kernel, threads and depth.
+template <bool EXP, int PER, int KT, bool REAL>
+struct Walk {
+  static constexpr int threads = EXP ? GR_EXP_THREADS : GR_HAM_THREADS;
+  static constexpr int depth = EXP ? GR_EXP_DEPTH : GR_HAM_DEPTH;
+  static const void* fn() {
+    return EXP ? (const void*)expect_kernel<PER, KT, REAL>
+               : (const void*)ham_kernel<PER, KT, REAL>;
   }
-}
+  // its dynamic shared memory for K, allowed on the kernel
+  static int smem(int K, size_t* bytes) {
+    *bytes = walk_smem(PER, K, REAL, depth);
+    return (int)cudaFuncSetAttribute(
+        fn(), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*bytes);
+  }
+  static unsigned blocks(long long N) {
+    const long long amps = (long long)PER * threads;
+    return (unsigned)((N + amps - 1) / amps);
+  }
+};
 
 struct HamLaunch {
   const float* psi;
@@ -957,44 +916,72 @@ struct HamLaunch {
   cudaStream_t st;
   template <int PER, int KT, bool REAL>
   int run() const {
-    const int rg = ham_rg(G, K, REAL);
-    const size_t smem = ham_smem(PER, rg, K, REAL);
-    auto* fn = ham_kernel<PER, KT, REAL>;
-    int e = (int)cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    using W = Walk<false, PER, KT, REAL>;
+    size_t smem;
+    const int e = W::smem(K, &smem);
     if (e) return e;
-    const long long amps = (long long)PER * GR_HAM_THREADS;
-    fn<<<(unsigned)((N + amps - 1) / amps), GR_HAM_THREADS, smem, st>>>(
-        psi, out, (unsigned)N, x, z, ar, ai, kl, G, K, rg);
+    ham_kernel<PER, KT, REAL><<<W::blocks(N), W::threads, smem, st>>>(
+        psi, out, (unsigned)N, x, z, ar, ai, kl, G, K,
+        walk_slots(K, REAL, W::depth));
     return (int)cudaGetLastError();
   }
 };
 
-struct HamAttrs {
-  int K, G;
-  int* out;
+struct ExpectLaunch {
+  const float* psi;
+  long long N;
+  const int *x, *z;
+  const float *ar, *ai;
+  const int* kl;
+  int G, K;
+  float* partials;
+  int nb;
+  cudaStream_t st;
   template <int PER, int KT, bool REAL>
   int run() const {
-    const void* fn = (const void*)ham_kernel<PER, KT, REAL>;
-    const size_t smem = ham_smem(PER, ham_rg(G, K, REAL), K, REAL);
-    int e = (int)cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    using W = Walk<true, PER, KT, REAL>;
+    size_t smem;
+    const int e = W::smem(K, &smem);
+    if (e) return e;
+    expect_kernel<PER, KT, REAL><<<W::blocks(N), W::threads, smem, st>>>(
+        psi, (unsigned)N, x, z, ar, ai, kl, G, K,
+        walk_slots(K, REAL, W::depth), partials, nb);
+    return (int)cudaGetLastError();
+  }
+};
+
+// out[7] of B4's (exp false) or D10's instance: registers, local (spill)
+// bytes per thread, dynamic shared memory, threads per block, resident
+// blocks per SM, the term tile and PER.
+struct WalkAttrs {
+  bool exp;
+  int K;
+  int* out;
+  template <bool EXP, int PER, int KT, bool REAL>
+  int get() const {
+    using W = Walk<EXP, PER, KT, REAL>;
+    size_t smem;
+    int e = W::smem(K, &smem);
     if (e) return e;
     cudaFuncAttributes a;
-    e = (int)cudaFuncGetAttributes(&a, fn);
+    e = (int)cudaFuncGetAttributes(&a, W::fn());
     if (e) return e;
     int blocks = 0;
     e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, fn, GR_HAM_THREADS, smem);
+        &blocks, W::fn(), W::threads, smem);
     if (e) return e;
     out[0] = a.numRegs;
     out[1] = (int)a.localSizeBytes;
     out[2] = (int)smem;
-    out[3] = GR_HAM_THREADS;
+    out[3] = W::threads;
     out[4] = blocks;
     out[5] = KT;
     out[6] = PER;
     return 0;
+  }
+  template <int PER, int KT, bool REAL>
+  int run() const {
+    return exp ? get<true, PER, KT, REAL>() : get<false, PER, KT, REAL>();
   }
 };
 
@@ -1127,33 +1114,39 @@ int ovqe_ham_apply(const float* psi, float* out, long long N, const int* x,
                    const int* kl, int G, int K, int real, int per,
                    void* stream) {
   if (N < 2 || N > (1ll << 30) || (N & (N - 1)) || G <= 0 || K <= 0 ||
-      !ham_per_ok(N, per))
+      !walk_per_ok(N, per, GR_HAM_THREADS))
     return (int)cudaErrorInvalidValue;
-  return ham_dispatch(per, K, real,
-                      HamLaunch{psi, out, N, x, z, ar, ai, kl, G, K,
-                                (cudaStream_t)stream});
+  return walk_dispatch(per, K, real,
+                       HamLaunch{psi, out, N, x, z, ar, ai, kl, G, K,
+                                 (cudaStream_t)stream});
 }
 
-// out[7] of B4's instance for (per, K, real): registers, local (spill)
-// bytes per thread, dynamic shared memory, threads per block, resident
-// blocks per SM, the term tile and PER.
-int ovqe_ham_attrs(int per, int K, int real, int G, int* out) {
-  if (!ham_per_ok(1ll << 30, per) || K <= 0 || G <= 0)
+// out[7] of B4's (exp 0) or D10's (exp 1) instance for (per, K, real):
+// registers, local (spill) bytes per thread, dynamic shared memory,
+// threads per block, resident blocks per SM, the term tile and PER.
+int ovqe_walk_attrs(int exp, int per, int K, int real, int* out) {
+  if (!walk_per_ok(1ll << 30, per, 1) || K <= 0)
     return (int)cudaErrorInvalidValue;
-  return ham_dispatch(per, K, real, HamAttrs{K, G, out});
+  return walk_dispatch(per, K, real, WalkAttrs{exp != 0, K, out});
 }
 
+// D10: out[0] = sum_g sum_j Re(conj(psi_j) W_g(j) psi_{j^x_g}) over the
+// G >= 1 groups (x, z, ar, ai, kl), PER amplitudes a thread (as B4's),
+// real: every ai zero; partials (nb = max(1, N / 128)) hold the sums of
+// 128 consecutive amplitudes.
 int ovqe_expectation(const float* psi, long long N, const int* x,
-                     const int* z, const float* ar, const float* ai, int G,
-                     int K, float* partials, int nb, float* out,
-                     void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  if ((unsigned)nb != blocks_for((unsigned)N))
+                     const int* z, const float* ar, const float* ai,
+                     const int* kl, int G, int K, int real, int per,
+                     float* partials, int nb, float* out, void* stream) {
+  if (N < 2 || N > (1ll << 30) || (N & (N - 1)) || G <= 0 || K <= 0 ||
+      !walk_per_ok(N, per, GR_EXP_THREADS) ||
+      (unsigned)nb != blocks_for((unsigned)N))
     return (int)cudaErrorInvalidValue;
-  expect_kernel<<<nb, OVQE_THREADS, 0, st>>>(psi, (unsigned)N, x, z, ar, ai,
-                                             G, K, partials);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int e = walk_dispatch(per, K, real,
+                              ExpectLaunch{psi, N, x, z, ar, ai, kl, G, K,
+                                           partials, nb, st});
+  if (e) return e;
   row_reduce_kernel<OVQE_THREADS, float>
       <<<1, OVQE_THREADS, 0, st>>>(partials, nb, 1.f, out);
   return (int)cudaGetLastError();

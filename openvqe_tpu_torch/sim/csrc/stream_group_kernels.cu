@@ -70,12 +70,21 @@
 //   groups and their live rows, with both weight fields (the JAX kernel
 //   has no `real` flag), accumulating in float64 in registers.  No
 //   scatter, no atomics.
-// * expect_stream (D11): the same loop contracted with conj(psi_j), a
-//   float64 sum per thread, a block sum into per-block partials and one
+// * expect_stream (D11), redesigned for Hopper: its first design was B5's
+//   loop contracted with conj(psi_j), one amplitude a thread and a wfield
+//   per group, where a thread that skipped a group under herm still cost
+//   its warp the group's operand loads (4.7 ms at H10).  Now it is D10's
+//   walk (group_walk in common.cuh: PER amplitudes a thread,
+//   kernels.expect_stream_per, one popcount per live term, group and
+//   thread, GroupOperands.k_live, the REAL instance under
+//   GroupOperands.real, each run of groups staged in shared memory with its
+//   live terms only, the next group's partners loaded while a group is
+//   added) with a float64 sum per amplitude, per-block partials and one
 //   fixed-order block.  herm (the caller certifies every group Hermitian
 //   as an operator) counts each pair of an x != 0 group once, from the
 //   end with bit msb(x) clear, doubled; the JAX kernel halves only the
 //   pairs that cross chunks, which gives the same value on such groups.
+//   The value is the first design's bit for bit.
 //
 // Every entry point launches on the caller's stream, never synchronises,
 // allocates no device memory (A2's and C8's graphs belong to the CUDA
@@ -86,6 +95,10 @@
 #include "common.cuh"
 
 #define SG_THREADS ST_THREADS      // 256: C8 splits t like a bucket block
+#define SG_EXP_TB 8                // log2 threads of a D11 block
+#define SG_EXP_THREADS (1 << SG_EXP_TB)
+#define SG_EXP_DEPTH 1             // groups whose partners D11 loads ahead
+#define SG_EXP_COMPACT 1           // D11 stages live terms only
 
 namespace {
 
@@ -257,38 +270,74 @@ ham_stream_kernel(const float* __restrict__ psi,
 
 // ---------------------------------------------------------------- kernel 4
 // expect_stream, stage 1.  Replaces
-// openvqe_tpu/sim/streaming.py::_expect_stream_kernel.  Thread j adds
-//     sum_g W_re Re(conj(psi_j) psi_{j^x}) - W_im Im(conj(psi_j) psi_{j^x})
-// in float64 (with herm: x != 0 groups only where bit msb(x) of j is
-// clear, doubled); the block sum goes to partials[blockIdx.x] and stage 2
-// is row_reduce_kernel with one block.
-__global__ void __launch_bounds__(SG_THREADS)
+// openvqe_tpu/sim/streaming.py::_expect_stream_kernel.  D10's walk
+// (group_walk, common.cuh) at SG_EXP_THREADS threads and PER amplitudes a
+// thread: amplitude j adds
+//     w (W_re Re(conj(psi_j) psi_{j^x}) - W_im Im(conj(psi_j) psi_{j^x}))
+// in float64, group by group in order (expect_term, then the float32
+// product with w, as the one-amplitude kernel it replaces rounded them),
+// with w = 1, or under herm for an x != 0 group w = 2 where bit msb(x) of
+// j is clear and no term where it is set.  That skip falls on the thread
+// bits (the thread skips the group), the loop bits q (those amplitudes
+// skip it) or the block bits (the whole block skips it); an amplitude that
+// skips loads no partner, and a thread that skips for all its amplitudes
+// computes no field.  Then one block sum per q slice and per SG_THREADS
+// consecutive amplitudes into partials[j / 256] (the one-amplitude
+// kernel's blocks and sum order), and stage 2 is row_reduce_kernel with
+// one block: the value is that kernel's bit for bit.  Under herm the work
+// of a block depends on its bits: block 0 adds every group, so the launch
+// lasts as long as its heaviest blocks (at H10 herm took 84 % of the
+// time without it on an H100; PERF.md).
+template <int PER, bool REAL>
+struct ExpectStreamEpi {
+  unsigned jt;
+  bool herm;
+  float a0[PER], a1[PER];
+  double acc[PER];
+  __device__ __forceinline__ unsigned take(unsigned xg) const {
+    if (!herm || !xg) return (1u << PER) - 1u;
+    const unsigned hb = 1u << (31 - __clz(xg));
+    unsigned m = 0u;
+#pragma unroll
+    for (int q = 0; q < PER; ++q)
+      if (!((jt | ((unsigned)q << SG_EXP_TB)) & hb)) m |= 1u << q;
+    return m;
+  }
+  __device__ __forceinline__ void add(int q, unsigned xg, float wr, float wi,
+                                      float b0, float b1) {
+    const float w = herm && xg ? 2.f : 1.f;
+    acc[q] += (double)__fmul_rn(
+        w, expect_term<REAL>(wr, wi, a0[q], a1[q], b0, b1));
+  }
+};
+
+template <int PER, int KT, bool REAL>
+__global__ void __launch_bounds__(SG_EXP_THREADS)
 expect_stream_kernel(const float* __restrict__ psi, unsigned N,
                      const int* __restrict__ x, const int* __restrict__ z,
                      const float* __restrict__ ar,
                      const float* __restrict__ ai, const int* __restrict__ kl,
-                     int G, int K, int herm, double* __restrict__ partials) {
-  const unsigned j = blockIdx.x * SG_THREADS + threadIdx.x;
-  double acc = 0.0;
-  if (j < N) {
-    const float a0 = psi[j], a1 = psi[N + j];
-    for (int g = 0; g < G; ++g) {
-      const unsigned xg = (unsigned)x[g];
-      float w = 1.f;
-      if (herm && xg) {
-        if (j & (1u << (31 - __clz(xg)))) continue;
-        w = 2.f;
-      }
-      const unsigned jx = j ^ xg;
-      const float b0 = psi[jx], b1 = psi[N + jx];
-      float wre, wim;
-      wfield(j, z + (size_t)g * K, ar + (size_t)g * K, ai + (size_t)g * K,
-             kl[g], wre, wim);
-      acc += w * (wre * (a0 * b0 + a1 * b1) - wim * (a0 * b1 - a1 * b0));
-    }
+                     int G, int K, int herm, int slots,
+                     double* __restrict__ partials, int nb) {
+  constexpr unsigned T = SG_EXP_THREADS;
+  const WalkSmem<PER, REAL> s{slots};
+  sign_table<PER, T>(s.S());
+  const unsigned jt = (blockIdx.x * PER * T) | threadIdx.x;
+  const bool on = PER > 1 || jt < N;
+  ExpectStreamEpi<PER, REAL> e;
+  e.jt = jt;
+  e.herm = herm != 0;
+#pragma unroll
+  for (int q = 0; q < PER; ++q) {
+    const unsigned j = jt | (q * T);
+    e.a0[q] = on ? psi[j] : 0.f;
+    e.a1[q] = on ? psi[N + j] : 0.f;
+    e.acc[q] = 0.0;
   }
-  const double tot = block_sum<SG_THREADS>(acc);
-  if (threadIdx.x == 0) partials[blockIdx.x] = tot;
+  group_walk<PER, KT, REAL, SG_EXP_TB, SG_EXP_DEPTH, SG_EXP_COMPACT != 0>(
+      e, psi, N, jt, on, x, z, ar, ai, kl, G, K, s);
+  const int p0 = blockIdx.x * PER * (T / SG_THREADS);
+  block_sums<T, SG_THREADS, PER>(e.acc, partials + p0, nb - p0);
 }
 
 unsigned blocks_for(long long items) {
@@ -401,6 +450,69 @@ struct PairAttrs {
   }
 };
 
+// D11's dynamic shared memory for K, allowed on the instance.
+template <int PER, int KT, bool REAL>
+int exp_smem(int K, size_t* bytes) {
+  *bytes = walk_smem(PER, K, REAL, SG_EXP_DEPTH);
+  return (int)cudaFuncSetAttribute(expect_stream_kernel<PER, KT, REAL>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)*bytes);
+}
+
+struct ExpectStreamLaunch {
+  const float* psi;
+  long long N;
+  const int *x, *z;
+  const float *ar, *ai;
+  const int* kl;
+  int G, K, herm;
+  double* partials;
+  int nb;
+  cudaStream_t st;
+  template <int PER, int KT, bool REAL>
+  int run() const {
+    size_t smem;
+    const int e = exp_smem<PER, KT, REAL>(K, &smem);
+    if (e) return e;
+    const long long amps = (long long)PER * SG_EXP_THREADS;
+    expect_stream_kernel<PER, KT, REAL>
+        <<<(unsigned)((N + amps - 1) / amps), SG_EXP_THREADS, smem, st>>>(
+            psi, (unsigned)N, x, z, ar, ai, kl, G, K, herm,
+            walk_slots(K, REAL, SG_EXP_DEPTH), partials, nb);
+    return (int)cudaGetLastError();
+  }
+};
+
+// out[7]: registers, local (spill) bytes per thread, dynamic shared
+// memory, threads per block, resident blocks per SM, the term tile and
+// PER of D11's instance.
+struct ExpectStreamAttrs {
+  int K;
+  int* out;
+  template <int PER, int KT, bool REAL>
+  int run() const {
+    size_t smem;
+    int e = exp_smem<PER, KT, REAL>(K, &smem);
+    if (e) return e;
+    const void* fn = (const void*)expect_stream_kernel<PER, KT, REAL>;
+    cudaFuncAttributes a;
+    e = (int)cudaFuncGetAttributes(&a, fn);
+    if (e) return e;
+    int blocks = 0;
+    e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, fn, SG_EXP_THREADS, smem);
+    if (e) return e;
+    out[0] = a.numRegs;
+    out[1] = (int)a.localSizeBytes;
+    out[2] = (int)smem;
+    out[3] = SG_EXP_THREADS;
+    out[4] = blocks;
+    out[5] = KT;
+    out[6] = PER;
+    return 0;
+  }
+};
+
 }  // namespace
 
 extern "C" {
@@ -500,21 +612,34 @@ int ovqe_ham_stream(const float* psi, const float* acc_in, float* out,
   return (int)cudaGetLastError();
 }
 
+// D11: out[0] = the groups (x, z, ar, ai, kl) contracted with conj(psi)
+// (herm: the pairs of an x != 0 group once, doubled), PER amplitudes a
+// thread (1, 2, 4 or 8; PER T <= N unless PER = 1), real: every ai zero;
+// partials (nb = max(1, N / 256)) hold the sums of 256 consecutive
+// amplitudes.
 int ovqe_expect_stream(const float* psi, long long N, const int* x,
                        const int* z, const float* ar, const float* ai,
-                       const int* kl, int G, int K, int herm,
-                       double* partials, int nb, float* out, void* stream) {
-  if (!n_ok(N) || (unsigned)nb != blocks_for(N))
+                       const int* kl, int G, int K, int real, int herm,
+                       int per, double* partials, int nb, float* out,
+                       void* stream) {
+  if (!n_ok(N) || (N & (N - 1)) || G <= 0 || K <= 0 || !per_known(per) ||
+      (per > 1 && (long long)per * SG_EXP_THREADS > N) ||
+      (unsigned)nb != blocks_for(N))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  expect_stream_kernel<<<nb, SG_THREADS, 0, st>>>(psi, (unsigned)N, x, z, ar,
-                                                  ai, kl, G, K, herm,
-                                                  partials);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  const int e = walk_dispatch(per, K, real,
+                             ExpectStreamLaunch{psi, N, x, z, ar, ai, kl, G,
+                                                K, herm, partials, nb, st});
+  if (e) return e;
   row_reduce_kernel<SG_THREADS, double>
       <<<1, SG_THREADS, 0, st>>>(partials, nb, 1.f, out);
   return (int)cudaGetLastError();
+}
+
+// out[7] of D11's instance for (per, K, real) (ExpectStreamAttrs).
+int ovqe_expect_stream_attrs(int per, int K, int real, int* out) {
+  if (!per_known(per) || K <= 0) return (int)cudaErrorInvalidValue;
+  return walk_dispatch(per, K, real, ExpectStreamAttrs{K, out});
 }
 
 }  // extern "C"

@@ -34,24 +34,23 @@ libraries are bound with ``ctypes``.
 
 Wrapper rules: a tensor on the CPU goes to the plain PyTorch version
 (``sim/grouped.py``, ``sim/streaming.py``); a CUDA tensor goes to the
-kernel, or the wrapper raises.  There is no fallback.  Per-group operands are
-those of ``sim/convert.py``: for the H-apply a ``convert.HamOperands``, for
-the expectation its x (G,) int32, z (G, K) int32 and coefficients (G, K)
-float32; for the sweeps a ``convert.SeqOperands`` with angles (G,) float32;
-bucketed operands are a ``streaming.BucketOperands`` with angles (B, gcap)
-float32; per-group streaming operands a ``streaming.GroupOperands`` with
-angles (G,) float32; for the per-group pool overlap a
-``convert.PoolOperands``; pool-overlap rows are (G, 2) or (B, gcap, 2)
-float32 (re, im); state planes are (2, 2^n) float32, all contiguous and on one
-device.  Outputs are allocated with ``torch.empty`` and the kernels run on
-the current stream.  ``LAUNCHES`` counts, per wrapper, the calls that
-launched the kernel.  ``rot_sweep`` and ``adjoint_sweep`` (A1, C7) run one
-launch per sweep, the state held in the shared memory of one thread-block
-cluster (``cluster_size`` picks its blocks from n; a cluster the card
-refuses raises); where one cluster cannot hold the states (A1 at n >= 19,
-C7 at n >= 18) their per-group kernels replay one CUDA graph per operand
-set, as ``rot_stream`` and ``adjoint_stream`` (A2, C8) do on every
-call.  ``rot_sweep``, ``adjoint_sweep``, ``rot_fused``, ``adjoint_fused``,
+kernel, or the wrapper raises.  There is no fallback.  Per-group operands
+are those of ``sim/convert.py``: for the H-apply and the expectation a
+``convert.HamOperands``; for the sweeps a ``convert.SeqOperands`` with
+angles (G,) float32; bucketed operands are a ``streaming.BucketOperands``
+with angles (B, gcap) float32; per-group streaming operands a
+``streaming.GroupOperands`` with angles (G,) float32; for the per-group
+pool overlap a ``convert.PoolOperands``; pool-overlap rows are (G, 2) or
+(B, gcap, 2) float32 (re, im); state planes are (2, 2^n) float32, all
+contiguous and on one device.  Outputs are allocated with ``torch.empty``
+and the kernels run on the current stream.  ``LAUNCHES`` counts, per
+wrapper, the calls that launched the kernel.  ``rot_sweep`` and
+``adjoint_sweep`` (A1, C7) run one launch per sweep, the state held in the
+shared memory of one thread-block cluster (``cluster_size`` picks its
+blocks from n; a cluster the card refuses raises); where one cluster
+cannot hold the states (A1 at n >= 19, C7 at n >= 18) their per-group
+kernels replay one CUDA graph per operand set, as ``rot_stream`` and
+``adjoint_stream`` (A2, C8) do on every call.  ``rot_sweep``, ``adjoint_sweep``, ``rot_fused``, ``adjoint_fused``,
 ``rot_stream`` and ``adjoint_stream`` compute one field per pair and take
 only operands that carry the odd-Y certificate (``SeqOperands.odd_y``,
 ``BucketOperands.odd_y``, ``GroupOperands.odd_y``), on either device:
@@ -59,11 +58,13 @@ without it they raise ``ValueError``.  The kernels that stage states with
 16-byte loads (``rot_sweep`` and ``adjoint_sweep`` on a cluster,
 ``rot_fused``, ``adjoint_fused``, ``ham_bucketed``, ``expect_bucketed``,
 ``expect_hoisted``) refuse a state on the card whose data is not 16-byte
-aligned.  ``grouped_attributes``, ``ham_attributes``, ``sweep_attributes``,
-``bucket_attributes``, ``stream_group_attributes`` and ``pool_attributes``
-report how A1 / C7, B4, A3 / C9, B6 / D12 / D13, A2 / C8 and E14 / E15
-launch (registers, spills, shared memory, resident blocks per SM or
-clusters); ``cluster_floor`` runs the barrier floor of the cluster sweeps.
+aligned.  ``grouped_attributes``, ``ham_attributes``,
+``expect_attributes``, ``sweep_attributes``, ``bucket_attributes``,
+``stream_group_attributes``, ``expect_stream_attributes`` and
+``pool_attributes`` report how A1 / C7, B4, D10, A3 / C9, B6 / D12 / D13,
+A2 / C8, D11 and E14 / E15 launch (registers, spills, shared memory,
+resident blocks per SM or clusters); ``cluster_floor`` runs the barrier
+floor of the cluster sweeps.
 """
 
 from __future__ import annotations
@@ -170,8 +171,8 @@ _SIGNATURES = {
         "ovqe_sweep_group_attrs": "IIP",
         "ovqe_cluster_floor": "IIIPP",
         "ovqe_ham_apply": "PPLPPPPPIIIIP",
-        "ovqe_ham_attrs": "IIIIP",
-        "ovqe_expectation": "PLPPPPIIPIPP",
+        "ovqe_walk_attrs": "IIIIP",
+        "ovqe_expectation": "PLPPPPPIIIIPIPP",
         "ovqe_block_threads": "",
     },
     "streaming": {
@@ -192,7 +193,8 @@ _SIGNATURES = {
         "ovqe_graph_destroy": "P",
         "ovqe_stream_group_attrs": "IIIP",
         "ovqe_ham_stream": "PPPLPPPPPIIP",
-        "ovqe_expect_stream": "PLPPPPPIIIPIPP",
+        "ovqe_expect_stream": "PLPPPPPIIIIIPIPP",
+        "ovqe_expect_stream_attrs": "IIIP",
         "ovqe_sg_block_threads": "",
     },
     "pool": {
@@ -527,35 +529,76 @@ def ham_apply(psi, ho: convert.HamOperands):
     return _ham(psi, ho, ham_per(N))
 
 
+_WALK_KEYS = ("registers", "local_bytes", "smem_bytes", "threads",
+              "blocks_per_sm", "k_tile", "per")
+
+
+def _walk_attrs(name: str, exp: int, per: int, ops) -> Dict[str, int]:
+    out = (ctypes.c_int * 7)()
+    rc = _load().ovqe_walk_attrs(exp, per, ops.K, int(ops.real),
+                                 ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc}")
+    return dict(zip(_WALK_KEYS, list(out)))
+
+
 def ham_attributes(ho: convert.HamOperands, n: int) -> Dict[str, int]:
     """How ``ham_apply`` launches on ``ho`` at a 2^n state: registers and
     local (spill) bytes per thread, dynamic shared memory and threads per
     block, resident blocks per SM, the compiled term tile and the
     amplitudes per thread (the instance is chosen by PER, K and
     ``ho.real``)."""
-    out = (ctypes.c_int * 7)()
-    rc = _load().ovqe_ham_attrs(ham_per(1 << n), ho.K, int(ho.real),
-                                max(1, ho.G), ctypes.addressof(out))
-    if rc != 0:
-        raise RuntimeError(f"ham_attributes: CUDA error {rc}")
-    keys = ("registers", "local_bytes", "smem_bytes", "threads",
-            "blocks_per_sm", "k_tile", "per")
-    return dict(zip(keys, list(out)))
+    return _walk_attrs("ham_attributes", 0, ham_per(1 << n), ho)
 
 
-def expectation(psi, x, z, a_re, a_im):
-    """sum_g sum_j Re(conj(psi_j) W_g(j) psi_{j^x_g}) as a 0-dim tensor."""
-    if psi.device.type == "cpu":
-        return gr.expectation_ref(psi, x, z, a_re, a_im)
-    N = _state("psi", psi)
-    G, K = _groups(psi, x, z, (a_re, a_im))
-    lib = _load()
+EXPECT_PER = 2          # amplitudes a thread of D10 (expectation): the
+                        # fastest at H8, H6 and BeH2 on an H100
+EXPECT_THREADS = 128    # GR_EXP_THREADS of csrc/grouped_kernels.cu
+
+
+def expect_per(N: int) -> int:
+    """D10's amplitudes per thread on a state of N amplitudes:
+    ``EXPECT_PER``, or the largest power of two below it whose blocks of
+    ``EXPECT_THREADS`` the state fills (1, with idle threads, below
+    ``EXPECT_THREADS``)."""
+    per = EXPECT_PER
+    while per > 1 and per * EXPECT_THREADS > N:
+        per //= 2
+    return per
+
+
+def _expect(psi, ho: convert.HamOperands, per: int):
+    """D10's launch at ``per`` amplitudes a thread (``expect_per``'s on
+    the entry point's path)."""
+    N = _ham_ops(psi, ho)
+    lib = _load()               # builds and reads _threads
     nb = -(-N // _threads)
     partials = torch.empty(nb, dtype=torch.float32, device=psi.device)
     out = torch.empty(1, dtype=torch.float32, device=psi.device)
-    _launch("expectation", lib.ovqe_expectation, psi, N, x, z, a_re, a_im,
-            G, K, partials, nb, out, _stream(psi))
+    _launch("expectation", lib.ovqe_expectation, psi, N, ho.x, ho.z,
+            ho.a_re, ho.a_im, ho.k_live, ho.G, ho.K, int(ho.real), per,
+            partials, nb, out, _stream(psi))
     return out[0]
+
+
+def expectation(psi, ho: convert.HamOperands):
+    """sum_g sum_j Re(conj(psi_j) W_g(j) psi_{j^x_g}) over the groups of
+    ``ho`` as a 0-dim tensor (the identity offset is the caller's).  On the
+    card one launch and its fixed-order sum, ``expect_per(N)`` amplitudes
+    a thread; each group adds its ``ho.k_live`` terms, and W_im only where
+    ``ho.real`` is false."""
+    if psi.device.type == "cpu":
+        return gr.expectation_ref(psi, *ho.args())
+    N = _ham_ops(psi, ho)
+    if not ho.G:
+        return torch.zeros((), dtype=psi.dtype, device=psi.device)
+    return _expect(psi, ho, expect_per(N))
+
+
+def expect_attributes(ho: convert.HamOperands, n: int) -> Dict[str, int]:
+    """How ``expectation`` launches on ``ho`` at a 2^n state (the keys of
+    ``ham_attributes``)."""
+    return _walk_attrs("expect_attributes", 1, expect_per(1 << n), ho)
 
 
 # ------------------------------------------------ bucketed (streaming) route
@@ -959,21 +1002,60 @@ def ham_stream(psi, acc, go: st.GroupOperands):
     return out
 
 
-def expect_stream(psi, go: st.GroupOperands, herm: bool = False):
-    """The groups of ``go`` contracted with conj(psi), a 0-dim tensor;
-    ``herm`` only where the caller certifies every group Hermitian as an
-    operator (``streaming.grouped_hermitian_operator``)."""
-    if psi.device.type == "cpu":
-        return st.expect_stream_ref(psi, go, herm)
+EXPECT_STREAM_PER = 8   # amplitudes a thread of D11 (expect_stream): the
+                        # fastest of 1, 2, 4, 8 at H10 on an H100
+EXPECT_STREAM_THREADS = 256     # SG_EXP_THREADS of stream_group_kernels.cu
+
+
+def expect_stream_per(N: int) -> int:
+    """D11's amplitudes per thread on a state of N amplitudes:
+    ``EXPECT_STREAM_PER``, or the largest power of two below it whose
+    blocks of ``EXPECT_STREAM_THREADS`` the state fills (1, with idle
+    threads, below ``EXPECT_STREAM_THREADS``)."""
+    per = EXPECT_STREAM_PER
+    while per > 1 and per * EXPECT_STREAM_THREADS > N:
+        per //= 2
+    return per
+
+
+def _expect_stream(psi, go: st.GroupOperands, herm: bool, per: int):
+    """D11's launch at ``per`` amplitudes a thread (``expect_stream_per``'s
+    on the wrapper's path)."""
     N = _group_ops(psi, go, (go.coef, go.coef_im))
     lib = _load("stream_group")
     nb = -(-N // _sg_threads)
     partials = torch.empty(nb, dtype=torch.float64, device=psi.device)
     out = torch.empty(1, dtype=torch.float32, device=psi.device)
     _launch("expect_stream", lib.ovqe_expect_stream, psi, N, go.x, go.z,
-            go.coef, go.coef_im, go.k_live, go.G, go.K, int(bool(herm)),
-            partials, nb, out, _stream(psi))
+            go.coef, go.coef_im, go.k_live, go.G, go.K, int(go.real),
+            int(bool(herm)), per, partials, nb, out, _stream(psi))
     return out[0]
+
+
+def expect_stream(psi, go: st.GroupOperands, herm: bool = False):
+    """The groups of ``go`` contracted with conj(psi), a 0-dim tensor;
+    ``herm`` only where the caller certifies every group Hermitian as an
+    operator (``streaming.grouped_hermitian_operator``).  On the card one
+    launch and its fixed-order sum, ``expect_stream_per(N)`` amplitudes a
+    thread; each group adds its ``go.k_live`` terms, and W_im only where
+    ``go.real`` is false."""
+    if psi.device.type == "cpu":
+        return st.expect_stream_ref(psi, go, herm)
+    N = _group_ops(psi, go, (go.coef, go.coef_im))
+    if not go.G:
+        return torch.zeros((), dtype=psi.dtype, device=psi.device)
+    return _expect_stream(psi, go, herm, expect_stream_per(N))
+
+
+def expect_stream_attributes(go: st.GroupOperands, n: int) -> Dict[str, int]:
+    """How ``expect_stream`` launches on ``go`` at a 2^n state (the keys of
+    ``ham_attributes``)."""
+    out = (ctypes.c_int * 7)()
+    rc = _load("stream_group").ovqe_expect_stream_attrs(
+        expect_stream_per(1 << n), go.K, int(go.real), ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"expect_stream_attributes: CUDA error {rc}")
+    return dict(zip(_WALK_KEYS, list(out)))
 
 
 # ----------------------------------------------------------- pool screen

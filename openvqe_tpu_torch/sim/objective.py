@@ -170,7 +170,7 @@ class VQEObjective:
         if self.stream:
             e = st.expect_sum(psi, self.eops, self.herm)
         else:
-            e = K.expectation(psi, *self.hops.args())
+            e = K.expectation(psi, self.hops)
         return float(e + self.c_re * torch.sum(psi * psi))
 
     def _energy_and_lam(self, psi) -> Tuple[float, torch.Tensor]:

@@ -677,7 +677,9 @@ class GroupOperands:
     over the pair index.  ``op`` stays on the host: angles are built
     there.  ``odd_y`` is the host certificate of ``Buckets.odd_y`` for
     these groups (every live term has popcount(x & z_k) odd), which C8
-    needs to compute one field per pair.  ``graphs`` holds C8's CUDA
+    needs to compute one field per pair.  ``real`` is the host certificate
+    that every ``coef_im`` is zero, under which D11 computes no W_im.
+    ``graphs`` holds C8's CUDA
     graphs on these operands (``kernels.adjoint_stream`` captures them),
     freed with the operands."""
     n: int
@@ -691,6 +693,7 @@ class GroupOperands:
     op: Optional[np.ndarray]
     fmode: int = 0
     odd_y: bool = False
+    real: bool = False
     graphs: dict = field(default_factory=dict, repr=False, compare=False)
 
     @property
@@ -719,7 +722,8 @@ def pair_masks(x, z) -> np.ndarray:
 def group_operands(sd: StreamGroupData, device, dtype=torch.float32
                    ) -> GroupOperands:
     """The live groups of ``sd`` in their order (inert groups dropped, as
-    JAX drops them), moved to ``device``, with their odd-Y certificate."""
+    JAX drops them), moved to ``device``, with their odd-Y and all-real
+    certificates."""
     keep = np.nonzero(sd.live)[0]
     x = (sd.x_hi[keep].astype(np.int64) << sd.chunk_bits) | sd.x_lo[keep]
     if np.any(x >> sd.n):
@@ -743,7 +747,7 @@ def group_operands(sd: StreamGroupData, device, dtype=torch.float32
         coef_im=dev(cim, dtype), k_live=dev(k_live, torch.int32),
         z_pair=dev(pair_masks(x, z), torch.int32),
         op=None if sd.op is None else sd.op[keep], fmode=sd.fmode,
-        odd_y=bool(np.all(odd | ~live)))
+        odd_y=bool(np.all(odd | ~live)), real=not np.any(cim))
 
 
 def group_angles(go: GroupOperands, theta, dtype, device) -> torch.Tensor:

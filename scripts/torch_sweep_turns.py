@@ -4,11 +4,12 @@
 the fused sweeps (A3 ``rot_fused``, C9 ``adjoint_fused``), the bucketed
 H-apply and expectation (B6 ``ham_bucketed``, D12 ``expect_bucketed``),
 the hoisted expectation (D13 ``expect_hoisted``), the per-group streaming
-sweep and adjoint (A2 ``rot_stream``, C8 ``adjoint_stream``) and the paths
-that run them.
+sweep and adjoint (A2 ``rot_stream``, C8 ``adjoint_stream``), the
+per-group expectations (D10 ``expectation``, D11 ``expect_stream``) and
+the paths that run them.
 
     python3 scripts/torch_sweep_turns.py --trees PARENT CHANGE \\
-        [--h16 PICKLE] [--quick | --pool]
+        [--h16 PICKLE] [--quick | --pool | --expect]
 
 Each tree is a checkout of the repository (for example unpacked with
 ``git archive``) that holds ``chip_smoke.py`` and ``openvqe_tpu_torch``.
@@ -26,8 +27,7 @@ into the tree's own ``build/``):
   W_im), timed, with a SHA-256 of its lambda for every instance the
   change tree compiles (1, 2, 4 and 8 amplitudes a thread; K and K + 1,
   a zero column appended, for both term tiles; on the parent tree its
-  one kernel under the same names); D10's value on H8 (an unchanged
-  control); the H8
+  one kernel under the same names); the H8
   ``energy_and_grad`` of both ansatze at the reference theta (host clock,
   median of 20 calls; the device busy share over 10 calls under the
   profiler) with its energy and gradient hash; and H8's
@@ -69,6 +69,16 @@ into the tree's own ``build/``):
   K + 1, a zero column appended; E15 on H10's and the synthetic pool with
   2^8 .. 2^12 chunks at K and K + 1; on the parent tree its kernels under
   the same names); ``--pool`` measures only these;
+* the per-group expectations (``measure_expect``): D10 on the H of H8,
+  H6 and BeH2 and on the complex H of phase 2's synthetic families, and
+  D11 with ``herm`` off and on over the per-group H operands of H10's
+  OVQE_STREAM_FUSE=0 objective and of the complex synthetic problem of
+  ``chip_smoke.py`` phase 6 (n = 20, field mode 1), each on a random
+  state: timed (CUDA events over 20 calls after 3 warm-ups, at the
+  wrapper's PER), with the value of every instance the change compiles
+  (1, 2, 4 and 8 amplitudes a thread, K and K + 1, a zero column
+  appended; on the parent tree its one kernel under the same names);
+  ``--expect`` measures only these;
 * unless ``--quick``, the H10 fermionic ADAPT run of ``chip_smoke.py``
   phase 10 (3 outer iterations, the float32 Lanczos reference included;
   host clock);
@@ -159,6 +169,72 @@ def b4_instances(K, psi, ho, tag, out):
             lam = (K._ham(psi, ops, per) if hasattr(K, "_ham")
                    else ham(psi, ops))
             out[f"b4_{tag}_per{per}_kt{kt}_sha256"] = sha256(lam)
+
+
+def expect_call(K):
+    """D10 on a ``convert.HamOperands``, whichever signature the tree's
+    wrapper has (before its redesign it took the operands' x, z, a_re and
+    a_im)."""
+    import inspect
+    if "ho" in inspect.signature(K.expectation).parameters:
+        return K.expectation
+    return lambda psi, ho: K.expectation(psi, *ho.args())
+
+
+def expect_instances(K, psi, ops, tag, out, d11_herm=None):
+    """The value of D10 (``d11_herm`` None) or of D11 with that ``herm`` at
+    every amplitudes-a-thread count and both term tiles (K and K + 1; the
+    change tree's ``kernels._expect`` / ``_expect_stream``), or of the one
+    kernel the parent tree has under the same names."""
+    k = ops.z.shape[1]
+    cols = (dict(z=1, a_re=1, a_im=1) if d11_herm is None
+            else dict(z=1, coef=1, coef_im=1, z_pair=1))
+    for odd, o in ((k % 2, ops), ((k + 1) % 2, padded(ops, **cols))):
+        kt = 1 if odd else 2
+        for per in (1, 2, 4, 8):
+            if d11_herm is None:
+                v = (K._expect(psi, o, per) if hasattr(K, "_expect")
+                     else expect_call(K)(psi, o))
+            else:
+                v = (K._expect_stream(psi, o, d11_herm, per)
+                     if hasattr(K, "_expect_stream")
+                     else K.expect_stream(psi, o, d11_herm))
+            out[f"{tag}_per{per}_kt{kt}"] = float(v)
+
+
+def measure_expect(cs, h10, out: dict) -> None:
+    """D10 and D11 (see the module docstring)."""
+    import torch
+    from openvqe_tpu_torch.sim import kernels as K
+    from openvqe_tpu_torch.sim import streaming as st
+    from openvqe_tpu_torch.sim.objective import VQEObjective
+    dev = torch.device("cuda")
+    with contextlib.redirect_stdout(io.StringIO()):
+        hams = {"h8": cs.h8_problem()[0], "h6": ucc_problem("H6")[0],
+                "beh2": ucc_problem("BeH2")[0]}
+    d10 = {tag: VQEObjective(h, device=dev, dtype=torch.float32).hops
+           for tag, h in hams.items()}
+    d10["complex"] = VQEObjective(cs.synthetic_problem()[0], n=16,
+                                  device=dev, dtype=torch.float32).hops
+    call = expect_call(K)
+    for tag, ho in d10.items():
+        psi = cs.rand_state({"h6": 12, "beh2": 14}.get(tag, 16), 11, dev)
+        out[f"d10_{tag}_ms"] = cs.cuda_ms(lambda: call(psi, ho))
+        out[f"d10_{tag}_value"] = float(call(psi, ho))
+        expect_instances(K, psi, ho, f"d10_{tag}", out)
+    with cs.env_vars(OVQE_STREAM_FUSE="0"):
+        gos = {"h10": cs.h10_ham_groups(VQEObjective(h10.ham, device=dev)),
+               "complex": cs.h10_ham_groups(VQEObjective(
+                   cs.stream_synthetic(20, st.CHUNK_BITS, 1)[0], n=20,
+                   device=dev))}
+    psi = cs.rand_state(20, 11, dev)
+    for tag, go in gos.items():
+        for herm in (False, True):
+            name = f"d11_{tag}_herm{int(herm)}"
+            out[f"{name}_ms"] = cs.cuda_ms(
+                lambda: K.expect_stream(psi, go, herm))
+            out[f"{name}_value"] = float(K.expect_stream(psi, go, herm))
+            expect_instances(K, psi, go, name, out, herm)
 
 
 def gsd_pool(orbitals: int, electrons: int):
@@ -373,7 +449,6 @@ def measure_h8(cs, tree: Path, out: dict) -> None:
     lam = happly(psi, obj.hops)
     out["b4_ms"] = cs.cuda_ms(lambda: happly(psi, obj.hops), reps=50)
     b4_instances(K, psi, obj.hops, "h8", out)
-    out["d10_h8_value"] = float(K.expectation(psi, *obj.hops.args()))
     rot, adj = sweep_calls(K)
     out["a1_ms"] = cs.cuda_ms(lambda: rot(psi, ang, so, so.fmode), reps=50)
     out["c7_ms"] = cs.cuda_ms(lambda: adj(psi, lam, ang, so, so.fmode),
@@ -421,7 +496,8 @@ def measure_h8(cs, tree: Path, out: dict) -> None:
         "len_op1", "len_op2", "CNOT1", "CNOT2")]
 
 
-def measure(tree: Path, h16: str, quick: bool, pool: bool) -> dict:
+def measure(tree: Path, h16: str, quick: bool, pool: bool,
+            expect: bool) -> dict:
     sys.path.insert(0, str(tree))
     spec = importlib.util.spec_from_file_location("tree_chip_smoke",
                                                   tree / "chip_smoke.py")
@@ -439,6 +515,10 @@ def measure(tree: Path, h16: str, quick: bool, pool: bool) -> dict:
     out = {"tree": str(tree), "card": cs.card_line()}
     with contextlib.redirect_stdout(io.StringIO()):
         h10 = cs.h10_problem()
+    if not pool:
+        measure_expect(cs, h10, out)
+    if expect:
+        return out
     obj = VQEObjective(h10.ham, device="cuda")
     measure_pool(cs, h10, obj, out)
     if pool:
@@ -554,6 +634,8 @@ ORDER = (0, 1, 1, 0)    # the turns: indices into --trees
 POOLS = ("h10", "synthetic", "spread", "h8", "h4")
 CHILD_TIMEOUT_S = 900.0
 SMALL = ("H6", "BeH2")  # n = 12 and 14
+D10_SETS = ("h8", "h6", "beh2", "complex")
+D11_SETS = ("h10", "complex")
 
 METRICS = tuple(f"{m.lower()}_{k}" for m in SMALL for k in (
     "a1_ms", "c7_ms", "b4_ms", "cluster_energy_and_grad_ms",
@@ -569,12 +651,16 @@ METRICS = tuple(f"{m.lower()}_{k}" for m in SMALL for k in (
     "h10_energy_and_grad_ms", "h10_fuse0_energy_and_grad_ms",
     "h10_adapt_s", "h16_sweep_s", "h16_expectation_s", "h16_energy_s",
     "h16_hoist_expectation_s", "h16_hoist_energy_s") + tuple(
-    f"{k}_{t}_ms" for t in POOLS for k in ("e14", "e15"))
+    f"{k}_{t}_ms" for t in POOLS for k in ("e14", "e15")) + tuple(
+    f"d10_{t}_ms" for t in D10_SETS) + tuple(
+    f"d11_{t}_herm{h}_ms" for t in D11_SETS for h in (0, 1))
 VALUES = tuple(f"{m.lower()}_{b}_energy" for m in SMALL
                for b in ("cluster", "pool")) + (
-    "h8_cluster_energy", "h8_pool_energy", "d10_h8_value", "d13_h10_value",
+    "h8_cluster_energy", "h8_pool_energy", "d13_h10_value",
     "h10_energy_theta0", "h10_energy_theta1", "h10_fuse0_energy_theta0",
-    "h10_fuse0_energy_theta1", "h16_energy", "h16_hoist_energy")
+    "h10_fuse0_energy_theta1", "h16_energy", "h16_hoist_energy") + tuple(
+    f"d10_{t}_value" for t in D10_SETS) + tuple(
+    f"d11_{t}_herm{h}_value" for t in D11_SETS for h in (0, 1))
 SAME = tuple(f"{k}_fmode{f}_{h}" for f in (0, 1, 2) for k, h in (
     ("a1", "sha256"), ("c7", "state_sha256"), ("c7", "grad_sha256"))) + (
     "synthetic_fmode0_sha256", "synthetic_fmode1_sha256",
@@ -594,7 +680,11 @@ SAME = tuple(f"{k}_fmode{f}_{h}" for f in (0, 1, 2) for k, h in (
     f"e14_{t}_kt{k}_sha256" for t in ("h10", "synthetic", "h4")
     for k in (1, 2)) + tuple(
     f"e15_{t}_cb{c}_kt{k}_sha256" for t in ("h10", "synthetic")
-    for c in range(8, 13) for k in (1, 2))
+    for c in range(8, 13) for k in (1, 2)) + tuple(
+    f"d10_{t}_per{p}_kt{k}" for t in D10_SETS for p in (1, 2, 4, 8)
+    for k in (1, 2)) + tuple(
+    f"d11_{t}_herm{h}_per{p}_kt{k}" for t in D11_SETS for h in (0, 1)
+    for p in (1, 2, 4, 8) for k in (1, 2))
 
 
 def main() -> int:
@@ -607,11 +697,13 @@ def main() -> int:
                     help="the kernels and energy_and_grad only")
     ap.add_argument("--pool", action="store_true",
                     help="the pool-overlap kernels only")
+    ap.add_argument("--expect", action="store_true",
+                    help="the per-group expectations (D10, D11) only")
     args = ap.parse_args()
     if args.measure:
-        print("TURN " + json.dumps(measure(Path(args.measure).resolve(),
-                                           args.h16, args.quick, args.pool)),
-              flush=True)
+        print("TURN " + json.dumps(measure(
+            Path(args.measure).resolve(), args.h16, args.quick, args.pool,
+            args.expect)), flush=True)
         return 0
     if not args.trees:
         ap.error("--trees PARENT CHANGE is required")
@@ -625,7 +717,8 @@ def main() -> int:
         cmd = [sys.executable, str(Path(__file__).resolve()), "--measure",
                str(trees[i])] + (["--h16", h16] if h16 else []) \
             + (["--quick"] if args.quick else []) \
-            + (["--pool"] if args.pool else [])
+            + (["--pool"] if args.pool else []) \
+            + (["--expect"] if args.expect else [])
         t = time.time()
         proc = subprocess.run(cmd, cwd=str(trees[i]), capture_output=True,
                               text=True, timeout=CHILD_TIMEOUT_S)

@@ -261,7 +261,7 @@ def test_kernel_operands_fold_the_diagonal(h4, problem15):
         out = K.ham_apply(psi, hops)     # CPU tensor: plain version
         np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-10)
         e_ref = float(jgr.grouped_expectation(jnp.asarray(psi0), *hargs))
-        e = float(K.expectation(psi, *hops.args())) \
+        e = float(K.expectation(psi, hops)) \
             + hops.c_re * float(torch.sum(psi * psi))
         assert abs(e - e_ref) < 1e-10
 

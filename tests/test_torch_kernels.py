@@ -6,9 +6,10 @@ compiled PER, term tile and REAL, bit for bit across PER), the four bucketed
 (streaming) ones with the fused sweeps at every compile-time
 K and the odd-Y refusal, the bucketed H-apply and expectation at every
 compiled term tile (real and complex, herm off and on), the hoisted
-expectation at every compiled PER and term tile, the four per-group
-streaming ones (OVQE_STREAM_FUSE=0, the sweep and the adjoint at each
-PER) and the two
+expectation at every compiled PER and term tile, the per-group
+expectations D10 and D11 at every compiled PER, term tile and REAL (D11
+with herm off and on), the four per-group streaming ones
+(OVQE_STREAM_FUSE=0, the sweep and the adjoint at each PER) and the two
 pool-overlap kernels (E14 and E15 at every compiled PER, term tile and
 REAL, also on states with +-0 entries and E14 at n = 8).  A
 CUDA kernel has no CPU mode, so these tests are marked ``cuda`` and skip
@@ -100,7 +101,7 @@ def test_kernels_match_plain_versions(dev, fmode):
                                        o.fmode)).abs().max()) <= TOL
     lam = K.ham_apply(a, h)
     assert float((lam - gr.ham_apply_ref(a, *h.args())).abs().max()) <= TOL
-    e = float(K.expectation(a, *h.args()))
+    e = float(K.expectation(a, h))
     e_ref = float(gr.expectation_ref(a, *h.args()))
     assert abs(e - e_ref) <= TOL * max(1.0, abs(e_ref))
     p, l, g = K.adjoint_sweep(a, lam, ang, o, o.fmode)
@@ -163,6 +164,93 @@ def test_ham_apply_at_each_per(dev, per):
         assert at["k_tile"] == (2 if k % 2 == 0 else 1)
         assert at["threads"] == K.HAM_THREADS and at["blocks_per_sm"] >= 1
     torch.cuda.synchronize()
+
+
+# ------------------------------------- D10 / D11: each compiled instance
+
+@pytest.mark.parametrize("per", [1, 2, 4, 8])
+def test_expectation_at_each_per(dev, per):
+    """D10 at every compiled PER, term tile and REAL (``kernels._expect``)
+    on B4's cases against expectation_ref, on a state with +-0 entries
+    too, bit for bit against PER 1 (the same sums in the same order) and
+    when repeated; PER 1 also on a state below one block (idle threads).
+    The wrapper takes ``expect_per``'s PER."""
+    cases = B4_CASES + ([(5, 9, 6, False)] if per == 1 else [])
+    counts = K.LAUNCHES["expectation"]
+    calls = 0
+    for n, G, k, real in cases:
+        hs = _complex_set(n=n, G=G, K_=k, seed=G + k)
+        hs.hermitian = real                 # drops a_im: the REAL instance
+        ho = convert.ham_operands(hs, dev)
+        assert ho.real == real and ho.K == k
+        for psi in (_state(dev, 7, n), _signed_zeros(_state(dev, 8, n), n)):
+            e = K._expect(psi, ho, per)
+            ref = float(gr.expectation_ref(psi, *ho.args()))
+            assert abs(float(e) - ref) <= TOL * max(1.0, abs(ref)), \
+                (n, G, k, real)
+            assert torch.equal(e, K._expect(psi, ho, 1))
+            assert torch.equal(e, K._expect(psi, ho, per))
+            assert torch.equal(K.expectation(psi, ho),
+                               K._expect(psi, ho, K.expect_per(1 << n)))
+            calls += 5
+        at = K.expect_attributes(ho, n)
+        assert at["per"] == K.expect_per(1 << n) and at["local_bytes"] == 0
+        assert at["k_tile"] == (2 if k % 2 == 0 else 1)
+        assert at["threads"] == K.EXPECT_THREADS and at["blocks_per_sm"] >= 1
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["expectation"] - counts == calls
+
+
+def _d11_groups(n, k, real, dev, seed=3):
+    """Per-group H operands at n qubits: 23 groups of K = k whose first n
+    masks are 2^0 .. 2^(n-1) (a top bit in the thread, loop and block
+    bits of every layout), zero slots, a group with no live term, and the
+    diagonal as x = 0 groups; complex weights unless ``real``."""
+    hs = _complex_set(n=n, G=23, K_=k, seed=seed)
+    hs.x[:n] = 1 << np.arange(n)
+    hs.hermitian = real
+    x, z, ar, ai = (t.numpy() for t in convert.ham_operands(hs, "cpu")
+                    .args())
+    return st.group_operands(st.build_stream_data(
+        n, x, z, ar, coef_im=ai, chunk_bits=min(8, n - 1)), dev)
+
+
+@pytest.mark.parametrize("herm", [False, True])
+@pytest.mark.parametrize("per", [1, 2, 4, 8])
+def test_expect_stream_at_each_per(dev, per, herm):
+    """D11 at every compiled PER, term tile and REAL
+    (``kernels._expect_stream``), herm off and on, at n = 8 (one block)
+    and n >= 10, against expect_stream_ref, on a state with +-0 entries
+    too, bit for bit against PER 1 and when repeated.  The wrapper takes
+    ``expect_stream_per``'s PER."""
+    counts = K.LAUNCHES["expect_stream"]
+    calls = 0
+    for n in (8, 10, 12):
+        if per > 1 and per * K.EXPECT_STREAM_THREADS > 1 << n:
+            continue
+        for k, real in ((6, True), (6, False), (7, True), (7, False)):
+            go = _d11_groups(n, k, real, dev)
+            assert go.real == real and go.K == k and (go.k_live < k).any()
+            for psi in (_state(dev, 7, n),
+                        _signed_zeros(_state(dev, 8, n), n)):
+                e = K._expect_stream(psi, go, herm, per)
+                ref = float(st.expect_stream_ref(psi, go, herm))
+                assert abs(float(e) - ref) <= TOL * max(1.0, abs(ref)), \
+                    (n, k, real)
+                assert torch.equal(e, K._expect_stream(psi, go, herm, 1))
+                assert torch.equal(e, K._expect_stream(psi, go, herm, per))
+                assert torch.equal(K.expect_stream(psi, go, herm),
+                                   K._expect_stream(
+                                       psi, go, herm,
+                                       K.expect_stream_per(1 << n)))
+                calls += 5
+            at = K.expect_stream_attributes(go, n)
+            assert at["per"] == K.expect_stream_per(1 << n)
+            assert at["local_bytes"] == 0 and at["blocks_per_sm"] >= 1
+            assert at["k_tile"] == (2 if k % 2 == 0 else 1)
+            assert at["threads"] == K.EXPECT_STREAM_THREADS
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["expect_stream"] - counts == calls
 
 
 # ------------------------------------------- A1 / C7: cluster and graph routes
