@@ -53,15 +53,17 @@ imports nothing of JAX and nothing of ``openvqe_tpu``.  Phases:
 6. per-group streaming kernel parity at n = 20 (the kernels of
    OVQE_STREAM_FUSE=0): each of the four against its plain version and
    against the bucketed kernel of the same function on the same inputs
-   (A2 against A3, C8 against C9, B5 with the diagonal against B6, D11
-   with the diagonal against D12, with herm off and on), gradient entries
+   (A2 against A3, C8 against C9, B5 with the diagonal against B6 with
+   acc None and given, D11 with the diagonal against D12, with herm off
+   and on), gradient entries
    bit-identical when repeated, on H10's own operands and on the
    synthetic problems of phase 5 with inert groups added; timed at H10's
-   shapes (D11 with herm on, the row's time, and off), with the
-   registers, spills, shared memory and resident blocks of the A2, C8 and
-   D11 instances H10 runs (``kernels.stream_group_attributes``,
-   ``kernels.expect_stream_attributes``), B5's library yardstick (as
-   B6's),
+   shapes (D11 with herm on, the row's time, and off; B5 with acc None,
+   the row's time, and given), with the registers, spills, shared memory
+   and resident blocks of the A2, C8, D11 and B5 instances H10 runs
+   (``kernels.stream_group_attributes``,
+   ``kernels.expect_stream_attributes``,
+   ``kernels.ham_stream_attributes``), B5's library yardstick (as B6's),
    the card's L2 copy rate (copies of buffers that stay in L2,
    ``l2_rate``, in CUDA graphs) and the time each kernel's states would
    take to pass once per group at that rate, printed beside its time (a
@@ -1191,16 +1193,21 @@ def parity_group_case(label, psi, theta, b, fb, fobj, hgo, errs):
     check(out["rot_stream"] <= TOL_STATE,
           f"{label} rot_stream plain {d_plain} A3 {d_a3}")
 
-    lam_k = K.ham_stream(a, None, hgo)
+    # B5 with acc None and with acc = psi (B6 from the same acc)
     lam_p = st.ham_stream_ref(a, None, hgo)
-    lam_b = None
-    for hc in fobj.hclasses:
-        lam_b = K.ham_bucketed(a, lam_b, hc)
-    d_plain = float((lam_k - lam_p).abs().max())
-    d_b6 = float((lam_k - lam_b).abs().max())
-    out["ham_stream"] = max(d_plain, d_b6)
-    check(out["ham_stream"] <= TOL_STATE,
-          f"{label} ham_stream plain {d_plain} B6 {d_b6}")
+    out["ham_stream"] = 0.0
+    for acc in (None, psi):
+        lam_k = K.ham_stream(a, acc, hgo)
+        lam_r = lam_p if acc is None else st.ham_stream_ref(a, acc, hgo)
+        lam_b = acc
+        for hc in fobj.hclasses:
+            lam_b = K.ham_bucketed(a, lam_b, hc)
+        d_plain = float((lam_k - lam_r).abs().max())
+        d_b6 = float((lam_k - lam_b).abs().max())
+        out["ham_stream"] = max(out["ham_stream"], d_plain, d_b6)
+        check(max(d_plain, d_b6) <= TOL_STATE,
+              f"{label} ham_stream acc={'psi' if acc is not None else None} "
+              f"plain {d_plain} B6 {d_b6}")
 
     check(st.grouped_hermitian_operator(fobj.gham),
           f"{label}: H is not Hermitian as an operator")
@@ -1343,6 +1350,17 @@ def phase_stream_group_parity(h10, ref, card):
           f"{'real' if hgo.real else 'complex'}); "
           f"{rows['expect_stream']['ms']:.4f} ms (herm) and {ms_nh:.4f} ms "
           f"against a bound of {rows['expect_stream']['bound_ms']:.6f} ms")
+    acc = rand_state(h10.n, 12, dev)
+    ms_acc = cuda_ms(lambda: K.ham_stream(psi, acc, hgo), reps=10, warmup=2)
+    at = K.ham_stream_attributes(hgo, h10.n)
+    print(f"ham_stream at H10 ({card}): {json.dumps(at)} (acc None), "
+          f"{json.dumps(K.ham_stream_attributes(hgo, h10.n, True))} (acc "
+          f"given); {-(-(1 << h10.n) // (at['per'] * at['threads']))} "
+          f"blocks, {hgo.G} groups (K {hgo.K}, "
+          f"{'real' if hgo.real else 'complex'}); "
+          f"{rows['ham_stream']['ms']:.4f} ms (acc None) and {ms_acc:.4f} ms "
+          f"(acc given) against a bound of "
+          f"{rows['ham_stream']['bound_ms']:.6f} ms")
     rows["ham_stream"]["library_ms"] = spmm_library(
         "ham_stream", "H10", psi, hgo.x, hgo.z, hgo.coef, hgo.coef_im,
         hgo.k_live, st.ham_stream_ref(psi, None, hgo), card)

@@ -33,6 +33,11 @@ __device__ __forceinline__ unsigned parity(unsigned v) {
   return (unsigned)__popc(v) & 1u;
 }
 
+// The fields of the first, one-amplitude designs (field2 of the sweeps,
+// wfield of the H-applies and expectations).  No kernel calls them now:
+// they are the reference that the sign split below reproduces bit for bit
+// (tests/test_torch_*_fields.py emulate both).
+
 // Fields of one group at both ends of a pair.
 __device__ __forceinline__ void field2(unsigned j, unsigned jj,
                                        const int* __restrict__ z,
@@ -93,10 +98,10 @@ __device__ __forceinline__ void sign_table(float* S) {
     S[i] = parity((unsigned)(i / PER) & (unsigned)(i % PER)) ? -1.f : 1.f;
 }
 
-// The fields W_re (and W_im unless REAL) of one slot at the thread's PER
-// amplitudes: terms 0 .. nl - 1 of (z, ar, ai), in tiles of KT (KT divides
-// K; terms of the last tile past nl are zero coefficients and add exact
-// zeros), jt = base | tid.  TB: log2 of the threads the loop index q
+// The fields W_re (and W_im unless REAL; REAL leaves every wi at +0) of
+// one slot at the thread's PER amplitudes: terms 0 .. nl - 1 of (z, ar,
+// ai), in tiles of KT (KT divides K; terms of the last tile past nl are
+// zero coefficients and add exact zeros), jt = base | tid.  TB: log2 of the threads the loop index q
 // steps over (the loop bits start at bit TB).
 template <int PER, int KT, bool REAL, int TB = 8>
 __device__ __forceinline__ void bucket_fields(
@@ -141,7 +146,8 @@ __device__ __forceinline__ void bucket_fields(
 }
 
 // ------------------------------------------------------- the group walk
-// of B4 and D10 (grouped_kernels.cu) and D11 (stream_group_kernels.cu).
+// of B4 and D10 (grouped_kernels.cu) and D11 and B5
+// (stream_group_kernels.cu).
 // Thread tid of a block of T = 2^TB threads owns the PER amplitudes
 // j = jt | q T, jt = base | tid, base = blockIdx.x PER T, q < PER (the
 // split of bucket_fields), and adds every group g = 0 .. G-1 in order into
@@ -154,7 +160,8 @@ __device__ __forceinline__ void bucket_fields(
 //   are zero weights and add exact zeros), sized by a prefix sum of the
 //   counts in warp 0; otherwise a run holds whole rows of K.  On an H100
 //   whole rows ran faster for B4 and D10 (K = 32 at H8, ~5.6 live) and
-//   compacted runs for D11 (K = 64 at H10, most groups <= 8 live; PERF.md).
+//   compacted runs for D11 and B5 (K = 64 at H10, most groups <= 8 live;
+//   PERF.md).
 // * The partners psi[j ^ x] of group g + D are loaded while group g is
 //   added, into a ring of D register slots (the group loop unrolled by D,
 //   so a slot is a compile-time index); psi_j itself is the epilogue's.
@@ -376,7 +383,7 @@ __device__ __forceinline__ void group_walk(
   }
 }
 
-// The walk's instance f.run<PER, KT, REAL>() (B4, D10, D11): PER 1, 2, 4
+// The walk's instance f.run<PER, KT, REAL>() (B4, D10, D11, B5): PER 1, 2, 4
 // or 8, the term tile KT 2, or 1 for an odd K (as B6's bucket_dispatch).
 template <int PER, typename F>
 int walk_tile(int K, int real, const F& f) {

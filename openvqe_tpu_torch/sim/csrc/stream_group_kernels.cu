@@ -65,11 +65,23 @@
 //   threads below 2^9 amplitudes).  At H10 A2 takes 3.5 ms and C8 7.1 ms
 //   against bounds of 0.36 and 0.51 ms (PERF.md): ~4 and ~8 us a group,
 //   which moves 16 and 32 MB through the L2.
-// * ham_stream (B5): the sum is order-free, so one launch for all groups,
-//   output-stationary: one thread per output amplitude loops over the
-//   groups and their live rows, with both weight fields (the JAX kernel
-//   has no `real` flag), accumulating in float64 in registers.  No
-//   scatter, no atomics.
+// * ham_stream (B5), redesigned for Hopper: its first design gave each
+//   thread one amplitude and paid a wfield per group (a popcount, a select
+//   and two FMAs per term slot, W_im on a real H), with every thread
+//   loading each group's operands and one partner gather in flight (7.9
+//   ms at H10).  Now it is one more epilogue of D11's walk (group_walk in
+//   common.cuh: PER amplitudes a thread of 512, kernels.ham_stream_per,
+//   one block an SM, one popcount per live term, group and thread,
+//   GroupOperands.k_live, the REAL instance under GroupOperands.real,
+//   each run of groups staged in shared memory with its live terms only,
+//   the next group's partners loaded while a group is added): one launch
+//   for all groups, output-stationary, a float64 sum per amplitude and
+//   plane that starts at acc_in (loaded once, before the walk) and is
+//   written once, at the end.  No scatter, no atomics.  Each output is
+//   the first design's bit for bit: the same float32 terms in its
+//   roundings (HamStreamEpi) added to the same double in the same group
+//   order; REAL drops W_im's exact +0 product only from acc_in null,
+//   where no zero's sign can survive.
 // * expect_stream (D11), redesigned for Hopper: its first design was B5's
 //   loop contracted with conj(psi_j), one amplitude a thread and a wfield
 //   per group, where a thread that skipped a group under herm still cost
@@ -99,6 +111,14 @@
 #define SG_EXP_THREADS (1 << SG_EXP_TB)
 #define SG_EXP_DEPTH 1             // groups whose partners D11 loads ahead
 #define SG_EXP_COMPACT 1           // D11 stages live terms only
+#define SG_HAM_TB 9                // log2 threads of a B5 block
+#define SG_HAM_THREADS (1 << SG_HAM_TB)
+#define SG_HAM_DEPTH 1             // groups whose partners B5 loads ahead
+#define SG_HAM_COMPACT 1           // B5 stages live terms only
+#define SG_HAM_BLOCKS 1            // B5 blocks an SM at least (at most 128
+                                   // registers; without it ptxas took fewer
+                                   // and ran slower, and at 256 threads
+                                   // spilled in one instance; PERF.md)
 
 namespace {
 
@@ -242,30 +262,65 @@ adjoint_reduce_kernel(const AdjointArgs* __restrict__ args, int nb) {
 
 // ---------------------------------------------------------------- kernel 3
 // ham_stream, one launch.  Replaces
-// openvqe_tpu/sim/streaming.py::_ham_stream_kernel.  Thread j writes
-// out[j] = acc_in[j] + sum_g W_g(j) psi[j ^ x_g] (acc_in may be null).
-__global__ void __launch_bounds__(SG_THREADS)
+// openvqe_tpu/sim/streaming.py::_ham_stream_kernel.  D11's walk (group_walk,
+// common.cuh) at SG_HAM_THREADS threads and PER amplitudes a thread:
+// amplitude j writes out[j] = acc_in[j] + sum_g W_g(j) psi[j ^ x_g] (acc_in
+// may be null: +0), both planes, in float64, group by group in order.
+// The float32 terms are the one-amplitude kernel's, in the roundings nvcc
+// gave it (its SASS: W_re b0 - W_im b1 fused at W_re b0, W_re b1 + W_im b0
+// fused at W_re b1, then converted and added to the double).  On a real H
+// its W_im was an exact +0, whose product sets the sign of a zero term:
+// a sum from acc_in = -0 keeps that sign, a sum from +0 never does (x + y
+// is -0 only if both are).  So ZERO (complex, or REAL from a given acc_in)
+// keeps the product (bucket_fields leaves a REAL wi at +0), and REAL from
+// acc_in null rounds W_re b alone: the same bits either way.
+template <int PER, bool ZERO>
+struct HamStreamEpi {
+  double acc0[PER], acc1[PER];
+  __device__ __forceinline__ unsigned take(unsigned) const {
+    return (1u << PER) - 1u;
+  }
+  __device__ __forceinline__ void add(int q, unsigned, float wr, float wi,
+                                      float b0, float b1) {
+    if (ZERO) {
+      acc0[q] += (double)__fmaf_rn(wr, b0, -__fmul_rn(wi, b1));
+      acc1[q] += (double)__fmaf_rn(wr, b1, __fmul_rn(wi, b0));
+    } else {
+      acc0[q] += (double)__fmul_rn(wr, b0);
+      acc1[q] += (double)__fmul_rn(wr, b1);
+    }
+  }
+};
+
+template <int PER, int KT, bool REAL, bool ZERO>
+__global__ void __launch_bounds__(SG_HAM_THREADS, SG_HAM_BLOCKS)
 ham_stream_kernel(const float* __restrict__ psi,
                   const float* __restrict__ acc_in, float* __restrict__ out,
                   unsigned N, const int* __restrict__ x,
                   const int* __restrict__ z, const float* __restrict__ ar,
                   const float* __restrict__ ai, const int* __restrict__ kl,
-                  int G, int K) {
-  const unsigned j = blockIdx.x * SG_THREADS + threadIdx.x;
-  if (j >= N) return;
-  double acc0 = acc_in ? acc_in[j] : 0.0;
-  double acc1 = acc_in ? acc_in[N + j] : 0.0;
-  for (int g = 0; g < G; ++g) {
-    const unsigned jx = j ^ (unsigned)x[g];
-    const float b0 = psi[jx], b1 = psi[N + jx];
-    float wre, wim;
-    wfield(j, z + (size_t)g * K, ar + (size_t)g * K, ai + (size_t)g * K,
-           kl[g], wre, wim);
-    acc0 += wre * b0 - wim * b1;
-    acc1 += wre * b1 + wim * b0;
+                  int G, int K, int slots) {
+  constexpr unsigned T = SG_HAM_THREADS;
+  const WalkSmem<PER, REAL> s{slots};
+  sign_table<PER, T>(s.S());
+  const unsigned jt = (blockIdx.x * PER * T) | threadIdx.x;
+  const bool on = PER > 1 || jt < N;
+  HamStreamEpi<PER, ZERO> e;
+#pragma unroll
+  for (int q = 0; q < PER; ++q) {
+    const unsigned j = jt | (q * T);
+    e.acc0[q] = on && acc_in ? (double)acc_in[j] : 0.0;
+    e.acc1[q] = on && acc_in ? (double)acc_in[N + j] : 0.0;
   }
-  out[j] = (float)acc0;
-  out[N + j] = (float)acc1;
+  group_walk<PER, KT, REAL, SG_HAM_TB, SG_HAM_DEPTH, SG_HAM_COMPACT != 0>(
+      e, psi, N, jt, on, x, z, ar, ai, kl, G, K, s);
+  if (!on) return;
+#pragma unroll
+  for (int q = 0; q < PER; ++q) {
+    const unsigned j = jt | (q * T);
+    out[j] = (float)e.acc0[q];
+    out[N + j] = (float)e.acc1[q];
+  }
 }
 
 // ---------------------------------------------------------------- kernel 4
@@ -450,14 +505,30 @@ struct PairAttrs {
   }
 };
 
-// D11's dynamic shared memory for K, allowed on the instance.
-template <int PER, int KT, bool REAL>
-int exp_smem(int K, size_t* bytes) {
-  *bytes = walk_smem(PER, K, REAL, SG_EXP_DEPTH);
-  return (int)cudaFuncSetAttribute(expect_stream_kernel<PER, KT, REAL>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)*bytes);
-}
+// D11 (HAM false) or B5 (HAM true, ZERO as in ham_stream_kernel): its
+// kernel, threads and depth.
+template <bool HAM, int PER, int KT, bool REAL, bool ZERO = true>
+struct SgWalk {
+  static constexpr int threads = HAM ? SG_HAM_THREADS : SG_EXP_THREADS;
+  static constexpr int depth = HAM ? SG_HAM_DEPTH : SG_EXP_DEPTH;
+  static const void* fn() {
+    return HAM ? (const void*)ham_stream_kernel<PER, KT, REAL, ZERO>
+               : (const void*)expect_stream_kernel<PER, KT, REAL>;
+  }
+  // its dynamic shared memory for K, allowed on the kernel
+  static int smem(int K, size_t* bytes) {
+    *bytes = walk_smem(PER, K, REAL, depth);
+    return (int)cudaFuncSetAttribute(
+        fn(), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*bytes);
+  }
+  static unsigned blocks(long long N) {
+    const long long amps = (long long)PER * threads;
+    return (unsigned)((N + amps - 1) / amps);
+  }
+};
+
+// Whether B5's REAL instance drops W_im's +0: from acc_in null only.
+inline bool ham_drops(bool acc) { return !acc; }
 
 struct ExpectStreamLaunch {
   const float* psi;
@@ -471,45 +542,84 @@ struct ExpectStreamLaunch {
   cudaStream_t st;
   template <int PER, int KT, bool REAL>
   int run() const {
+    using W = SgWalk<false, PER, KT, REAL>;
     size_t smem;
-    const int e = exp_smem<PER, KT, REAL>(K, &smem);
+    const int e = W::smem(K, &smem);
     if (e) return e;
-    const long long amps = (long long)PER * SG_EXP_THREADS;
     expect_stream_kernel<PER, KT, REAL>
-        <<<(unsigned)((N + amps - 1) / amps), SG_EXP_THREADS, smem, st>>>(
+        <<<W::blocks(N), W::threads, smem, st>>>(
             psi, (unsigned)N, x, z, ar, ai, kl, G, K, herm,
-            walk_slots(K, REAL, SG_EXP_DEPTH), partials, nb);
+            walk_slots(K, REAL, W::depth), partials, nb);
     return (int)cudaGetLastError();
+  }
+};
+
+struct HamStreamLaunch {
+  const float* psi;
+  const float* acc_in;
+  float* out;
+  long long N;
+  const int *x, *z;
+  const float *ar, *ai;
+  const int* kl;
+  int G, K;
+  cudaStream_t st;
+  template <int PER, int KT, bool REAL, bool ZERO>
+  int launch() const {
+    using W = SgWalk<true, PER, KT, REAL, ZERO>;
+    size_t smem;
+    const int e = W::smem(K, &smem);
+    if (e) return e;
+    ham_stream_kernel<PER, KT, REAL, ZERO>
+        <<<W::blocks(N), W::threads, smem, st>>>(
+            psi, acc_in, out, (unsigned)N, x, z, ar, ai, kl, G, K,
+            walk_slots(K, REAL, W::depth));
+    return (int)cudaGetLastError();
+  }
+  template <int PER, int KT, bool REAL>
+  int run() const {
+    if constexpr (REAL)
+      if (ham_drops(acc_in != nullptr))
+        return launch<PER, KT, true, false>();
+    return launch<PER, KT, REAL, true>();
   }
 };
 
 // out[7]: registers, local (spill) bytes per thread, dynamic shared
 // memory, threads per block, resident blocks per SM, the term tile and
-// PER of D11's instance.
-struct ExpectStreamAttrs {
+// PER of D11's (ham false) or B5's instance (from a given acc_in or not).
+struct SgWalkAttrs {
+  bool ham, acc;
   int K;
   int* out;
-  template <int PER, int KT, bool REAL>
-  int run() const {
+  template <bool HAM, int PER, int KT, bool REAL, bool ZERO>
+  int get() const {
+    using W = SgWalk<HAM, PER, KT, REAL, ZERO>;
     size_t smem;
-    int e = exp_smem<PER, KT, REAL>(K, &smem);
+    int e = W::smem(K, &smem);
     if (e) return e;
-    const void* fn = (const void*)expect_stream_kernel<PER, KT, REAL>;
     cudaFuncAttributes a;
-    e = (int)cudaFuncGetAttributes(&a, fn);
+    e = (int)cudaFuncGetAttributes(&a, W::fn());
     if (e) return e;
     int blocks = 0;
     e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, fn, SG_EXP_THREADS, smem);
+        &blocks, W::fn(), W::threads, smem);
     if (e) return e;
     out[0] = a.numRegs;
     out[1] = (int)a.localSizeBytes;
     out[2] = (int)smem;
-    out[3] = SG_EXP_THREADS;
+    out[3] = W::threads;
     out[4] = blocks;
     out[5] = KT;
     out[6] = PER;
     return 0;
+  }
+  template <int PER, int KT, bool REAL>
+  int run() const {
+    if (!ham) return get<false, PER, KT, REAL, true>();
+    if constexpr (REAL)
+      if (ham_drops(acc)) return get<true, PER, KT, true, false>();
+    return get<true, PER, KT, REAL, true>();
   }
 };
 
@@ -601,15 +711,26 @@ int ovqe_stream_group_attrs(int adj, int per, int K, int* out) {
   return per_dispatch(per, K, PairAttrs{adj != 0, out});
 }
 
+// B5: out = acc_in + sum_g W_g psi[j ^ x_g] over the G >= 0 groups (x, z,
+// ar, ai, kl) (acc_in null: zero), PER amplitudes a thread (1, 2, 4 or 8;
+// PER T <= N unless PER = 1), real: every ai zero.
 int ovqe_ham_stream(const float* psi, const float* acc_in, float* out,
                     long long N, const int* x, const int* z, const float* ar,
-                    const float* ai, const int* kl, int G, int K,
-                    void* stream) {
-  if (!n_ok(N)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  ham_stream_kernel<<<blocks_for(N), SG_THREADS, 0, st>>>(
-      psi, acc_in, out, (unsigned)N, x, z, ar, ai, kl, G, K);
-  return (int)cudaGetLastError();
+                    const float* ai, const int* kl, int G, int K, int real,
+                    int per, void* stream) {
+  if (!n_ok(N) || (N & (N - 1)) || G < 0 || K < 0 || (G > 0 && K == 0) ||
+      !per_known(per) || (per > 1 && (long long)per * SG_HAM_THREADS > N))
+    return (int)cudaErrorInvalidValue;
+  return walk_dispatch(per, K, real,
+                       HamStreamLaunch{psi, acc_in, out, N, x, z, ar, ai, kl,
+                                       G, K, (cudaStream_t)stream});
+}
+
+// out[7] of B5's instance for (per, K, real) from a given acc_in (acc) or
+// not (SgWalkAttrs).
+int ovqe_ham_stream_attrs(int per, int K, int real, int acc, int* out) {
+  if (!per_known(per) || K <= 0) return (int)cudaErrorInvalidValue;
+  return walk_dispatch(per, K, real, SgWalkAttrs{true, acc != 0, K, out});
 }
 
 // D11: out[0] = the groups (x, z, ar, ai, kl) contracted with conj(psi)
@@ -636,10 +757,10 @@ int ovqe_expect_stream(const float* psi, long long N, const int* x,
   return (int)cudaGetLastError();
 }
 
-// out[7] of D11's instance for (per, K, real) (ExpectStreamAttrs).
+// out[7] of D11's instance for (per, K, real) (SgWalkAttrs).
 int ovqe_expect_stream_attrs(int per, int K, int real, int* out) {
   if (!per_known(per) || K <= 0) return (int)cudaErrorInvalidValue;
-  return walk_dispatch(per, K, real, ExpectStreamAttrs{K, out});
+  return walk_dispatch(per, K, real, SgWalkAttrs{false, false, K, out});
 }
 
 }  // extern "C"

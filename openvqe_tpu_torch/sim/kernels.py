@@ -60,16 +60,17 @@ without it they raise ``ValueError``.  The kernels that stage states with
 ``expect_hoisted``) refuse a state on the card whose data is not 16-byte
 aligned.  ``grouped_attributes``, ``ham_attributes``,
 ``expect_attributes``, ``sweep_attributes``, ``bucket_attributes``,
-``stream_group_attributes``, ``expect_stream_attributes`` and
-``pool_attributes`` report how A1 / C7, B4, D10, A3 / C9, B6 / D12 / D13,
-A2 / C8, D11 and E14 / E15 launch (registers, spills, shared memory,
-resident blocks per SM or clusters); ``cluster_floor`` runs the barrier
-floor of the cluster sweeps.
+``stream_group_attributes``, ``expect_stream_attributes``,
+``ham_stream_attributes`` and ``pool_attributes`` report how A1 / C7, B4,
+D10, A3 / C9, B6 / D12 / D13, A2 / C8, D11, B5 and E14 / E15 launch
+(registers, spills, shared memory, resident blocks per SM or clusters);
+``cluster_floor`` runs the barrier floor of the cluster sweeps.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -192,7 +193,8 @@ _SIGNATURES = {
         "ovqe_graph_replay": "PPPP",
         "ovqe_graph_destroy": "P",
         "ovqe_stream_group_attrs": "IIIP",
-        "ovqe_ham_stream": "PPPLPPPPPIIP",
+        "ovqe_ham_stream": "PPPLPPPPPIIIIP",
+        "ovqe_ham_stream_attrs": "IIIIP",
         "ovqe_expect_stream": "PLPPPPPIIIIIPIPP",
         "ovqe_expect_stream_attrs": "IIIP",
         "ovqe_sg_block_threads": "",
@@ -533,10 +535,11 @@ _WALK_KEYS = ("registers", "local_bytes", "smem_bytes", "threads",
               "blocks_per_sm", "k_tile", "per")
 
 
-def _walk_attrs(name: str, exp: int, per: int, ops) -> Dict[str, int]:
+def _walk_attrs(name: str, attrs, per: int, ops) -> Dict[str, int]:
+    """The ``_WALK_KEYS`` of a walk instance from its C entry ``attrs(per,
+    K, real, out)``."""
     out = (ctypes.c_int * 7)()
-    rc = _load().ovqe_walk_attrs(exp, per, ops.K, int(ops.real),
-                                 ctypes.addressof(out))
+    rc = attrs(per, ops.K, int(ops.real), ctypes.addressof(out))
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc}")
     return dict(zip(_WALK_KEYS, list(out)))
@@ -548,7 +551,9 @@ def ham_attributes(ho: convert.HamOperands, n: int) -> Dict[str, int]:
     block, resident blocks per SM, the compiled term tile and the
     amplitudes per thread (the instance is chosen by PER, K and
     ``ho.real``)."""
-    return _walk_attrs("ham_attributes", 0, ham_per(1 << n), ho)
+    return _walk_attrs("ham_attributes",
+                       functools.partial(_load().ovqe_walk_attrs, 0),
+                       ham_per(1 << n), ho)
 
 
 EXPECT_PER = 2          # amplitudes a thread of D10 (expectation): the
@@ -598,7 +603,9 @@ def expectation(psi, ho: convert.HamOperands):
 def expect_attributes(ho: convert.HamOperands, n: int) -> Dict[str, int]:
     """How ``expectation`` launches on ``ho`` at a 2^n state (the keys of
     ``ham_attributes``)."""
-    return _walk_attrs("expect_attributes", 1, expect_per(1 << n), ho)
+    return _walk_attrs("expect_attributes",
+                       functools.partial(_load().ovqe_walk_attrs, 1),
+                       expect_per(1 << n), ho)
 
 
 # ------------------------------------------------ bucketed (streaming) route
@@ -987,19 +994,57 @@ def stream_group_attributes(name: str, go: st.GroupOperands
     return dict(zip(keys, list(out)))
 
 
-def ham_stream(psi, acc, go: st.GroupOperands):
-    """acc + sum_g W_g psi[j ^ x_g] over every group in one launch, both
-    weight fields; acc None counts as zero."""
-    if psi.device.type == "cpu":
-        return st.ham_stream_ref(psi, acc, go)
+HAM_STREAM_PER = 8      # amplitudes a thread of B5 (ham_stream): the
+                        # fastest of 1, 2, 4, 8 at H10 on an H100
+HAM_STREAM_THREADS = 512        # SG_HAM_THREADS of stream_group_kernels.cu
+
+
+def ham_stream_per(N: int) -> int:
+    """B5's amplitudes per thread on a state of N amplitudes:
+    ``HAM_STREAM_PER``, or the largest power of two below it whose blocks
+    of ``HAM_STREAM_THREADS`` the state fills (1, with idle threads, below
+    ``HAM_STREAM_THREADS``)."""
+    per = HAM_STREAM_PER
+    while per > 1 and per * HAM_STREAM_THREADS > N:
+        per //= 2
+    return per
+
+
+def _ham_stream(psi, acc, go: st.GroupOperands, per: int):
+    """B5's launch at ``per`` amplitudes a thread (``ham_stream_per``'s on
+    the wrapper's path)."""
     N = _group_ops(psi, go, (go.coef, go.coef_im))
     if acc is not None:
         _check("acc", acc, torch.float32, (2, N), psi.device)
     lib = _load("stream_group")
     out = torch.empty_like(psi)
     _launch("ham_stream", lib.ovqe_ham_stream, psi, acc, out, N, go.x, go.z,
-            go.coef, go.coef_im, go.k_live, go.G, go.K, _stream(psi))
+            go.coef, go.coef_im, go.k_live, go.G, go.K, int(go.real), per,
+            _stream(psi))
     return out
+
+
+def ham_stream(psi, acc, go: st.GroupOperands):
+    """acc + sum_g W_g psi[j ^ x_g] over every group of ``go`` (acc None
+    counts as zero).  On the card one launch, ``ham_stream_per(N)``
+    amplitudes a thread, a float64 sum per amplitude; each group adds its
+    ``go.k_live`` terms, and W_im only where ``go.real`` is false (its +0
+    product is kept from a given acc, where it can set a zero's sign)."""
+    if psi.device.type == "cpu":
+        return st.ham_stream_ref(psi, acc, go)
+    return _ham_stream(psi, acc, go, ham_stream_per(_state("psi", psi)))
+
+
+def ham_stream_attributes(go: st.GroupOperands, n: int,
+                          acc: bool = False) -> Dict[str, int]:
+    """How ``ham_stream`` launches on ``go`` at a 2^n state with acc None,
+    or given (``acc``: the other instance where ``go.real``); the keys of
+    ``ham_attributes``."""
+    fn = _load("stream_group").ovqe_ham_stream_attrs
+    return _walk_attrs("ham_stream_attributes",
+                       lambda per, K, real, out: fn(per, K, real, int(acc),
+                                                    out),
+                       ham_stream_per(1 << n), go)
 
 
 EXPECT_STREAM_PER = 8   # amplitudes a thread of D11 (expect_stream): the
@@ -1050,12 +1095,9 @@ def expect_stream(psi, go: st.GroupOperands, herm: bool = False):
 def expect_stream_attributes(go: st.GroupOperands, n: int) -> Dict[str, int]:
     """How ``expect_stream`` launches on ``go`` at a 2^n state (the keys of
     ``ham_attributes``)."""
-    out = (ctypes.c_int * 7)()
-    rc = _load("stream_group").ovqe_expect_stream_attrs(
-        expect_stream_per(1 << n), go.K, int(go.real), ctypes.addressof(out))
-    if rc != 0:
-        raise RuntimeError(f"expect_stream_attributes: CUDA error {rc}")
-    return dict(zip(_WALK_KEYS, list(out)))
+    return _walk_attrs("expect_stream_attributes",
+                       _load("stream_group").ovqe_expect_stream_attrs,
+                       expect_stream_per(1 << n), go)
 
 
 # ----------------------------------------------------------- pool screen

@@ -5,11 +5,12 @@ the fused sweeps (A3 ``rot_fused``, C9 ``adjoint_fused``), the bucketed
 H-apply and expectation (B6 ``ham_bucketed``, D12 ``expect_bucketed``),
 the hoisted expectation (D13 ``expect_hoisted``), the per-group streaming
 sweep and adjoint (A2 ``rot_stream``, C8 ``adjoint_stream``), the
-per-group expectations (D10 ``expectation``, D11 ``expect_stream``) and
-the paths that run them.
+per-group expectations (D10 ``expectation``, D11 ``expect_stream``), the
+per-group streaming H-apply (B5 ``ham_stream``) and the paths that run
+them.
 
     python3 scripts/torch_sweep_turns.py --trees PARENT CHANGE \\
-        [--h16 PICKLE] [--quick | --pool | --expect]
+        [--h16 PICKLE] [--quick | --pool | --expect | --ham-stream]
 
 Each tree is a checkout of the repository (for example unpacked with
 ``git archive``) that holds ``chip_smoke.py`` and ``openvqe_tpu_torch``.
@@ -79,6 +80,16 @@ into the tree's own ``build/``):
   (1, 2, 4 and 8 amplitudes a thread, K and K + 1, a zero column
   appended; on the parent tree its one kernel under the same names);
   ``--expect`` measures only these;
+* the per-group streaming H-apply B5 (``measure_ham_stream``) over the
+  same per-group H operands of H10 and of the complex synthetic problem
+  as D11, with acc None and given (a random state with a tenth of its
+  entries +0 and a tenth -0): timed (CUDA events over 20 calls after 3
+  warm-ups, at the wrapper's PER), with a SHA-256 of the output (+0 and
+  -0 told apart) of every instance the change compiles (1, 2, 4 and 8
+  amplitudes a thread, K and K + 1, a zero column appended; REAL on
+  H10's, complex on the synthetic set) on a random state and on the same
+  state with +-0 entries; on the parent tree its one kernel under the
+  same names; ``--ham-stream`` measures only these;
 * unless ``--quick``, the H10 fermionic ADAPT run of ``chip_smoke.py``
   phase 10 (3 outer iterations, the float32 Lanczos reference included;
   host clock);
@@ -235,6 +246,49 @@ def measure_expect(cs, h10, out: dict) -> None:
                 lambda: K.expect_stream(psi, go, herm))
             out[f"{name}_value"] = float(K.expect_stream(psi, go, herm))
             expect_instances(K, psi, go, name, out, herm)
+
+
+def signed_zeros(t, seed: int):
+    """``t`` with a tenth of its entries set to +0 and a tenth to -0."""
+    import numpy as np
+    import torch
+    r = np.random.default_rng(seed).integers(0, 10, size=tuple(t.shape))
+    t = t.clone()
+    t[torch.as_tensor(r == 0, device=t.device)] = 0.0
+    t[torch.as_tensor(r == 1, device=t.device)] = -0.0
+    return t
+
+
+def measure_ham_stream(cs, h10, out: dict) -> None:
+    """B5 (see the module docstring)."""
+    import torch
+    from openvqe_tpu_torch.sim import kernels as K
+    from openvqe_tpu_torch.sim import streaming as st
+    from openvqe_tpu_torch.sim.objective import VQEObjective
+    dev = torch.device("cuda")
+    with cs.env_vars(OVQE_STREAM_FUSE="0"):
+        gos = {"h10": cs.h10_ham_groups(VQEObjective(h10.ham, device=dev)),
+               "complex": cs.h10_ham_groups(VQEObjective(
+                   cs.stream_synthetic(20, st.CHUNK_BITS, 1)[0], n=20,
+                   device=dev))}
+    psi = cs.rand_state(20, 11, dev)
+    accs = {"none": None, "acc": signed_zeros(cs.rand_state(20, 12, dev), 13)}
+    zpsi = signed_zeros(psi, 14)
+    for tag, go in gos.items():
+        for a, acc in accs.items():
+            name = f"b5_{tag}_{a}"
+            out[f"{name}_ms"] = cs.cuda_ms(lambda: K.ham_stream(psi, acc, go))
+            k = go.z.shape[1]
+            for odd, o in ((k % 2, go), ((k + 1) % 2, padded(
+                    go, z=1, coef=1, coef_im=1, z_pair=1))):
+                kt = 1 if odd else 2
+                for per in (1, 2, 4, 8):
+                    for sign, v in (("", psi), ("_zeros", zpsi)):
+                        lam = (K._ham_stream(v, acc, o, per)
+                               if hasattr(K, "_ham_stream")
+                               else K.ham_stream(v, acc, o))
+                        out[f"{name}{sign}_per{per}_kt{kt}_sha256"] = \
+                            sha256(lam)
 
 
 def gsd_pool(orbitals: int, electrons: int):
@@ -497,7 +551,7 @@ def measure_h8(cs, tree: Path, out: dict) -> None:
 
 
 def measure(tree: Path, h16: str, quick: bool, pool: bool,
-            expect: bool) -> dict:
+            expect: bool, ham_stream: bool) -> dict:
     sys.path.insert(0, str(tree))
     spec = importlib.util.spec_from_file_location("tree_chip_smoke",
                                                   tree / "chip_smoke.py")
@@ -515,9 +569,11 @@ def measure(tree: Path, h16: str, quick: bool, pool: bool,
     out = {"tree": str(tree), "card": cs.card_line()}
     with contextlib.redirect_stdout(io.StringIO()):
         h10 = cs.h10_problem()
-    if not pool:
+    if not pool and not ham_stream:
         measure_expect(cs, h10, out)
-    if expect:
+    if not pool and not expect:
+        measure_ham_stream(cs, h10, out)
+    if expect or ham_stream:
         return out
     obj = VQEObjective(h10.ham, device="cuda")
     measure_pool(cs, h10, obj, out)
@@ -636,6 +692,8 @@ CHILD_TIMEOUT_S = 900.0
 SMALL = ("H6", "BeH2")  # n = 12 and 14
 D10_SETS = ("h8", "h6", "beh2", "complex")
 D11_SETS = ("h10", "complex")
+B5_CASES = tuple(f"{t}_{a}" for t in ("h10", "complex")
+                 for a in ("none", "acc"))
 
 METRICS = tuple(f"{m.lower()}_{k}" for m in SMALL for k in (
     "a1_ms", "c7_ms", "b4_ms", "cluster_energy_and_grad_ms",
@@ -653,7 +711,8 @@ METRICS = tuple(f"{m.lower()}_{k}" for m in SMALL for k in (
     "h16_hoist_expectation_s", "h16_hoist_energy_s") + tuple(
     f"{k}_{t}_ms" for t in POOLS for k in ("e14", "e15")) + tuple(
     f"d10_{t}_ms" for t in D10_SETS) + tuple(
-    f"d11_{t}_herm{h}_ms" for t in D11_SETS for h in (0, 1))
+    f"d11_{t}_herm{h}_ms" for t in D11_SETS for h in (0, 1)) + tuple(
+    f"b5_{c}_ms" for c in B5_CASES)
 VALUES = tuple(f"{m.lower()}_{b}_energy" for m in SMALL
                for b in ("cluster", "pool")) + (
     "h8_cluster_energy", "h8_pool_energy", "d13_h10_value",
@@ -684,6 +743,8 @@ SAME = tuple(f"{k}_fmode{f}_{h}" for f in (0, 1, 2) for k, h in (
     f"d10_{t}_per{p}_kt{k}" for t in D10_SETS for p in (1, 2, 4, 8)
     for k in (1, 2)) + tuple(
     f"d11_{t}_herm{h}_per{p}_kt{k}" for t in D11_SETS for h in (0, 1)
+    for p in (1, 2, 4, 8) for k in (1, 2)) + tuple(
+    f"b5_{c}{z}_per{p}_kt{k}_sha256" for c in B5_CASES for z in ("", "_zeros")
     for p in (1, 2, 4, 8) for k in (1, 2))
 
 
@@ -699,11 +760,13 @@ def main() -> int:
                     help="the pool-overlap kernels only")
     ap.add_argument("--expect", action="store_true",
                     help="the per-group expectations (D10, D11) only")
+    ap.add_argument("--ham-stream", action="store_true",
+                    help="the per-group streaming H-apply (B5) only")
     args = ap.parse_args()
     if args.measure:
         print("TURN " + json.dumps(measure(
             Path(args.measure).resolve(), args.h16, args.quick, args.pool,
-            args.expect)), flush=True)
+            args.expect, args.ham_stream)), flush=True)
         return 0
     if not args.trees:
         ap.error("--trees PARENT CHANGE is required")
@@ -718,7 +781,8 @@ def main() -> int:
                str(trees[i])] + (["--h16", h16] if h16 else []) \
             + (["--quick"] if args.quick else []) \
             + (["--pool"] if args.pool else []) \
-            + (["--expect"] if args.expect else [])
+            + (["--expect"] if args.expect else []) \
+            + (["--ham-stream"] if args.ham_stream else [])
         t = time.time()
         proc = subprocess.run(cmd, cwd=str(trees[i]), capture_output=True,
                               text=True, timeout=CHILD_TIMEOUT_S)

@@ -9,7 +9,9 @@ compiled term tile (real and complex, herm off and on), the hoisted
 expectation at every compiled PER and term tile, the per-group
 expectations D10 and D11 at every compiled PER, term tile and REAL (D11
 with herm off and on), the four per-group streaming ones
-(OVQE_STREAM_FUSE=0, the sweep and the adjoint at each PER) and the two
+(OVQE_STREAM_FUSE=0, the sweep and the adjoint at each PER, the H-apply
+B5 at every compiled PER, term tile and REAL with acc None and given, bit
+for bit across PER and tiles) and the two
 pool-overlap kernels (E14 and E15 at every compiled PER, term tile and
 REAL, also on states with +-0 entries and E14 at n = 8).  A
 CUDA kernel has no CPU mode, so these tests are marked ``cuda`` and skip
@@ -17,6 +19,8 @@ on a machine without a card; on one they run with
 ``python -m pytest tests/test_torch_kernels.py -q``.
 ``chip_smoke.py`` holds the same kernels at the main paths' shapes.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -251,6 +255,66 @@ def test_expect_stream_at_each_per(dev, per, herm):
             assert at["threads"] == K.EXPECT_STREAM_THREADS
     torch.cuda.synchronize()
     assert K.LAUNCHES["expect_stream"] - counts == calls
+
+
+def _bits(t):
+    """A float32 tensor's bit patterns (+0 and -0 told apart)."""
+    return t.contiguous().view(torch.int32)
+
+
+def _padded_groups(go):
+    """``go`` with one zero column appended to z, z_pair and the weights:
+    the same groups at K + 1, which takes the other compiled term tile."""
+    pad = {f: torch.nn.functional.pad(getattr(go, f), (0, 1))
+           for f in ("z", "z_pair", "coef", "coef_im")}
+    return dataclasses.replace(go, graphs={}, **pad)
+
+
+@pytest.mark.parametrize("per", [1, 2, 4, 8])
+def test_ham_stream_at_each_per(dev, per):
+    """B5 at every compiled PER, term tile and REAL (``kernels._ham_stream``;
+    REAL from acc None and from acc given are two instances) with acc None
+    and given (+-0 entries in it), at n = 7 (PER 1 with idle threads) and
+    at the smallest n each PER fills (the wrapper's PER 1, 2, 4 and 8
+    there), against ham_stream_ref, on a state with +-0 entries too; bit
+    for bit (+0 and -0 told apart) against PER 1, at K + 1 (a zero column
+    appended: the other term tile) and when repeated.  The wrapper takes
+    ``ham_stream_per``'s PER; no instance spills."""
+    counts = K.LAUNCHES["ham_stream"]
+    calls = 0
+    T = K.HAM_STREAM_THREADS
+    for n in sorted({7} | {(p * T).bit_length() - 1 for p in (1, 2, 4, 8)}):
+        if per > 1 and per * T > 1 << n:
+            continue
+        for k, real in ((6, True), (6, False), (7, True), (7, False)):
+            go = _d11_groups(n, k, real, dev)
+            gp = _padded_groups(go)
+            assert go.real == real and go.K == k and (go.k_live < k).any()
+            for psi in (_state(dev, 7, n),
+                        _signed_zeros(_state(dev, 8, n), n)):
+                for acc in (None, _signed_zeros(_state(dev, 9, n), n + 1)):
+                    lam = K._ham_stream(psi, acc, go, per)
+                    ref = st.ham_stream_ref(psi, acc, go)
+                    assert float((lam - ref).abs().max()) <= \
+                        TOL * max(1.0, float(ref.abs().max())), (n, k, real)
+                    same = (K._ham_stream(psi, acc, go, 1),
+                            K._ham_stream(psi, acc, gp, per),
+                            K._ham_stream(psi, acc, go, per),
+                            K.ham_stream(psi, acc, go))
+                    for other in same:
+                        assert torch.equal(_bits(lam), _bits(other))
+                    assert torch.equal(_bits(same[3]), _bits(K._ham_stream(
+                        psi, acc, go, K.ham_stream_per(1 << n))))
+                    calls += 6
+            for ops, acc in ((go, False), (go, True), (gp, False),
+                             (gp, True)):
+                at = K.ham_stream_attributes(ops, n, acc)
+                assert at["per"] == K.ham_stream_per(1 << n)
+                assert at["local_bytes"] == 0 and at["blocks_per_sm"] >= 1
+                assert at["k_tile"] == (2 if ops.K % 2 == 0 else 1)
+                assert at["threads"] == T
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["ham_stream"] - counts == calls
 
 
 # ------------------------------------------- A1 / C7: cluster and graph routes
