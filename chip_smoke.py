@@ -139,7 +139,30 @@ imports nothing of JAX and nothing of ``openvqe_tpu``.  Phases:
    Jordan-Wigner, taper, grouping; about half a minute on an 8-core host,
    most of it the SCF) runs in a child process started right after the
    build, beside phases 2-13, and is kept in ``chiprun_out/`` for the next
-   run of the same sources.
+   run of the same sources;
+15. QUCCSD: ``VQE.algorithm("quccsd", "H4", "QUCCSD", "JW", active)
+   .execute()``, non-active and active, against the JAX package's float64
+   run on the port's chemistry (``tests/torch_quccsd_reference.json``,
+   made by ``JAX_PLATFORMS=cpu python tests/torch_quccsd_reference.py``):
+   energies to 1e-5 Ha, CNOT and operator counts equal; only grouped
+   kernels launch;
+16. the objective's per-term route at H8 (16 qubits): the sUPCCGSD cluster
+   ansatz with 0.5 (X0 X1 + Y0 Y1) added, which is not odd-Y;
+   ``energy_and_grad`` at two theta against the JAX package's float64
+   numbers (same file), timed; B4 launches and no sweep kernel; the
+   per-term pool screen (``statevector.build_pool_gradient_fn``) against
+   the grouped one (B4 + E14) on H8's pool, both timed;
+17. the quantum-battery app on the contextual Hamiltonians of Li2FeSiO4:
+   CS-ADAPT at 7 and 8 qubits on the objective route (scipy BFGS: A1, B4,
+   C7, E14) and the fused L-BFGS route (per-term sweeps, B4), each a
+   seeded experiment against the JAX package's float64 one
+   (``tests/torch_battery_reference.json``, made by
+   ``JAX_PLATFORMS=cpu python tests/torch_battery_reference.py``) and a few
+   timed experiments; CS-VQE HEA-4 at 6 qubits fused (D10 forward, B4
+   backward); Rotoselect at 2 and 4 qubits (D10); each run's mean
+   relative error against CCSD within the anchors' limits and seconds per
+   run.  Phases 15-17 set the counters to 0 just before each run and read
+   them just after.
 
 The last three lines of standard output are the card's name and power
 limit, a JSON ``{"kernels": [...]}`` line (one row per kernel, each
@@ -2369,6 +2392,200 @@ def phase_h16(setup, card):
     return {"expect_hoisted": launches["expect_hoisted"]}
 
 
+# ------------------- QUCCSD, the per-term route and the quantum-battery app
+
+TOL_QUCCSD = 1e-5       # Ha, QUCCSD energies against the JAX float64 run
+BATTERY_EXPERIMENTS = 3  # timed experiments per CS-ADAPT run (phase 17)
+ROTOSELECT_STEPS = 50    # cycles of a Rotoselect run, as the anchors ran
+# relative error against CCSD: the limits of the battery app's anchors
+# (BENCH_DETAIL.json: CS-ADAPT 3.03e-5 / 3.01e-5, CS-VQE 3.03e-5,
+# Rotoselect 6.2e-4 / 5.4e-4)
+BATTERY_LIMITS = {"cs_adapt": 6e-5, "cs_vqe": 1e-4, "rotoselect": 1e-3}
+# Ha: a seeded CS-ADAPT experiment against the JAX float64 one; the float32
+# energy near -3688 Ha has a 2.4e-4 Ha spacing
+TOL_BATTERY_REF = 1e-3
+OBJECTIVE_ROUTE = ("rot_sweep", "ham_apply", "adjoint_sweep", "pool_overlap")
+NOT_IN_SLICE = STREAMING + STREAM_GROUP + ("pool_bucketed", "expect_hoisted")
+
+
+def phase_quccsd(ref, card):
+    """QUCCSD on H4, non-active and active (phase 15)."""
+    import torch
+    from openvqe_tpu_torch.sim import kernels as K
+    from openvqe_tpu_torch.vqe import VQE
+    K.reset_launches()
+    for key, active in (("H4", False), ("H4_active", True)):
+        t0 = time.time()
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, res = VQE.algorithm("quccsd", "H4", "QUCCSD", "JW", active,
+                                   {"device": DEVICE}).execute()
+        torch.cuda.synchronize()
+        want = ref["quccsd"][key]
+        calls = [len(res["energies_1"]), len(res["energies_2"])]
+        print(f"QUCCSD {key} execute() on {card}: {time.time() - t0:.2f} s, "
+              f"objective calls {calls} (JAX f64 {want['objective_calls']})")
+        for k in ("energies1_substracted_from_FCI",
+                  "energies2_substracted_from_FCI"):
+            d = res[k] - want[k]
+            print(f"  {k} {res[k]!r}: JAX f64 {want[k]!r} delta {d:+.3e}")
+            check(abs(d) <= TOL_QUCCSD, f"QUCCSD {key} {k} off by {d}")
+        for k in ("len_op1", "len_op2", "CNOT1", "CNOT2"):
+            check(res[k] == want[k], f"QUCCSD {key} {k} = {res[k]}")
+    launches = dict(K.LAUNCHES)
+    print(f"QUCCSD launches {launches}")
+    for k in ("rot_sweep", "ham_apply", "adjoint_sweep"):
+        check(launches[k] > 0, f"kernel {k} was not launched on QUCCSD")
+    for k in NOT_IN_SLICE + ("pool_overlap",):
+        check(launches[k] == 0, f"kernel {k} was launched on QUCCSD")
+
+
+def extra_generator(n):
+    """0.5 (X0 X1 + Y0 Y1), as tests/torch_quccsd_reference.py adds it."""
+    from openvqe_tpu_torch.ops.pauli import PauliSum
+    return (PauliSum.from_term(n, 0.5, "XX", [0, 1])
+            + PauliSum.from_term(n, 0.5, "YY", [0, 1]))
+
+
+def phase_per_term(h8, ref, card):
+    """The objective's per-term route at H8, 16 qubits (phase 16)."""
+    import numpy as np
+    import torch
+    from openvqe_tpu_torch.sim import grouped as gr
+    from openvqe_tpu_torch.sim import kernels as K
+    from openvqe_tpu_torch.sim import statevector as sv
+    from openvqe_tpu_torch.sim.compile import compile_pauli_sum, compile_pool
+    from openvqe_tpu_torch.sim.objective import (PerTermBoundAnsatz,
+                                                 VQEObjective)
+    ham_sp, a1, a2, hf, _ = h8
+    want = ref["per_term"]
+    n = ham_sp.nbqbits
+    gens = list(a1) + [extra_generator(n)]
+    check(len(gens) == want["n_generators"] and hf == want["hf_init"],
+          "per-term ansatz differs from the reference's")
+    obj = VQEObjective(ham_sp, device=DEVICE)
+    K.reset_launches()
+    b = obj.bind(gens, hf)
+    check(isinstance(b, PerTermBoundAnsatz), "ansatz not on the per-term route")
+    k = np.arange(len(gens))
+    thetas = [0.01 * np.sin(k + 1.0), 0.05 * np.cos(k)]
+    for i, (theta, r) in enumerate(zip(thetas, want["points"])):
+        (e, g), dt = timed(b.energy_and_grad, theta)
+        de = abs(e - r["energy"])
+        dg = float(np.max(np.abs(g - np.asarray(r["grad"]))))
+        print(f"per-term energy_and_grad at theta {i}: {dt:.3f} s, e {e!r} "
+              f"JAX f64 {r['energy']!r} |de| {de:.3e} max|dg| {dg:.3e}")
+        check(de <= TOL_E_REF and dg <= TOL_G_REF,
+              f"per-term energy_and_grad {i} off the JAX reference")
+    launches = dict(K.LAUNCHES)
+    print(f"per-term route launches {launches}")
+    check(launches["ham_apply"] > 0, "B4 was not launched on the per-term "
+          "route")
+    for name in ("rot_sweep", "adjoint_sweep") + NOT_IN_SLICE:
+        check(launches[name] == 0, f"kernel {name} was launched on the "
+              "per-term route")
+    ts = [timed(b.energy_and_grad, thetas[0])[1] for _ in range(3)]
+    n_terms = len(b._sargs[0])
+    print(f"per-term energy_and_grad on {card}: median {sorted(ts)[1]:.3f} s "
+          f"over 3 calls ({n_terms} terms; forward "
+          f"{timed(b.forward, thetas[0])[1]:.3f} s)")
+    # the per-term pool screen against the grouped one (E14) on H8's pool
+    psi = b.forward(thetas[1])
+    per_term = sv.build_pool_gradient_fn(compile_pool(a2, n),
+                                         compile_pauli_sum(ham_sp, n),
+                                         device=DEVICE)
+    grouped = gr.build_grouped_pool_gradient_fn(
+        gr.group_pool(compile_pool(a2, n)), obj.ham_apply, obj.device,
+        obj.dtype)
+    v_pt, t_pt = timed(per_term, psi)
+    v_gr, t_gr = timed(grouped, psi)
+    t_pt, t_gr = timed(per_term, psi)[1], timed(grouped, psi)[1]
+    dv = float(np.max(np.abs(v_pt - v_gr)))
+    scale = float(np.max(np.abs(v_gr)))
+    print(f"pool screen on H8's pool ({len(a2)} operators): per-term "
+          f"{t_pt:.3f} s, grouped (B4 + E14) {1e3 * t_gr:.2f} ms; max|dv| "
+          f"{dv:.3e} of max|v| {scale:.3e}")
+    check(dv <= TOL_G_REF, "per-term pool screen off the grouped one")
+
+
+def phase_battery(ref, card):
+    """CS-ADAPT at 7 and 8 qubits on both routes, fused CS-VQE HEA-4 at 6
+    and Rotoselect at 2 and 4 qubits (phase 17)."""
+    import numpy as np
+    import torch
+    from openvqe_tpu_torch.apps.quantum_batteries import adapt, cs_vqe
+    from openvqe_tpu_torch.apps.quantum_batteries import rotoselect
+    from openvqe_tpu_torch.apps.quantum_batteries.utils import (
+        CCSD_ENERGY, load_cs_hams, rel_err)
+    from openvqe_tpu_torch.sim import kernels as K
+    hams = load_cs_hams()
+    seed = ref["seed"]
+
+    def report(label, energies, seconds, limit, launches, need):
+        errs = [rel_err(CCSD_ENERGY, e) for e in energies]
+        print(f"{label} on {card}: mean rel err {np.mean(errs):.4e} "
+              f"(limit {limit:g}), {np.mean(seconds):.4f} s per run over "
+              f"{len(seconds)} (min {min(seconds):.4f}); launches "
+              f"{ {k: v for k, v in launches.items() if v} }")
+        check(np.mean(errs) < limit, f"{label}: rel err {np.mean(errs)}")
+        for name in need:
+            check(launches[name] > 0, f"{label}: {name} was not launched")
+        for name in NOT_IN_SLICE:
+            check(launches[name] == 0, f"{label}: {name} was launched")
+
+    for route in ("BFGS", "lbfgs-fused"):
+        fused = route == "lbfgs-fused"
+        for n in (7, 8):
+            K.reset_launches()
+            ham, hf = hams[n]
+            ctx = (adapt.FusedAdaptContext(ham, hf, device=DEVICE) if fused
+                   else adapt.AdaptContext(ham, hf, device=DEVICE))
+            run = (lambda r: ctx.run(r)) if fused else (
+                lambda r: adapt.run_cs_adapt_experiment(ctx, route, r))
+            (e_ref, t_first) = timed(run, np.random.RandomState(seed))
+            want = ref["cs_adapt"][str(n)][route]
+            print(f"CS-ADAPT {n}q {route} seeded experiment {e_ref!r}: JAX "
+                  f"f64 {want!r} delta {e_ref - want:+.3e} (first run "
+                  f"{t_first:.3f} s)")
+            check(abs(e_ref - want) <= TOL_BATTERY_REF,
+                  f"CS-ADAPT {n}q {route} off the JAX reference")
+            rng = np.random.RandomState(42)
+            energies, seconds = [], []
+            for _ in range(BATTERY_EXPERIMENTS):
+                e, dt = timed(run, rng)
+                energies.append(e)
+                seconds.append(dt)
+            report(f"CS-ADAPT {n}q {route}", energies, seconds,
+                   BATTERY_LIMITS["cs_adapt"], dict(K.LAUNCHES),
+                   ("ham_apply",) if fused else OBJECTIVE_ROUTE)
+    ham, hf = hams[6]
+    K.reset_launches()
+    run = cs_vqe.build_fused_hea_vqe(ham, 4, hf, device=DEVICE)
+    rng = np.random.RandomState(42)
+    energies, seconds = [], []
+    for _ in range(2):
+        (_, e), dt = timed(run, rng.uniform(size=5 * 6))
+        energies.append(e)
+        seconds.append(dt)
+    report("CS-VQE HEA-4 6q fused", energies, seconds,
+           BATTERY_LIMITS["cs_vqe"], dict(K.LAUNCHES),
+           ("expectation", "ham_apply"))
+    for n in (2, 4):
+        K.reset_launches()
+        ham, hf = hams[n]
+        run = rotoselect.build_fused_rotoselect(ham, hf, ROTOSELECT_STEPS,
+                                                device=DEVICE)
+        rng = np.random.RandomState(42)
+        energies, seconds = [], []
+        for _ in range(2):
+            (_, _, e), dt = timed(run, rng.uniform(size=n),
+                                  np.ones(n, dtype=np.int32))
+            energies.append(e)
+            seconds.append(dt)
+        report(f"Rotoselect {n}q fused ({ROTOSELECT_STEPS} cycles)",
+               energies, seconds, BATTERY_LIMITS["rotoselect"],
+               dict(K.LAUNCHES), ("expectation",))
+
+
 def main():
     if sys.argv[1:2] == ["--h16-setup"] and len(sys.argv) == 3:
         sys.path.insert(0, str(ROOT))
@@ -2406,7 +2623,7 @@ def main():
 
 
 def run_phases(torch, card, t_start, h16_setup_run):
-    """Phases 2-14; the closing lines when all passed."""
+    """Phases 2-17; the closing lines when all passed."""
     failures = []
     rows, launches = {}, {}
     ref = json.loads((ROOT / "tests" / "torch_h8_reference.json").read_text())
@@ -2414,6 +2631,10 @@ def run_phases(torch, card, t_start, h16_setup_run):
         (ROOT / "tests" / "torch_h10_reference.json").read_text())
     ref_adapt = json.loads(
         (ROOT / "tests" / "torch_adapt_reference.json").read_text())
+    ref_qucc = json.loads(
+        (ROOT / "tests" / "torch_quccsd_reference.json").read_text())
+    ref_battery = json.loads(
+        (ROOT / "tests" / "torch_battery_reference.json").read_text())
     t0 = time.time()
     h8 = h8_problem()
     print(f"H8 set-up (chemistry, operators; host) {time.time() - t0:.2f} s")
@@ -2453,6 +2674,9 @@ def run_phases(torch, card, t_start, h16_setup_run):
                                                         ref10, card)),
         ("H16 30-qubit main path", lambda: launches.update(
             phase_h16(h16_setup_run, card))),
+        ("H4 QUCCSD", lambda: phase_quccsd(ref_qucc, card)),
+        ("H8 per-term route", lambda: phase_per_term(h8, ref_qucc, card)),
+        ("quantum-battery app", lambda: phase_battery(ref_battery, card)),
     )
     for phase, fn in phases:
         t = time.time()

@@ -127,16 +127,18 @@ def ham_operands(g, device, dtype=torch.float32) -> HamOperands:
     all-real certificate.  A Hermitian-flagged sum drops its imaginary
     parts, as the JAX package's paths do."""
     x = np.asarray(g.x, np.int32)
-    z = np.asarray(g.z, np.int32).reshape(len(x), -1)
+    zd = np.asarray(g.z_diag, np.int32)
+    # a diagonal H has no off-diagonal rows: K comes from its diagonal
+    K = (np.asarray(g.z).size // len(x) if len(x)
+         else max(1, min(len(zd), 64)))
+    z = np.asarray(g.z, np.int32).reshape(len(x), K)
     a_re = np.asarray(g.a_re, np.float64).reshape(z.shape)
     a_im = np.asarray(g.a_im, np.float64).reshape(z.shape)
-    zd = np.asarray(g.z_diag, np.int32)
     adr = np.asarray(g.a_diag_re, np.float64)
     adi = np.asarray(g.a_diag_im, np.float64)
     if getattr(g, "hermitian", False):
         a_im = np.zeros_like(a_im)
         adi = np.zeros_like(adi)
-    K = z.shape[1] if len(x) else max(1, min(len(zd), 64))
     if len(zd):
         nd = -(-len(zd) // K)
         pad = nd * K - len(zd)

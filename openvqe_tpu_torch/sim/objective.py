@@ -39,10 +39,16 @@ ADAPT loops (``algorithms/adapt.py``) start from ``psi0``, screen the pool
 with ``ham_apply`` as sigma = H psi, run the Lanczos reference over
 ``ham_apply`` and keep every state on the objective's device.
 
-Not ported (ROADMAP queue 3): the per-term engine for ansatze that are not
-odd-Y; binding such an ansatz raises ``NotImplementedError``.  The JAX
-package's segmented mode is a device-call watchdog of its TPU runtime and
-is not ported.
+An ansatz whose compiled terms are not all odd-Y
+(``grouped.group_op_sequence`` returns None) binds to the per-term route,
+as in the JAX package (``PerTermBoundAnsatz``): the rotation sweep and the
+adjoint are the per-term engine's (``sim/statevector.py``, PyTorch on the
+objective's device, float64 states), the energy and lambda = H psi come
+from the objective's own H pass (B4 and D10 on the per-group route, the
+bucketed kernels on the streaming ones; the plain versions on the CPU).
+The JAX package runs its per-term H there; both compute the same
+function.  The JAX package's segmented mode is a device-call watchdog of
+its TPU runtime and is not ported.
 """
 
 from __future__ import annotations
@@ -130,12 +136,13 @@ class VQEObjective:
 
     def bind(self, generators: Sequence[PauliSum], hf_init: int
              ) -> "BoundAnsatz":
-        """BoundAnsatz for prod_i exp(-i theta_i G_i) |hf_init>."""
-        gseq = gr.group_op_sequence(compile_op_sequence(generators, self.n))
+        """BoundAnsatz for prod_i exp(-i theta_i G_i) |hf_init>: the
+        grouped route when every compiled term is odd-Y, the per-term route
+        otherwise."""
+        seq = compile_op_sequence(generators, self.n)
+        gseq = gr.group_op_sequence(seq)
         if gseq is None:
-            raise NotImplementedError(
-                "ansatz with terms that are not odd-Y: the per-term engine "
-                "is not ported yet (ROADMAP.md, queue 3)")
+            return PerTermBoundAnsatz(self, seq, hf_init)
         return self.bind_grouped(gseq, hf_init)
 
     def bind_grouped(self, gseq, hf_init: int) -> "BoundAnsatz":
@@ -304,3 +311,34 @@ class StreamBoundAnsatz(BoundAnsatz):
             return st.bucket_grad(gts, self._adj, n_params).numpy()
         _, _, gts = K.adjoint_stream(psi, lam, ang, self._adj, self._fmode)
         return gr.segment_grad(gts, self._adj.op, n_params).numpy()
+
+
+class PerTermBoundAnsatz(BoundAnsatz):
+    """Per-term route (the JAX package's fallback for ansatze that are not
+    odd-Y): the rotation sweep and the reversible adjoint run term by term
+    (``statevector.apply_ops`` / ``_adjoint_sweep``) on the objective's
+    device, the energy and lambda come from the objective's H pass.  The
+    per-term states are float64 on either device: they run no kernel, and
+    in float32 the ~1,000 rotations of an H8 ansatz move the norm by
+    ~1.5e-6 and the energy by ~6e-6 Ha; the H pass gets the state in the
+    objective's dtype."""
+
+    def __init__(self, objective: VQEObjective, seq, hf_init: int):
+        self._obj = objective
+        self._psi0 = sv.hf_state(objective.n, hf_init, torch.float64,
+                                 objective.device)
+        self._sargs = sv.seq_as_device(seq, objective.device, torch.float64)
+
+    def _sweep(self, theta) -> torch.Tensor:
+        return sv.apply_ops(self._psi0, np.asarray(theta, np.float64),
+                            *self._sargs)
+
+    def forward(self, theta) -> torch.Tensor:
+        return self._obj._on_device(self._sweep(theta))
+
+    def energy_and_grad(self, theta) -> Tuple[float, np.ndarray]:
+        psi = self._sweep(theta)
+        e, lam = self._obj._energy_and_lam(self._obj._on_device(psi))
+        return e, sv._adjoint_sweep(np.asarray(theta, np.float64), psi,
+                                    lam.to(torch.float64),
+                                    *self._sargs).numpy()

@@ -1,13 +1,11 @@
 """VQE dispatcher (reference ``openvqe/vqe.py``): name -> algorithm class.
-
-The port registers UCC and the two ADAPT-VQE variants; QUCCSD is queued
-in ROADMAP.md.
-"""
+The port registers the same four algorithms as the JAX package."""
 
 from __future__ import annotations
 
 from .algorithms.fermionic_adapt import FermionicAdapt
 from .algorithms.qubit_adapt import QubitAdapt
+from .algorithms.quccsd import QUCCSD
 from .algorithms.ucc import UCC
 
 
@@ -17,6 +15,7 @@ class VQE:
         "ucc": UCC,
         "fermionic_adapt": FermionicAdapt,
         "qubit_adapt": QubitAdapt,
+        "quccsd": QUCCSD,
     }
 
     @classmethod
@@ -24,8 +23,7 @@ class VQE:
                   transform, active, opts=None):
         if algo_name not in cls.algorithms:
             raise KeyError(
-                f"Algorithm {algo_name!r} is not available in the PyTorch "
-                f"port; it has {sorted(cls.algorithms)}.  The rest are "
-                f"queued in ROADMAP.md (queue 2 on).")
+                f"Algorithm not found. Please choose from: "
+                f"{sorted(cls.algorithms.keys())}")
         return cls.algorithms[algo_name](molecule_symbol, type_of_generator,
                                          transform, active, opts or {})

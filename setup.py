@@ -9,6 +9,8 @@ setup(
     package_data={
         "openvqe_tpu.apps.quantum_batteries": ["cs_hams.json"],
         "openvqe_tpu.native": ["eri.cpp", "Makefile"],
+        "openvqe_tpu_torch.apps.quantum_batteries": ["cs_hams.json",
+                                                     "cs_hams_native.json"],
     },
     python_requires=">=3.10",
     install_requires=["jax", "optax", "numpy", "scipy"],

@@ -36,7 +36,15 @@ def test_port_imports_without_jax_or_reference():
               "algorithms.adapt", "algorithms.fermionic_adapt",
               "algorithms.qubit_adapt", "utils.checkpoint",
               "utils.run_logger", "utils.sorted_gradient",
-              "mains.main_fermionic_adapt", "mains.main_qubit_adapt"):
+              "mains.main_fermionic_adapt", "mains.main_qubit_adapt",
+              "algorithms.quccsd", "algorithms.energy_qucc",
+              "mains.main_quccsd", "mains.main_quccsd_active_space",
+              "optim.minimize", "ops.contextual",
+              "apps.quantum_batteries.utils", "apps.quantum_batteries.adapt",
+              "apps.quantum_batteries.cs_vqe",
+              "apps.quantum_batteries.rotoselect",
+              "apps.quantum_batteries.derive_contextual_subspace",
+              "apps.quantum_batteries.plot_cs_scaling"):
         assert f"openvqe_tpu_torch.{m}" in mods, m
     code = (
         "import sys\n"
@@ -55,6 +63,22 @@ def test_port_imports_without_jax_or_reference():
         "          'hoist_bucket_args', 'expect_hoisted_ref',\n"
         "          'build_streaming_energy_xl_fn'):\n"
         "    assert callable(getattr(st, f)), f\n"
+        # the per-term engine's surface and the slice's entry points
+        "from openvqe_tpu_torch.sim import statevector as sv\n"
+        "for f in ('pauli_apply_single', 'pauli_rotation', 'apply_ops',\n"
+        "          'ham_apply', 'expectation', 'overlap_re_im',\n"
+        "          '_adjoint_sweep', 'adjoint_energy', 'build_energy_fn',\n"
+        "          'build_dynamic_energy_fn', 'pool_overlaps',\n"
+        "          'build_pool_gradient_fn', 'apply_x', 'apply_rx',\n"
+        "          'apply_ry', 'apply_rz', 'apply_h', 'apply_cnot',\n"
+        "          'as_device', 'seq_as_device'):\n"
+        "    assert callable(getattr(sv, f)), f\n"
+        "from openvqe_tpu_torch.optim.minimize import lbfgs_minimize\n"
+        "from openvqe_tpu_torch.vqe import VQE\n"
+        "assert 'quccsd' in VQE.algorithms\n"
+        "from openvqe_tpu_torch.apps.quantum_batteries.utils import "
+        "load_cs_hams\n"
+        "assert sorted(load_cs_hams()) == [2, 3, 4, 5, 6, 7, 8]\n"
         "from openvqe_tpu_torch.sim import oracle\n"
         "assert callable(oracle.sparse_energy)\n"
         "assert all(p.is_file() for p in K.SOURCES.values())\n"

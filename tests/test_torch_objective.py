@@ -104,14 +104,19 @@ def test_out_of_slice_paths_raise(h4_supccgsd):
     n = hsp.nbqbits
     tobj = TVQEObjective(hsp, device="cpu")
     even_y = TPauliSum.from_term(n, 1.0, "XX", [0, 1])   # not odd-Y
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tobj.bind([even_y], 0)
+    from openvqe_tpu_torch.sim.objective import PerTermBoundAnsatz
+    # binds to the per-term route (held against the JAX package in
+    # tests/test_torch_statevector.py)
+    b = tobj.bind([even_y], h4_supccgsd[2])
+    assert isinstance(b, PerTermBoundAnsatz)
+    e, g = b.energy_and_grad(np.zeros(1))
+    assert abs(e - h4_supccgsd[3]["HF"]) < 1e-8 and g.shape == (1,)
     from openvqe_tpu_torch.algorithms.energy_ucc import build_vqe_objective
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_vqe_objective(hsp, [], 0, mesh=object(), device="cpu")
     from openvqe_tpu_torch.vqe import VQE
-    with pytest.raises(KeyError, match="ROADMAP"):
-        VQE.algorithm("quccsd", "H4", "spin_complement_gsd", "JW", False)
+    with pytest.raises(KeyError, match="Algorithm not found"):
+        VQE.algorithm("qucc", "H4", "spin_complement_gsd", "JW", False)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         VQE.algorithm("ucc", "H2", "sUPCCGSD", "JW", False,
                       {"mesh_devices": 2}).build_mesh()
