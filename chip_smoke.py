@@ -149,20 +149,26 @@ imports nothing of JAX and nothing of ``openvqe_tpu``.  Phases:
 16. the objective's per-term route at H8 (16 qubits): the sUPCCGSD cluster
    ansatz with 0.5 (X0 X1 + Y0 Y1) added, which is not odd-Y;
    ``energy_and_grad`` at two theta against the JAX package's float64
-   numbers (same file), timed; B4 launches and no sweep kernel; the
+   numbers (same file), timed, and its peak device memory an amplitude
+   within the bound the bind enforces; B4 launches and no sweep kernel; the
    per-term pool screen (``statevector.build_pool_gradient_fn``) against
    the grouped one (B4 + E14) on H8's pool, both timed;
 17. the quantum-battery app on the contextual Hamiltonians of Li2FeSiO4:
-   CS-ADAPT at 7 and 8 qubits on the objective route (scipy BFGS: A1, B4,
-   C7, E14) and the fused L-BFGS route (per-term sweeps, B4), each a
-   seeded experiment against the JAX package's float64 one
-   (``tests/torch_battery_reference.json``, made by
-   ``JAX_PLATFORMS=cpu python tests/torch_battery_reference.py``) and a few
-   timed experiments; CS-VQE HEA-4 at 6 qubits fused (D10 forward, B4
-   backward); Rotoselect at 2 and 4 qubits (D10); each run's mean
-   relative error against CCSD within the anchors' limits and seconds per
-   run.  Phases 15-17 set the counters to 0 just before each run and read
-   them just after.
+   B4 and D10 against their plain versions on the operands of the 2- to
+   8-qubit H's (the 2-qubit one diagonal only), within 1e-6 of the Pauli
+   part's weight sum; the fused HEA-4 energy and its gradient (D10
+   forward, 2 H psi by B4 backward) at 2, 4 and 6 qubits against
+   ``jax.grad`` in float64; CS-ADAPT at 7 and 8 qubits on the objective
+   route (scipy BFGS: A1, B4, C7, E14) and the fused L-BFGS route
+   (per-term sweeps, B4), each a seeded experiment against the JAX
+   package's float64 one and a few timed experiments; CS-VQE HEA-4 at 6
+   qubits fused (D10 forward, B4 backward) and Rotoselect at 2 and 4
+   qubits (D10), each a seeded run against the JAX float64 one and two
+   more; all reference numbers from ``tests/torch_battery_reference.json``
+   (made by ``JAX_PLATFORMS=cpu python tests/torch_battery_reference.py``);
+   each run's mean relative error against CCSD within the anchors' limits
+   and seconds per run.  Phases 15-17 set the counters to 0 just before
+   each run and read them just after.
 
 The last three lines of standard output are the card's name and power
 limit, a JSON ``{"kernels": [...]}`` line (one row per kernel, each
@@ -2396,14 +2402,20 @@ def phase_h16(setup, card):
 
 TOL_QUCCSD = 1e-5       # Ha, QUCCSD energies against the JAX float64 run
 BATTERY_EXPERIMENTS = 3  # timed experiments per CS-ADAPT run (phase 17)
-ROTOSELECT_STEPS = 50    # cycles of a Rotoselect run, as the anchors ran
 # relative error against CCSD: the limits of the battery app's anchors
 # (BENCH_DETAIL.json: CS-ADAPT 3.03e-5 / 3.01e-5, CS-VQE 3.03e-5,
 # Rotoselect 6.2e-4 / 5.4e-4)
 BATTERY_LIMITS = {"cs_adapt": 6e-5, "cs_vqe": 1e-4, "rotoselect": 1e-3}
-# Ha: a seeded CS-ADAPT experiment against the JAX float64 one; the float32
-# energy near -3688 Ha has a 2.4e-4 Ha spacing
+# Ha: a seeded CS-ADAPT experiment or Rotoselect run against the JAX
+# float64 one; the float32 energy near -3688 Ha has a 2.4e-4 Ha spacing
 TOL_BATTERY_REF = 1e-3
+# Ha: a seeded fused CS-VQE run against the JAX float64 one (its optimizer
+# sees the energy without the constant; float32 and float64 runs of the
+# plain versions end 2e-7 Ha apart)
+TOL_CS_VQE_RUN = 1e-4
+# B4 and D10 against their plain versions on the contextual H's operands,
+# as a share of the Pauli part's weight sum (~8 float32 roundings)
+TOL_CS_PARITY = 1e-6
 OBJECTIVE_ROUTE = ("rot_sweep", "ham_apply", "adjoint_sweep", "pool_overlap")
 NOT_IN_SLICE = STREAMING + STREAM_GROUP + ("pool_bucketed", "expect_hoisted")
 
@@ -2483,6 +2495,16 @@ def phase_per_term(h8, ref, card):
     for name in ("rot_sweep", "adjoint_sweep") + NOT_IN_SLICE:
         check(launches[name] == 0, f"kernel {name} was launched on the "
               "per-term route")
+    # the per-term working set against the bound the bind enforces
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    b.energy_and_grad(thetas[0])
+    per_amp = (torch.cuda.max_memory_allocated() - base) / (1 << n)
+    print(f"per-term energy_and_grad peak {per_amp:.1f} bytes an amplitude "
+          f"beyond what was held before (bound {sv.PER_TERM_BYTES})")
+    check(per_amp <= sv.PER_TERM_BYTES, "per-term working set above "
+          "statevector.PER_TERM_BYTES")
     ts = [timed(b.energy_and_grad, thetas[0])[1] for _ in range(3)]
     n_terms = len(b._sargs[0])
     print(f"per-term energy_and_grad on {card}: median {sorted(ts)[1]:.3f} s "
@@ -2516,9 +2538,47 @@ def phase_battery(ref, card):
     from openvqe_tpu_torch.apps.quantum_batteries import rotoselect
     from openvqe_tpu_torch.apps.quantum_batteries.utils import (
         CCSD_ENERGY, load_cs_hams, rel_err)
+    from openvqe_tpu_torch.sim import grouped as gr
     from openvqe_tpu_torch.sim import kernels as K
+    from openvqe_tpu_torch.sim.objective import VQEObjective
     hams = load_cs_hams()
     seed = ref["seed"]
+
+    # B4 and D10 on the operands of each contextual H the app runs (the
+    # 2-qubit one diagonal only) against their plain versions
+    for n in (2, 4, 6, 7, 8):
+        h = VQEObjective(hams[n][0], device=DEVICE).hops
+        scale = float(h.a_re.abs().sum() + h.a_im.abs().sum())
+        psi = rand_state(n, 20 + n, DEVICE)
+        d_lam = float((K.ham_apply(psi, h)
+                       - gr.ham_apply_ref(psi, *h.args())).abs().max())
+        d_e = abs(float(K.expectation(psi, h))
+                  - float(gr.expectation_ref(psi, *h.args())))
+        off = int((h.x != 0).sum())
+        print(f"contextual {n}q H on {card}: {h.G} groups ({off} "
+              f"off-diagonal), K {h.K}; max|B4 - plain| {d_lam:.3e}, "
+              f"|D10 - plain| {d_e:.3e}, limit {TOL_CS_PARITY * scale:.3e} "
+              f"({TOL_CS_PARITY:g} of the weight sum {scale:.4f})")
+        check(d_lam <= TOL_CS_PARITY * scale and
+              d_e <= TOL_CS_PARITY * scale,
+              f"B4 / D10 off their plain versions on the {n}q contextual H")
+    # the fused HEA-4 energy (D10) and its gradient (2 H psi by B4 as D10's
+    # backward) against jax.grad in float64
+    for n in (2, 4, 6):
+        want = ref["cs_vqe_points"][str(n)]
+        ham, hf = hams[n]
+        energy, _ = cs_vqe.build_fused_hea_energy(ham, 4, hf, device=DEVICE)
+        th = torch.as_tensor(np.random.default_rng(want["theta_seed"])
+                             .uniform(size=5 * n)).requires_grad_(True)
+        e_t = energy(th)
+        e_t.backward()
+        e = float(e_t.detach())
+        de = abs(e - want["energy"])
+        dg = float(np.max(np.abs(th.grad.numpy() - np.asarray(want["grad"]))))
+        print(f"fused HEA-4 {n}q energy without the constant {e!r}: "
+              f"JAX f64 {want['energy']!r} |de| {de:.3e}, max|dg| {dg:.3e}")
+        check(de <= TOL_E_REF and dg <= TOL_G_REF,
+              f"fused HEA-4 {n}q energy or gradient off the JAX reference")
 
     def report(label, energies, seconds, limit, launches, need):
         errs = [rel_err(CCSD_ENERGY, e) for e in energies]
@@ -2557,33 +2617,51 @@ def phase_battery(ref, card):
             report(f"CS-ADAPT {n}q {route}", energies, seconds,
                    BATTERY_LIMITS["cs_adapt"], dict(K.LAUNCHES),
                    ("ham_apply",) if fused else OBJECTIVE_ROUTE)
-    ham, hf = hams[6]
+    # CS-VQE and Rotoselect: a seeded run against the JAX float64 one,
+    # then two from RandomState(42); all three timed
+    want = ref["cs_vqe_fused_6q"]
+    ham, hf = hams[want["n_qubits"]]
     K.reset_launches()
-    run = cs_vqe.build_fused_hea_vqe(ham, 4, hf, device=DEVICE)
+    run = cs_vqe.build_fused_hea_vqe(ham, want["layers"], hf, device=DEVICE)
     rng = np.random.RandomState(42)
+    x0s = [np.random.RandomState(want["x0_seed"]).uniform(size=5 * 6)] + [
+        rng.uniform(size=5 * 6) for _ in range(2)]
     energies, seconds = [], []
-    for _ in range(2):
-        (_, e), dt = timed(run, rng.uniform(size=5 * 6))
+    for x0 in x0s:
+        (_, e), dt = timed(run, x0)
         energies.append(e)
         seconds.append(dt)
+    print(f"CS-VQE HEA-4 6q seeded run {energies[0]!r}: JAX f64 "
+          f"{want['energy']!r} delta {energies[0] - want['energy']:+.3e}")
+    check(abs(energies[0] - want["energy"]) <= TOL_CS_VQE_RUN,
+          "CS-VQE 6q seeded run off the JAX reference")
     report("CS-VQE HEA-4 6q fused", energies, seconds,
            BATTERY_LIMITS["cs_vqe"], dict(K.LAUNCHES),
            ("expectation", "ham_apply"))
+    steps = ref["rotoselect"]["steps"]
     for n in (2, 4):
+        want = ref["rotoselect"][str(n)]
         K.reset_launches()
         ham, hf = hams[n]
-        run = rotoselect.build_fused_rotoselect(ham, hf, ROTOSELECT_STEPS,
-                                                device=DEVICE)
+        run = rotoselect.build_fused_rotoselect(ham, hf, steps, device=DEVICE)
         rng = np.random.RandomState(42)
+        p0s = [np.random.RandomState(seed).uniform(size=n)] + [
+            rng.uniform(size=n) for _ in range(2)]
         energies, seconds = [], []
-        for _ in range(2):
-            (_, _, e), dt = timed(run, rng.uniform(size=n),
-                                  np.ones(n, dtype=np.int32))
+        for p0 in p0s:
+            (_, gens, e), dt = timed(run, p0, np.ones(n, dtype=np.int32))
+            if not energies:
+                print(f"Rotoselect {n}q seeded run {e!r}: JAX f64 "
+                      f"{want['energy']!r} delta {e - want['energy']:+.3e}; "
+                      f"generators {gens.tolist()} (JAX f64 "
+                      f"{want['generators']})")
+                check(abs(e - want["energy"]) <= TOL_BATTERY_REF,
+                      f"Rotoselect {n}q seeded run off the JAX reference")
             energies.append(e)
             seconds.append(dt)
-        report(f"Rotoselect {n}q fused ({ROTOSELECT_STEPS} cycles)",
-               energies, seconds, BATTERY_LIMITS["rotoselect"],
-               dict(K.LAUNCHES), ("expectation",))
+        report(f"Rotoselect {n}q fused ({steps} cycles)", energies, seconds,
+               BATTERY_LIMITS["rotoselect"], dict(K.LAUNCHES),
+               ("expectation",))
 
 
 def main():

@@ -96,15 +96,16 @@ class AdaptContext:
                          for w in self.doubles]
         self.sgl_gens = [single_excitation_generator(w, self.n)
                          for w in self.singles]
+        self._dbl_screen = (self._pool_screen(self.dbl_gens)
+                            if self.dbl_gens else None)
+        self._sgl_screen = self._pool_screen(self.sgl_gens)
+
+    def _pool_screen(self, gens):
+        """v_i = <H psi|A_i psi> of a pool: E14 over the objective's H."""
         obj = self.objective
-
-        def screen(gens):
-            return gr.build_grouped_pool_gradient_fn(
-                gr.group_pool(compile_pool(gens, self.n)), obj.ham_apply,
-                obj.device, obj.dtype)
-
-        self._dbl_screen = screen(self.dbl_gens) if self.dbl_gens else None
-        self._sgl_screen = screen(self.sgl_gens)
+        return gr.build_grouped_pool_gradient_fn(
+            gr.group_pool(compile_pool(gens, self.n)), obj.ham_apply,
+            obj.device, obj.dtype)
 
     def psi_hf(self) -> torch.Tensor:
         return self.objective.psi0(self.hf_init)
@@ -197,36 +198,29 @@ class FusedAdaptContext(AdaptContext):
         super().__init__(ham, hf, device=device)
         self.tol, self.maxiter = tol, maxiter
         obj = self.objective
-        self._h_pass = obj._energy_and_lam
 
         def stack_pool(gens, n_terms):
             seq = compile_op_sequence(gens, self.n)
             if seq.n_terms != len(gens) * n_terms:
                 raise ValueError("pool operators must have "
                                  f"{n_terms} Pauli strings each")
-            args = sv.seq_as_device(seq, obj.device, obj.dtype)
-            return seq, args, n_terms
+            return sv.seq_as_device(seq, obj.device, obj.dtype), n_terms
 
         self._D = stack_pool(self.dbl_gens, 8) if self.dbl_gens else None
         self._S = stack_pool(self.sgl_gens, 2)
         self._n_final = 2 if self.dbl_gens else 1
 
-    def _screen(self, psi, pool) -> np.ndarray:
-        """d<H>/dtheta at 0 for exp(i theta G) of every pool operator."""
-        seq, _, _ = pool
-        wk = seq.w * seq.kappa
-        dev, dt = psi.device, psi.dtype
-        _, vim = sv.pool_overlaps(
-            psi, self.objective.ham_apply(psi), seq.x, seq.z,
-            torch.as_tensor(np.real(wk)).to(dev, dt),
-            torch.as_tensor(np.imag(wk)).to(dev, dt), seq.op_index,
-            seq.n_ops)
-        return -2.0 * vim.detach().cpu().to(torch.float64).numpy()
+    def _pool_screen(self, gens):
+        """v_i = <H psi|A_i psi> of a pool: the per-term overlaps."""
+        obj = self.objective
+        return sv.build_pool_gradient_fn(compile_pool(gens, self.n), None,
+                                         obj.device, obj.dtype,
+                                         sigma=obj.ham_apply)
 
     @staticmethod
     def _part(pool, sel: int, op_id: int):
         """The rotation arrays of operator ``sel`` as parameter ``op_id``."""
-        _, args, k = pool
+        args, k = pool
         rows = slice(sel * k, (sel + 1) * k)
         return tuple(a[rows] for a in args[:5]) + (
             torch.full((k,), op_id, dtype=torch.int64),)
@@ -234,7 +228,8 @@ class FusedAdaptContext(AdaptContext):
     def _minimize(self, parts, x0):
         sargs = tuple(torch.cat([p[i] for p in parts]) for i in range(6))
         psi0 = self.psi_hf()
-        fun = lambda th: sv.adjoint_energy(th, psi0, sargs, self._h_pass)
+        fun = lambda th: sv.adjoint_energy(th, psi0, sargs,
+                                           self.objective.energy_and_lam)
         x, e, _ = lbfgs_minimize(fun, x0, tol=self.tol, maxiter=self.maxiter)
         return x, e, sargs
 
@@ -244,13 +239,13 @@ class FusedAdaptContext(AdaptContext):
         x0f = rng.uniform(size=self._n_final)
         psi_hf = self.psi_hf()
         if self._D is not None:
-            sel_d = int(np.argmax(np.abs(self._screen(psi_hf, self._D))))
+            sel_d = int(np.argmax(np.abs(self.screen_doubles(psi_hf))))
             part_d = self._part(self._D, sel_d, 0)
             th_d, _, sargs = self._minimize([part_d], x0d)
             psi1 = sv.apply_ops(psi_hf, th_d, *sargs)
         else:
             psi1 = psi_hf
-        sel_s = int(np.argmax(np.abs(self._screen(psi1, self._S))))
+        sel_s = int(np.argmax(np.abs(self.screen_singles(psi1))))
         if self._D is not None:
             parts = [part_d, self._part(self._S, sel_s, 1)]
         else:

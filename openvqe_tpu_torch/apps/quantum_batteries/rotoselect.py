@@ -7,9 +7,10 @@ among {RX, RY, RZ}.  The circuit (one RX/RY/RZ layer chosen per qubit, then
 a CNOT ladder on the HF state) is the per-term engine's gate layer on the
 device; its energy is the objective's expectation (D10 on the card; the
 JAX package runs the per-term one, the same function).
-``build_fused_rotoselect`` is the JAX package's
+``build_fused_rotoselect`` is the entry point of the JAX package's
 one-program optimizer (``lax.scan`` / ``fori_loop`` / ``vmap`` over the
-three candidates) as a plain loop that runs the three candidates in turn.
+three candidates, split off there to be jit-compiled); here it runs the
+same ``rotoselect_cycle`` host loop as ``run_rotoselect``.
 """
 
 from __future__ import annotations
@@ -87,41 +88,15 @@ def rotoselect_cycle(cost, params: np.ndarray, gen_ids: np.ndarray):
 def build_fused_rotoselect(ham: PauliSum, hf: Optional[str], n_steps: int,
                            device=None):
     """run(params, gen_ids) -> (params, gen_ids, energy) over ``n_steps``
-    cycles: per parameter, M0 at theta = 0 (generator-independent), then for
-    each candidate generator the closed-form angle and its cost; the
-    lowest cost wins, the last generator on ties (the reference's <=)."""
+    cycles of ``rotoselect_cycle`` (the lowest cost wins, the last
+    generator on ties, as the reference's <=)."""
     cost = build_rotoselect_cost(ham, hf, device=device)
-    n = ham.nbqbits
-
-    def per_param(d, params, gens):
-        p0 = params.copy()
-        p0[d] = 0.0
-        M0 = cost(p0, gens)
-        ths, vals = np.zeros(3), np.zeros(3)
-        for g in range(3):
-            gg = gens.copy()
-            gg[d] = g
-            pp, pm = p0.copy(), p0.copy()
-            pp[d], pm[d] = np.pi / 2.0, -np.pi / 2.0
-            Mp, Mm = cost(pp, gg), cost(pm, gg)
-            a = np.arctan2(2.0 * M0 - Mp - Mm, Mp - Mm)
-            th = -np.pi / 2.0 - a
-            ths[g] = th + 2.0 * np.pi if th <= -np.pi else th
-            pt = p0.copy()
-            pt[d] = ths[g]
-            vals[g] = cost(pt, gg)
-        gbest = 2 - int(np.argmin(vals[::-1]))
-        p0[d] = ths[gbest]
-        gens = gens.copy()
-        gens[d] = gbest
-        return p0, gens
 
     def run(params, gen_ids):
         params = np.array(params, dtype=np.float64)
         gens = np.array(gen_ids, dtype=np.int32)
         for _ in range(n_steps):
-            for d in range(n):
-                params, gens = per_param(d, params, gens)
+            params, gens = rotoselect_cycle(cost, params, gens)
         return params, gens, cost(params, gens)
 
     return run

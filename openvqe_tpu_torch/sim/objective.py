@@ -180,12 +180,16 @@ class VQEObjective:
             e = K.expectation(psi, self.hops)
         return float(e + self.c_re * torch.sum(psi * psi))
 
-    def _energy_and_lam(self, psi) -> Tuple[float, torch.Tensor]:
-        # one H pass serves both; the constant stays out of the f32
-        # elementwise accumulation: e = <psi|lam0> + c <psi|psi>
-        lam0 = self._lam0(psi)
-        e = torch.sum(psi * lam0) + self.c_re * torch.sum(psi * psi)
-        return float(e), lam0 + self._const(psi)
+    def energy_and_lam(self, psi: torch.Tensor
+                       ) -> Tuple[float, torch.Tensor]:
+        """(Re <psi|H|psi>, H|psi>) from one H pass on the objective's
+        device and dtype; H|psi> comes back in psi's dtype."""
+        p = self._on_device(psi)
+        # the constant stays out of the f32 elementwise accumulation:
+        # e = <psi|lam0> + c <psi|psi>
+        lam0 = self._lam0(p)
+        e = torch.sum(p * lam0) + self.c_re * torch.sum(p * p)
+        return float(e), (lam0 + self._const(p)).to(psi.dtype)
 
     def ham_apply(self, psi) -> torch.Tensor:
         """H|psi>, identity offset included."""
@@ -246,7 +250,7 @@ class BoundAnsatz:
 
     def energy_and_grad(self, theta) -> Tuple[float, np.ndarray]:
         psi = self.forward(theta)
-        e, lam = self._obj._energy_and_lam(psi)
+        e, lam = self._obj.energy_and_lam(psi)
         return e, self._grad(theta, psi, lam)
 
     def scipy_fun_jac(self, energies: Optional[List[float]] = None):
@@ -316,14 +320,17 @@ class StreamBoundAnsatz(BoundAnsatz):
 class PerTermBoundAnsatz(BoundAnsatz):
     """Per-term route (the JAX package's fallback for ansatze that are not
     odd-Y): the rotation sweep and the reversible adjoint run term by term
-    (``statevector.apply_ops`` / ``_adjoint_sweep``) on the objective's
-    device, the energy and lambda come from the objective's H pass.  The
-    per-term states are float64 on either device: they run no kernel, and
-    in float32 the ~1,000 rotations of an H8 ansatz move the norm by
-    ~1.5e-6 and the energy by ~6e-6 Ha; the H pass gets the state in the
-    objective's dtype."""
+    (``statevector.adjoint_energy_and_grad``) on the objective's device,
+    the energy and lambda come from the objective's H pass.  The per-term
+    states are float64 on either device: they run no kernel, and in
+    float32 the ~1,000 rotations of an H8 ansatz move the norm by ~1.5e-6
+    and the energy by ~6e-6 Ha; the H pass gets the state in the
+    objective's dtype.  A size whose per-term working set
+    (``statevector.per_term_bytes``) exceeds the device's memory is
+    refused when bound."""
 
     def __init__(self, objective: VQEObjective, seq, hf_init: int):
+        sv.check_per_term_fits(objective.n, objective.device)
         self._obj = objective
         self._psi0 = sv.hf_state(objective.n, hf_init, torch.float64,
                                  objective.device)
@@ -337,8 +344,7 @@ class PerTermBoundAnsatz(BoundAnsatz):
         return self._obj._on_device(self._sweep(theta))
 
     def energy_and_grad(self, theta) -> Tuple[float, np.ndarray]:
-        psi = self._sweep(theta)
-        e, lam = self._obj._energy_and_lam(self._obj._on_device(psi))
-        return e, sv._adjoint_sweep(np.asarray(theta, np.float64), psi,
-                                    lam.to(torch.float64),
-                                    *self._sargs).numpy()
+        e, grad = sv.adjoint_energy_and_grad(
+            np.asarray(theta, np.float64), self._psi0, self._sargs,
+            self._obj.energy_and_lam)
+        return e, grad.numpy()

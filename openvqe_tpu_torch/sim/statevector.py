@@ -13,8 +13,9 @@ CPU the plain PyTorch versions run in float64 by default.
 
 The per-term engine (the counterpart of the JAX package's scan engine)
 applies one compiled Pauli string at a time: (sigma psi)_j = kappa s_z(j)
-psi[j ^ x] with s_z(j) = (-1)^popcount(j & z), the sign read from a table
-of the parities of the 2^n indices (torch has no popcount).  It is PyTorch
+psi[j ^ x] with s_z(j) = (-1)^popcount(j & z), the sign read from an int8
+table of the 2^n index parities, kept per size and device (torch has no
+popcount; the index vector is made once a call).  It is PyTorch
 on the state's device, differentiable by autograd, and serves three
 callers: the objective's route for ansatze that are not odd-Y
 (``sim/objective.py``), the quantum-battery app (``apps/quantum_batteries``)
@@ -35,6 +36,7 @@ from __future__ import annotations
 
 import functools
 import math
+import os
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
@@ -150,22 +152,31 @@ def _angles(theta: torch.Tensor, op: List[int], w, psi: torch.Tensor,
 
 # --------------------------------------------------------- pauli primitives
 
-@functools.lru_cache(maxsize=16)
-def _tables(N: int, device: torch.device, dtype: torch.dtype
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(indices 0..N-1 as int64, s(j) = (-1)^popcount(j) in dtype) on the
-    device; s(j & z) is the sign of a term with z mask z."""
-    idx = torch.arange(N, dtype=torch.int64, device=device)
-    v = idx.clone()
+@functools.lru_cache(maxsize=4)
+def _sign(N: int, device: torch.device) -> torch.Tensor:
+    """s(j) = (-1)^popcount(j) for j = 0..N-1 as int8 on the device (N
+    bytes, kept for the process; index vectors are made per call)."""
+    v = torch.arange(N, dtype=torch.int64, device=device)
     for shift in (32, 16, 8, 4, 2, 1):
         v = v ^ (v >> shift)
-    return idx, (1 - 2 * (v & 1)).to(dtype)
+    return (1 - 2 * (v & 1)).to(torch.int8)
 
 
-def _signed_gather(psi, x: int, z: int) -> torch.Tensor:
-    """s(j) * psi[j ^ x] on both planes; s(j) = (-1)^popcount(j & z)."""
-    idx, par = _tables(psi.shape[-1], psi.device, psi.dtype)
-    return par[idx & int(z)][None, :] * psi[:, idx ^ int(x)]
+def _index(psi) -> torch.Tensor:
+    return torch.arange(psi.shape[-1], dtype=torch.int64, device=psi.device)
+
+
+def _signed_gather(psi, x: int, z: int, idx=None) -> torch.Tensor:
+    """s(j & z) * psi[j ^ x] on both planes; ``idx`` the index vector of
+    ``_index(psi)`` where a loop shares one."""
+    x, z = int(x), int(z)
+    if not (x or z):
+        return psi
+    idx = _index(psi) if idx is None else idx
+    g = psi[:, idx ^ x] if x else psi
+    if not z:
+        return g
+    return _sign(psi.shape[-1], psi.device)[idx & z][None, :] * g
 
 
 def _cmul_planes(t, c_re, c_im) -> torch.Tensor:
@@ -174,10 +185,10 @@ def _cmul_planes(t, c_re, c_im) -> torch.Tensor:
                         c_re * t[1] + c_im * t[0]])
 
 
-def pauli_apply_single(psi, x, z, k_re, k_im) -> torch.Tensor:
+def pauli_apply_single(psi, x, z, k_re, k_im, idx=None) -> torch.Tensor:
     """kappa * sigma0 |psi> for one compiled Pauli string (kappa = (-i)^nY
     given as its real and imaginary parts)."""
-    return _cmul_planes(_signed_gather(psi, x, z), k_re, k_im)
+    return _cmul_planes(_signed_gather(psi, x, z, idx), k_re, k_im)
 
 
 def _cm_sin(angle, psi):
@@ -222,10 +233,39 @@ def apply_ops(psi, theta, x, z, k_re, k_im, w, op_index,
     ang = _angles(_theta(theta), op, w, psi, sign)
     cm, sin = _cm_sin(ang, psi)
     order = range(len(xs) - 1, -1, -1) if reverse else range(len(xs))
+    idx = _index(psi)
     for t in order:
-        sp = pauli_apply_single(psi, xs[t], zs[t], kr[t], ki[t])
+        sp = pauli_apply_single(psi, xs[t], zs[t], kr[t], ki[t], idx)
         psi = _rotate(psi, sp, cm[t], sin[t])
     return psi
+
+
+# Peak bytes a per-term energy_and_grad holds per amplitude in float64: the
+# swept state and lambda, their Pauli images and rotated copies, the index
+# vector and its masks (beyond psi0: ~156 measured on the CPU at n = 22,
+# 160 on an H100 at n = 16); the objective's H pass adds its own states.
+PER_TERM_BYTES = 256
+
+
+def per_term_bytes(n: int) -> int:
+    """The per-term route's float64 working set at a 2^n state."""
+    return PER_TERM_BYTES << n
+
+
+def check_per_term_fits(n: int, device) -> None:
+    """Raise where the per-term working set exceeds the device's memory
+    (the card's, or the host's physical memory for the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        total = torch.cuda.get_device_properties(dev).total_memory
+    else:
+        total = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+    if per_term_bytes(n) > total:
+        raise ValueError(
+            f"the per-term route at n = {n} needs ~"
+            f"{per_term_bytes(n) / 2**30:.0f} GiB of float64 states, more "
+            f"than the {total / 2**30:.0f} GiB of {dev}; bind an odd-Y "
+            "ansatz for the grouped and streaming routes")
 
 
 # ------------------------------------------------------------- expectation
@@ -235,8 +275,9 @@ def ham_apply(psi, x, z, a_re, a_im, c_re, c_im) -> torch.Tensor:
     xs, zs = _ints(x), _ints(z)
     ar, ai = _coefs(a_re, psi), _coefs(a_im, psi)
     acc = _cmul_planes(psi, float(c_re), float(c_im))
+    idx = _index(psi)
     for t in range(len(xs)):
-        acc = acc + _cmul_planes(_signed_gather(psi, xs[t], zs[t]),
+        acc = acc + _cmul_planes(_signed_gather(psi, xs[t], zs[t], idx),
                                  ar[t], ai[t])
     return acc
 
@@ -246,8 +287,9 @@ def expectation(psi, x, z, a_re, a_im, c_re, c_im) -> torch.Tensor:
     xs, zs = _ints(x), _ints(z)
     ar, ai = _coefs(a_re, psi), _coefs(a_im, psi)
     tot = torch.zeros((), dtype=psi.dtype, device=psi.device)
+    idx = _index(psi)
     for t in range(len(xs)):
-        tg = _signed_gather(psi, xs[t], zs[t])
+        tg = _signed_gather(psi, xs[t], zs[t], idx)
         # Re <psi| (ar + i ai) |t> = ar*Re<psi|t> - ai*Im<psi|t>
         re_ov, im_ov = overlap_re_im(psi, tg)
         tot = tot + ar[t] * re_ov - ai[t] * im_ov
@@ -280,15 +322,16 @@ def _adjoint_sweep(theta, psi, lam, x, z, k_re, k_im, w, op_index
     cm, sin = _cm_sin(ang, psi)
     p, l = psi.detach(), lam.detach()
     gts = []
+    idx = _index(p)
     for t in range(len(xs) - 1, -1, -1):
-        sp = pauli_apply_single(p, xs[t], zs[t], kr[t], ki[t])
+        sp = pauli_apply_single(p, xs[t], zs[t], kr[t], ki[t], idx)
         # dE/da = -2 Im <lam|sigma psi>; with a = -theta w the theta
         # gradient is +2 Im <lam|sigma psi> w
         _, im_ov = overlap_re_im(l, sp)
         gts.append(2.0 * im_ov * wt[t])
         # both states un-rotated: R^dagger is the rotation by -a
         p = _rotate(p, sp, cm[t], -sin[t])
-        sl = pauli_apply_single(l, xs[t], zs[t], kr[t], ki[t])
+        sl = pauli_apply_single(l, xs[t], zs[t], kr[t], ki[t], idx)
         l = _rotate(l, sl, cm[t], -sin[t])
     grad = torch.zeros_like(th)
     if gts:
@@ -336,30 +379,40 @@ def _per_term_h_pass(hargs) -> HPass:
     return h_pass
 
 
+def adjoint_energy_and_grad(theta, psi0: torch.Tensor, sargs,
+                            h_pass: HPass) -> Tuple[float, torch.Tensor]:
+    """(E, dE/dtheta) from one sweep, one H pass and one reversible adjoint
+    (no stored tape: O(1) states); ``sargs`` the six arrays of
+    ``seq_as_device``, ``h_pass(psi) -> (energy, H|psi>)``."""
+    th = _theta(theta).detach()
+    psi = apply_ops(psi0, th, *sargs)
+    e, lam = h_pass(psi)
+    return e, _adjoint_sweep(th, psi, lam, *sargs)
+
+
 class _AdjointEnergy(torch.autograd.Function):
-    """E(theta) = <psi(theta)|H|psi(theta)> whose backward is the
-    reversible adjoint sweep (no stored tape: O(1) states)."""
+    """E(theta) whose gradient is ``adjoint_energy_and_grad``'s, made in
+    the forward call when theta needs one."""
 
     @staticmethod
     def forward(ctx, theta, psi0, sargs, h_pass):
-        psi = apply_ops(psi0, theta.detach(), *sargs)
-        e, lam = h_pass(psi)
-        ctx.save_for_backward(theta.detach())
-        ctx.states = (psi, lam, sargs)
+        if ctx.needs_input_grad[0]:
+            e, grad = adjoint_energy_and_grad(theta, psi0, sargs, h_pass)
+            ctx.save_for_backward(grad)
+        else:
+            e = h_pass(apply_ops(psi0, theta, *sargs))[0]
         return torch.tensor(e, dtype=theta.dtype, device=theta.device)
 
     @staticmethod
     def backward(ctx, g):
-        (theta,) = ctx.saved_tensors
-        psi, lam, sargs = ctx.states
-        return _adjoint_sweep(theta, psi, lam, *sargs) * g, None, None, None
+        (grad,) = ctx.saved_tensors
+        return grad * g, None, None, None
 
 
 def adjoint_energy(theta: torch.Tensor, psi0: torch.Tensor, sargs,
                    h_pass: HPass) -> torch.Tensor:
-    """E(theta) as a 0-dim tensor of theta's dtype whose gradient comes
-    from the reversible adjoint; ``sargs`` the six arrays of
-    ``seq_as_device``, ``h_pass(psi) -> (energy, H|psi>)``."""
+    """E(theta) as a 0-dim tensor of theta's dtype that autograd
+    differentiates through the reversible adjoint."""
     return _AdjointEnergy.apply(theta, psi0, sargs, h_pass)
 
 
@@ -393,9 +446,7 @@ def build_dynamic_energy_fn(ham: CompiledPauliSum, device=None,
         return h_pass(apply_ops(psi0, theta, *sargs))[0]
 
     def energy_and_grad(theta, psi0, *sargs):
-        psi = apply_ops(psi0, _theta(theta).detach(), *sargs)
-        e, lam = h_pass(psi)
-        return e, _adjoint_sweep(theta, psi, lam, *sargs)
+        return adjoint_energy_and_grad(theta, psi0, sargs, h_pass)
 
     return energy, energy_and_grad
 
@@ -413,8 +464,10 @@ def pool_overlaps(psi, sigma, x, z, a_re, a_im, op_index, n_ops: int
     if not xs:
         return vre, vim
     rows = []
+    idx = _index(psi)
     for t in range(len(xs)):
-        re_ov, im_ov = overlap_re_im(sigma, _signed_gather(psi, xs[t], zs[t]))
+        re_ov, im_ov = overlap_re_im(sigma,
+                                     _signed_gather(psi, xs[t], zs[t], idx))
         rows.append(torch.stack([ar[t] * re_ov - ai[t] * im_ov,
                                  ar[t] * im_ov + ai[t] * re_ov]))
     rows = torch.stack(rows)
@@ -425,11 +478,14 @@ def pool_overlaps(psi, sigma, x, z, a_re, a_im, op_index, n_ops: int
     return vre, vim
 
 
-def build_pool_gradient_fn(seq: CompiledOpSequence, ham: CompiledPauliSum,
-                           device=None, dtype: Optional[torch.dtype] = None):
+def build_pool_gradient_fn(seq: CompiledOpSequence,
+                           ham: Optional[CompiledPauliSum], device=None,
+                           dtype: Optional[torch.dtype] = None,
+                           sigma: Optional[Callable] = None):
     """grads_host(psi) -> complex (n_ops,) v_i = <H psi|A_i psi> for a fixed
-    pool: sigma = H psi by the per-term H, then the per-term overlaps, both
-    on the device."""
+    pool, its operands put on the device once: sigma = H psi by the
+    per-term H of ``ham``, or by ``sigma(psi)`` where given (``ham`` then
+    None), then the per-term overlaps."""
     dev = resolve_device(device)
     dt = resolve_dtype(dev, dtype)
     wk = seq.w * seq.kappa
@@ -437,13 +493,15 @@ def build_pool_gradient_fn(seq: CompiledOpSequence, ham: CompiledPauliSum,
                                                      seq.op_index))
     pa_re = torch.as_tensor(np.real(wk), dtype=torch.float64).to(dev, dt)
     pa_im = torch.as_tensor(np.imag(wk), dtype=torch.float64).to(dev, dt)
-    hargs = as_device(ham, dev, dt)
+    if sigma is None:
+        hargs = as_device(ham, dev, dt)
+        sigma = lambda psi: ham_apply(psi, *hargs)
     n_ops = seq.n_ops
 
     def grads_host(psi) -> np.ndarray:
         psi = torch.as_tensor(psi).to(device=dev, dtype=dt)
-        vre, vim = pool_overlaps(psi, ham_apply(psi, *hargs), px, pz, pa_re,
-                                 pa_im, pop, n_ops)
+        vre, vim = pool_overlaps(psi, sigma(psi), px, pz, pa_re, pa_im, pop,
+                                 n_ops)
         return (vre.detach().cpu().to(torch.float64).numpy()
                 + 1j * vim.detach().cpu().to(torch.float64).numpy())
 
@@ -453,8 +511,7 @@ def build_pool_gradient_fn(seq: CompiledOpSequence, ham: CompiledPauliSum,
 # -------------------------------------------------------------- gate layer
 
 def apply_x(psi, q: int, n: int) -> torch.Tensor:
-    idx, _ = _tables(psi.shape[-1], psi.device, psi.dtype)
-    return psi[:, idx ^ (1 << (n - 1 - q))]
+    return psi[:, _index(psi) ^ (1 << (n - 1 - q))]
 
 
 def _single_qubit_rotation(psi, theta, q: int, n: int, pauli: str):
@@ -482,7 +539,7 @@ def apply_rz(psi, theta, q: int, n: int) -> torch.Tensor:
 
 def apply_h(psi, q: int, n: int) -> torch.Tensor:
     mask = 1 << (n - 1 - q)
-    idx, _ = _tables(psi.shape[-1], psi.device, psi.dtype)
+    idx = _index(psi)
     bit = ((idx & mask) != 0)[None, :]
     flipped = psi[:, idx ^ mask]
     s = 1.0 / np.sqrt(2.0)
@@ -490,7 +547,7 @@ def apply_h(psi, q: int, n: int) -> torch.Tensor:
 
 
 def apply_cnot(psi, control: int, target: int, n: int) -> torch.Tensor:
-    idx, _ = _tables(psi.shape[-1], psi.device, psi.dtype)
+    idx = _index(psi)
     cmask = 1 << (n - 1 - control)
     tmask = 1 << (n - 1 - target)
     src = torch.where((idx & cmask) != 0, idx ^ tmask, idx)

@@ -189,7 +189,7 @@ def main() -> int:
         b0 = VQEObjective(h10.ham, device="cuda").bind(h10.gens, h10.hf)
     adj, fm = b0._adj, b0._fmode
     psi1 = b0.forward(theta1)
-    _, lam1 = b0._obj._energy_and_lam(psi1)
+    _, lam1 = b0._obj.energy_and_lam(psi1)
     ang = st.group_angles(adj, theta1, torch.float32, psi.device)
     ref = K.adjoint_stream(psi1, lam1, ang, adj, fm)
     adj_paths = write_variants(ADJ_SOURCE, ADJ_VARIANTS, ADJ_OUT)

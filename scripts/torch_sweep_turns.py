@@ -10,7 +10,8 @@ per-group streaming H-apply (B5 ``ham_stream``) and the paths that run
 them.
 
     python3 scripts/torch_sweep_turns.py --trees PARENT CHANGE \\
-        [--h16 PICKLE] [--quick | --pool | --expect | --ham-stream]
+        [--h16 PICKLE] [--quick | --pool | --expect | --ham-stream |
+        --per-term]
 
 Each tree is a checkout of the repository (for example unpacked with
 ``git archive``) that holds ``chip_smoke.py`` and ``openvqe_tpu_torch``.
@@ -90,6 +91,11 @@ into the tree's own ``build/``):
   H10's, complex on the synthetic set) on a random state and on the same
   state with +-0 entries; on the parent tree its one kernel under the
   same names; ``--ham-stream`` measures only these;
+* with ``--per-term``, only the per-term route and the battery app's
+  fused paths (``measure_per_term``): H8's ``energy_and_grad`` on the
+  ansatz of ``chip_smoke.py`` phase 16 (host clock, median of 5) with its
+  energy and gradient hash, a seeded fused CS-ADAPT 8q experiment (median
+  of 3) and a seeded fused CS-VQE HEA-4 6q run, with their energies;
 * unless ``--quick``, the H10 fermionic ADAPT run of ``chip_smoke.py``
   phase 10 (3 outer iterations, the float32 Lanczos reference included;
   host clock);
@@ -550,8 +556,48 @@ def measure_h8(cs, tree: Path, out: dict) -> None:
         "len_op1", "len_op2", "CNOT1", "CNOT2")]
 
 
+def measure_per_term(cs, out: dict) -> None:
+    """The per-term route and the battery app's fused paths: H8's
+    ``energy_and_grad`` on the phase-16 ansatz (host clock, median of 5
+    after a warm-up) with its energy and gradient hash, a seeded fused
+    CS-ADAPT 8q experiment (median of 3 after a warm-up) and a seeded
+    fused CS-VQE HEA-4 6q run (one after a warm-up), with their energies."""
+    import numpy as np
+    from openvqe_tpu_torch.apps.quantum_batteries import adapt, cs_vqe
+    from openvqe_tpu_torch.apps.quantum_batteries.utils import load_cs_hams
+    from openvqe_tpu_torch.sim.objective import VQEObjective
+    with contextlib.redirect_stdout(io.StringIO()):
+        ham_sp, a1, _, hf, _ = cs.h8_problem()
+    gens = list(a1) + [cs.extra_generator(ham_sp.nbqbits)]
+    b = VQEObjective(ham_sp, device="cuda").bind(gens, hf)
+    theta = 0.01 * np.sin(np.arange(len(gens)) + 1.0)
+
+    def timed(fn, *a):
+        t = time.time()
+        r = fn(*a)
+        return r, time.time() - t
+
+    b.energy_and_grad(theta)
+    runs = [timed(b.energy_and_grad, theta) for _ in range(5)]
+    out["per_term_h8_energy_and_grad_s"] = median([t for _, t in runs])
+    out["per_term_h8_energy"] = runs[-1][0][0]
+    out["per_term_h8_grad_sha256"] = sha256(runs[-1][0][1])
+    hams = load_cs_hams()
+    ctx = adapt.FusedAdaptContext(*hams[8], device="cuda")
+    ctx.run(np.random.RandomState(5))
+    runs = [timed(ctx.run, np.random.RandomState(5)) for _ in range(3)]
+    out["cs_adapt_8q_fused_s"] = median([t for _, t in runs])
+    out["cs_adapt_8q_fused_energy"] = runs[-1][0]
+    run = cs_vqe.build_fused_hea_vqe(hams[6][0], 4, hams[6][1],
+                                     device="cuda")
+    x0 = np.random.RandomState(5).uniform(size=30)
+    run(x0)
+    (_, e), t = timed(run, x0)
+    out["cs_vqe_6q_fused_s"], out["cs_vqe_6q_fused_energy"] = t, e
+
+
 def measure(tree: Path, h16: str, quick: bool, pool: bool,
-            expect: bool, ham_stream: bool) -> dict:
+            expect: bool, ham_stream: bool, per_term: bool = False) -> dict:
     sys.path.insert(0, str(tree))
     spec = importlib.util.spec_from_file_location("tree_chip_smoke",
                                                   tree / "chip_smoke.py")
@@ -567,6 +613,9 @@ def measure(tree: Path, h16: str, quick: bool, pool: bool,
     K.build()
     K._load()
     out = {"tree": str(tree), "card": cs.card_line()}
+    if per_term:
+        measure_per_term(cs, out)
+        return out
     with contextlib.redirect_stdout(io.StringIO()):
         h10 = cs.h10_problem()
     if not pool and not ham_stream:
@@ -638,7 +687,7 @@ def measure(tree: Path, h16: str, quick: bool, pool: bool,
                     a = K.rot_stream(psi, af0, ops, fm)
                 out[f"a2_fmode{fm}_per{per}_kt{kt}_sha256"] = sha256(a)
     psi1 = b0.forward(theta1)
-    _, lam1 = obj0._energy_and_lam(psi1)
+    _, lam1 = obj0.energy_and_lam(psi1)
     aa0 = st.group_angles(adj0, theta1, torch.float32, psi.device)
     out["c8_ms"] = cs.cuda_ms(
         lambda: K.adjoint_stream(psi1, lam1, aa0, adj0, b0._fmode))
@@ -695,7 +744,9 @@ D11_SETS = ("h10", "complex")
 B5_CASES = tuple(f"{t}_{a}" for t in ("h10", "complex")
                  for a in ("none", "acc"))
 
-METRICS = tuple(f"{m.lower()}_{k}" for m in SMALL for k in (
+METRICS = ("per_term_h8_energy_and_grad_s", "cs_adapt_8q_fused_s",
+           "cs_vqe_6q_fused_s") + tuple(
+    f"{m.lower()}_{k}" for m in SMALL for k in (
     "a1_ms", "c7_ms", "b4_ms", "cluster_energy_and_grad_ms",
     "pool_energy_and_grad_ms")) + (
     "a1_ms", "c7_ms", "b4_ms", "b4_complex_ms", "a2_fmode0_ms",
@@ -713,14 +764,17 @@ METRICS = tuple(f"{m.lower()}_{k}" for m in SMALL for k in (
     f"d10_{t}_ms" for t in D10_SETS) + tuple(
     f"d11_{t}_herm{h}_ms" for t in D11_SETS for h in (0, 1)) + tuple(
     f"b5_{c}_ms" for c in B5_CASES)
-VALUES = tuple(f"{m.lower()}_{b}_energy" for m in SMALL
+VALUES = ("per_term_h8_energy", "cs_adapt_8q_fused_energy",
+          "cs_vqe_6q_fused_energy") + tuple(
+    f"{m.lower()}_{b}_energy" for m in SMALL
                for b in ("cluster", "pool")) + (
     "h8_cluster_energy", "h8_pool_energy", "d13_h10_value",
     "h10_energy_theta0", "h10_energy_theta1", "h10_fuse0_energy_theta0",
     "h10_fuse0_energy_theta1", "h16_energy", "h16_hoist_energy") + tuple(
     f"d10_{t}_value" for t in D10_SETS) + tuple(
     f"d11_{t}_herm{h}_value" for t in D11_SETS for h in (0, 1))
-SAME = tuple(f"{k}_fmode{f}_{h}" for f in (0, 1, 2) for k, h in (
+SAME = ("per_term_h8_grad_sha256",) + tuple(
+    f"{k}_fmode{f}_{h}" for f in (0, 1, 2) for k, h in (
     ("a1", "sha256"), ("c7", "state_sha256"), ("c7", "grad_sha256"))) + (
     "synthetic_fmode0_sha256", "synthetic_fmode1_sha256",
     "synthetic_fmode2_sha256", "h8_cluster_grad_sha256",
@@ -762,11 +816,13 @@ def main() -> int:
                     help="the per-group expectations (D10, D11) only")
     ap.add_argument("--ham-stream", action="store_true",
                     help="the per-group streaming H-apply (B5) only")
+    ap.add_argument("--per-term", action="store_true",
+                    help="the per-term route and the battery app only")
     args = ap.parse_args()
     if args.measure:
         print("TURN " + json.dumps(measure(
             Path(args.measure).resolve(), args.h16, args.quick, args.pool,
-            args.expect, args.ham_stream)), flush=True)
+            args.expect, args.ham_stream, args.per_term)), flush=True)
         return 0
     if not args.trees:
         ap.error("--trees PARENT CHANGE is required")
@@ -782,7 +838,8 @@ def main() -> int:
             + (["--quick"] if args.quick else []) \
             + (["--pool"] if args.pool else []) \
             + (["--expect"] if args.expect else []) \
-            + (["--ham-stream"] if args.ham_stream else [])
+            + (["--ham-stream"] if args.ham_stream else []) \
+            + (["--per-term"] if args.per_term else [])
         t = time.time()
         proc = subprocess.run(cmd, cwd=str(trees[i]), capture_output=True,
                               text=True, timeout=CHILD_TIMEOUT_S)

@@ -67,7 +67,9 @@ def test_port_imports_without_jax_or_reference():
         "from openvqe_tpu_torch.sim import statevector as sv\n"
         "for f in ('pauli_apply_single', 'pauli_rotation', 'apply_ops',\n"
         "          'ham_apply', 'expectation', 'overlap_re_im',\n"
-        "          '_adjoint_sweep', 'adjoint_energy', 'build_energy_fn',\n"
+        "          '_adjoint_sweep', 'adjoint_energy',\n"
+        "          'adjoint_energy_and_grad', 'check_per_term_fits',\n"
+        "          'build_energy_fn',\n"
         "          'build_dynamic_energy_fn', 'pool_overlaps',\n"
         "          'build_pool_gradient_fn', 'apply_x', 'apply_rx',\n"
         "          'apply_ry', 'apply_rz', 'apply_h', 'apply_cnot',\n"

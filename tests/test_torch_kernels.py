@@ -13,7 +13,8 @@ with herm off and on), the four per-group streaming ones
 B5 at every compiled PER, term tile and REAL with acc None and given, bit
 for bit across PER and tiles) and the two
 pool-overlap kernels (E14 and E15 at every compiled PER, term tile and
-REAL, also on states with +-0 entries and E14 at n = 8).  A
+REAL, also on states with +-0 entries and E14 at n = 8), and B4 and D10 on
+the battery app's contextual Hamiltonians (the 2-qubit one diagonal only).  A
 CUDA kernel has no CPU mode, so these tests are marked ``cuda`` and skip
 on a machine without a card; on one they run with
 ``python -m pytest tests/test_torch_kernels.py -q``.
@@ -203,6 +204,29 @@ def test_expectation_at_each_per(dev, per):
         assert at["threads"] == K.EXPECT_THREADS and at["blocks_per_sm"] >= 1
     torch.cuda.synchronize()
     assert K.LAUNCHES["expectation"] - counts == calls
+
+
+TOL_CS = 1e-6   # of the weight sum: float32 rounding of H's Pauli part
+
+
+@pytest.mark.parametrize("n", [2, 4, 6, 7, 8])
+def test_ham_kernels_on_the_contextual_hamiltonians(dev, n):
+    """B4 and D10 on the operands of the battery app's contextual
+    Hamiltonians (the 2-qubit one is diagonal only: x = 0 groups and no
+    other) against their plain versions, within float32 rounding of the
+    weight sum of the Pauli part (the -3683 Ha constant is the caller's)."""
+    from openvqe_tpu_torch.apps.quantum_batteries.utils import load_cs_hams
+    h = VQEObjective(load_cs_hams()[n][0], device=dev).hops
+    assert (int(h.x.max()) == 0) == (n == 2)
+    scale = float(h.a_re.abs().sum() + h.a_im.abs().sum())
+    psi = _state(dev, n, n)
+    lam = K.ham_apply(psi, h)
+    assert float((lam - gr.ham_apply_ref(psi, *h.args())).abs().max()) \
+        <= TOL_CS * scale
+    e = float(K.expectation(psi, h))
+    assert abs(e - float(gr.expectation_ref(psi, *h.args()))) \
+        <= TOL_CS * scale
+    torch.cuda.synchronize()
 
 
 def _d11_groups(n, k, real, dev, seed=3):

@@ -186,6 +186,27 @@ def test_pool_overlaps_repeated_ops(problem):
     assert np.max(np.abs(got - want)) < TOL
 
 
+def test_pool_gradient_fn_takes_sigma(problem):
+    """sigma = H psi given as a function (the objective's H pass) in place
+    of the per-term H: the same screen as the JAX package's."""
+    _, gens, _, ch = problem
+    pool = compile_pool(gens, N)
+    psi = _state(N, 18)
+    hargs = tsv.as_device(ch)
+    got = tsv.build_pool_gradient_fn(
+        pool, None, device="cpu",
+        sigma=lambda p: tsv.ham_apply(p, *hargs))(_t(psi))
+    want = jsv.build_pool_gradient_fn(pool, ch)(psi)
+    assert np.max(np.abs(got - want)) < TOL
+
+
+def test_per_term_route_refuses_what_cannot_fit():
+    assert tsv.per_term_bytes(16) == tsv.PER_TERM_BYTES << 16
+    tsv.check_per_term_fits(N, "cpu")
+    with pytest.raises(ValueError, match="per-term route at n = 60"):
+        tsv.check_per_term_fits(60, "cpu")
+
+
 @pytest.mark.parametrize("gate", ["x", "rx", "ry", "rz", "h", "cnot"])
 def test_gates(gate):
     psi = _state(N, 15)
