@@ -8,7 +8,8 @@ imports nothing of JAX and nothing of ``openvqe_tpu``.  Phases:
 
 1. the card (nvidia-smi name and power limit), CUDA and nvcc versions;
    build the fifteen kernels of ``openvqe_tpu_torch/sim/csrc`` (one nvcc
-   per source, four sources started together, sm_90a);
+   per source, four sources started together, sm_90a), then the native
+   integral engine (``openvqe_tpu_torch/native``, g++, into ``build/``);
 2. per-group kernel parity: each of the four grouped kernels against its
    plain PyTorch version on the same card and inputs, at n = 16, on H8's
    own operands and on a synthetic problem (x masks on every bit, non-real
@@ -135,11 +136,10 @@ imports nothing of JAX and nothing of ``openvqe_tpu``.  Phases:
    (``sim/oracle.py``, energy and amplitudes), the peak device memory of
    one energy call, the wall time of each beside the bound of its
    function (``work()``, ``bound()``) and how its D12 and D13 instances
-   launch (``kernels.bucket_attributes``).  The host set-up (SCF,
-   Jordan-Wigner, taper, grouping; about half a minute on an 8-core host,
-   most of it the SCF) runs in a child process started right after the
-   build, beside phases 2-13, and is kept in ``chiprun_out/`` for the next
-   run of the same sources;
+   launch (``kernels.bucket_attributes``).  The host set-up (SCF on the
+   native integrals, Jordan-Wigner, taper, grouping) runs in a child
+   process started right after the build, beside phases 2-13, and is kept
+   (``h16_cache_path``) for the next run of the same sources;
 15. QUCCSD: ``VQE.algorithm("quccsd", "H4", "QUCCSD", "JW", active)
    .execute()``, non-active and active, against the JAX package's float64
    run on the port's chemistry (``tests/torch_quccsd_reference.json``,
@@ -168,7 +168,29 @@ imports nothing of JAX and nothing of ``openvqe_tpu``.  Phases:
    (made by ``JAX_PLATFORMS=cpu python tests/torch_battery_reference.py``);
    each run's mean relative error against CCSD within the anchors' limits
    and seconds per run.  Phases 15-17 set the counters to 0 just before
-   each run and read them just after.
+   each run and read them just after;
+18. WSSVQE (``algorithms/wssvqe.py``: the HEA through the gate layer, each
+   energy through the objective's expectation, D10 forward and 2 H psi by
+   B4 backward, D12 ``herm`` and B6 where the objective streams) against
+   the JAX package's float64 numbers in ``tests/torch_wssvqe_reference.
+   json`` (made by ``JAX_PLATFORMS=cpu python
+   tests/torch_wssvqe_reference.py``; the molecule models from the port's
+   chemistry): the weighted total, its gradient and each state's energy at
+   a seeded theta for TFIM N = 4 (2 states, depth 3), H2 (2 states, depth
+   4), H4 (8 qubits), TFIM N = 16 (3 states) and TFIM N = 20 (2 states,
+   the streaming route), each with the peak device memory of one call;
+   ``WSSVQE(...).execute()`` on TFIM-4 and H2 with
+   ``tests/test_wssvqe.py``'s checks and BFGS's iterations beside the JAX
+   run's; a 50-iteration BFGS run at TFIM-16 that lowers the weighted cost
+   and stays above sum_k w_k lambda_k, its eigenvalues (float64 per-term
+   eigsh on the card) against the JAX package's, and the seconds of an
+   objective call.  The counters are set to 0 just before each run and
+   read just after: D10 and B4 per group, D12 and B6 at 20 qubits, and no
+   other kernel;
+19. the native integral engine: the seconds of its g++ build, its
+   integrals against the numpy ones on H2O and LiH at STO-3G
+   (``tests/test_native.py``'s tolerances), and which engine the H16
+   set-up child of phase 14 ran, with its seconds.
 
 The last three lines of standard output are the card's name and power
 limit, a JSON ``{"kernels": [...]}`` line (one row per kernel, each
@@ -618,7 +640,12 @@ def spmm_library(name, label, psi, x, z, coef, coef_im, k_live, lam_plain,
 # -------------------------------------------------------------------- phases
 
 def phase_build():
+    """Build the kernels, then the native integral engine (before the H16
+    set-up child starts, so that it loads the library and does not build
+    it); returns the native build's seconds and library (None where the
+    engine is off)."""
     import torch
+    from openvqe_tpu_torch import native
     from openvqe_tpu_torch.sim import kernels as K
     print("card:", card_line())
     print("torch", torch.__version__, "cuda", torch.version.cuda,
@@ -632,6 +659,16 @@ def phase_build():
     print(f"built {', '.join(p.name for p in libs.values())} in "
           f"{time.time() - t0:.1f} s")
     print(K.build_log.strip() or "(cached build)")
+    if not native.available():
+        print("native integral engine: off (no g++ or OPENVQE_TPU_NO_NATIVE)")
+        return None
+    cached = native.lib_path().exists()
+    t0 = time.time()
+    lib = native.build()
+    dt = time.time() - t0
+    print(f"native integral engine: {lib.name} "
+          f"{'found' if cached else 'built by g++'} in {dt:.2f} s")
+    return {"seconds": dt, "cached": cached, "lib": lib.name}
 
 
 def parity_case(label, psi, ang, sops, hops, errs, card):
@@ -2124,17 +2161,19 @@ MEM_LIMIT = 8.5 * 2**30    # bytes: one 2^30 state (8 GiB) and operands
 H16_SETUP_TIMEOUT = 900    # s the main path waits for the child set-up
 # what the set-up reads: a change here makes a new cache entry
 H16_SETUP_SOURCES = ("openvqe_tpu_torch/chem", "openvqe_tpu_torch/ops",
+                     "openvqe_tpu_torch/native",
                      "openvqe_tpu_torch/sim/compile.py",
                      "openvqe_tpu_torch/sim/grouped.py")
 
 
 def h16_cache_path():
     import hashlib
-    h = hashlib.sha256(b"h16-sto3g-taper30-v1")
+    h = hashlib.sha256(b"h16-sto3g-taper30-v2")
     for rel in H16_SETUP_SOURCES:
         p = ROOT / rel
-        for f in sorted(p.rglob("*.py")) if p.is_dir() else [p]:
-            h.update(f.read_bytes())
+        for f in sorted(p.rglob("*")) if p.is_dir() else [p]:
+            if f.suffix in (".py", ".cpp"):
+                h.update(f.read_bytes())
     return ROOT / "chiprun_out" / f"h16_setup_{h.hexdigest()[:12]}.pkl"
 
 
@@ -2144,6 +2183,7 @@ def h16_setup(path):
     ``python3 chip_smoke.py --h16-setup PATH``)."""
     import pickle
     import numpy as np
+    from openvqe_tpu_torch import native
     from openvqe_tpu_torch.chem.frontend import compute_molecule
     from openvqe_tpu_torch.ops.hamiltonian import (
         ElectronicStructureHamiltonian, convert_to_h_integrals)
@@ -2161,9 +2201,10 @@ def h16_setup(path):
         t = time.time()
         print(f"H16 set-up: {key} {times[key]:.2f} s", flush=True)
 
+    engine = "native" if native.available() else "numpy"
     md = compute_molecule(H16_GEOMETRY, "sto-3g", spin=0, charge=0,
                           run_fci_flag=False)
-    lap("SCF and integrals")
+    lap(f"SCF and integrals ({engine} engine)")
     hpq, hpqrs = convert_to_h_integrals(md.one_body_integrals,
                                         md.two_body_integrals)
     hsp = ElectronicStructureHamiltonian(hpq, hpqrs,
@@ -2183,7 +2224,7 @@ def h16_setup(path):
                 hf=int(hf), hc=hc, h_terms=len(hsp),
                 gseq=gr.group_op_sequence(compile_op_sequence(gens, n)),
                 gham=gr.group_pauli_sum(hc), HF=float(md.info["HF"]),
-                MP2=float(md.info["MP2"]))
+                MP2=float(md.info["MP2"]), engine=engine)
     lap("compile and group")
     data["seconds"] = times
     tmp = Path(f"{path}.{os.getpid()}.tmp")
@@ -2234,6 +2275,7 @@ def h16_problem(setup):
           f"{time.time() - t:.2f} s ({'cold run' if proc else 'cached'}; "
           f"cold set-up: " + ", ".join(f"{k} {v:.2f} s" for k, v in
                                        data["seconds"].items()) + ")")
+    data["cold"] = proc is not None
     return SimpleNamespace(**data)
 
 
@@ -2246,8 +2288,9 @@ def timed(fn, *a):
     return out, time.perf_counter() - t
 
 
-def phase_h16(setup, card):
-    """The 30-qubit main path (phase 14); returns D13's launch count."""
+def phase_h16(setup, card, info):
+    """The 30-qubit main path (phase 14); returns D13's launch count and
+    puts the set-up's integral engine and seconds into ``info``."""
     import numpy as np
     import torch
     from openvqe_tpu_torch.sim import grouped as gr
@@ -2256,6 +2299,7 @@ def phase_h16(setup, card):
     from openvqe_tpu_torch.sim import streaming as st
     from openvqe_tpu_torch.sim.compile import compile_op_sequence
     h = h16_problem(setup)
+    info.update(engine=h.engine, seconds=h.seconds, cold=h.cold)
     gseq, gham = h.gseq, h.gham
     check(h.n == 30 and h.n_sys == 32 and len(h.gens) == gseq.n_ops,
           f"H16: {h.n_sys} -> {h.n} qubits, {len(h.gens)} operators")
@@ -2663,6 +2707,243 @@ def phase_battery(ref, card):
                BATTERY_LIMITS["rotoselect"], dict(K.LAUNCHES),
                ("expectation",))
 
+# ------------------------------------------------ WSSVQE and the native engine
+
+WSS_BFGS_ITERS = 50      # BFGS iterations of the TFIM-16 run (phase 18)
+TOL_WSS_BOUND = 1e-5     # Ha, float32 slack below sum_k w_k lambda_k
+TOL_WSS_MODEL = 1e-8     # the port's molecule model against the reference's
+WSS_GROUPED = ("expectation", "ham_apply")
+WSS_STREAMING = ("expect_bucketed", "ham_bucketed")
+# tests/test_native.py's tolerances: S and T, V, the ERI tensor
+TOL_NATIVE = {"S": 1e-11, "T": 1e-11, "V": 1e-10, "ERI": 1e-11}
+NATIVE_MOLECULES = {
+    "H2O": [("O", (0, 0, 0)), ("H", (0.9578, 0, 0)),
+            ("H", (-0.24, 0.927, 0))],
+    "LiH": [("Li", (0, 0, 0)), ("H", (0, 0, 1.45))]}
+
+
+def wss_launches(label, launches, used, count):
+    """Each of ``used`` launched ``count`` times, every other kernel
+    never."""
+    print(f"  {label} launches { {k: v for k, v in launches.items() if v} }")
+    for k, v in launches.items():
+        want = count if k in used else 0
+        check(v == want, f"{label}: {k} launched {v} times, want {want}")
+
+
+def wss_point(label, model, r, card):
+    """The weighted total, its gradient and each state's energy at the
+    reference's theta against the JAX package's float64 numbers; only the
+    route's two kernels launch, once a state.  Returns the cost."""
+    import numpy as np
+    import torch
+    from openvqe_tpu_torch.algorithms import wssvqe as tw
+    from openvqe_tpu_torch.sim import kernels as K
+    cost = tw.WeightedCost(model, r["n_states"], r["depth"], r["weights"],
+                           device=DEVICE)
+    theta = np.asarray(r["theta"])
+    cost.value_and_grad(theta)                # first call: gate set-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    K.reset_launches()
+    (total, grad, energies), dt = timed(cost.value_and_grad, theta)
+    launches = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() - base
+    de = float(np.max(np.abs(np.asarray(energies) - r["energies"])))
+    dtot = abs(total - r["total"])
+    dg = float(np.max(np.abs(grad - np.asarray(r["grad"]))))
+    route = "streaming" if cost.obj.stream else "per-group"
+    print(f"WSSVQE {label} ({r['n']} qubits, {r['n_states']} states, depth "
+          f"{r['depth']}, {route} route) at the reference theta on {card}: "
+          f"total {total!r} (JAX f64 {r['total']!r}, |d| {dtot:.3e}), "
+          f"max|d energy| {de:.3e}, max|d grad| {dg:.3e}; one call "
+          f"{dt:.3f} s, peak {peak / 2**20:.1f} MiB beyond what was held "
+          f"({peak / (1 << r['n']):.1f} B an amplitude; one state's graph "
+          f"at a time)")
+    check(de <= TOL_E_REF and dtot <= TOL_E_REF,
+          f"WSSVQE {label}: energies off the JAX reference")
+    check(dg <= TOL_G_REF, f"WSSVQE {label}: gradient off the JAX reference")
+    per_state = len(cost.obj.hclasses) if cost.obj.stream else 1
+    wss_launches(label, launches,
+                 WSS_STREAMING if cost.obj.stream else WSS_GROUPED,
+                 r["n_states"] * per_state)
+    return cost
+
+
+def wss_model(name, r):
+    """The port's molecule model, checked against the one the reference
+    numbers were made on."""
+    from openvqe_tpu_torch.algorithms import wssvqe as tw
+    model = tw.WSSVQE(model=name).build_model()
+    got = model.to_coeff_dict()
+    check(set(got) == set(r["model"]), f"{name}: other Pauli terms")
+    d = max(abs(got[k] - v) for k, v in r["model"].items())
+    print(f"WSSVQE {name} model: {len(got)} Pauli terms, max|d coeff| "
+          f"{d:.3e} against the reference's")
+    check(d <= TOL_WSS_MODEL, f"{name}: model off the reference's")
+    return model
+
+
+def wss_execute(label, name, kw, want, card):
+    """``WSSVQE(...).execute()`` on the card; counters set to 0 just
+    before and read just after: only D10 and B4 launch."""
+    from openvqe_tpu_torch.algorithms import wssvqe as tw
+    from openvqe_tpu_torch.sim import kernels as K
+    K.reset_launches()
+    out, dt = timed(tw.WSSVQE(model=name, **kw, opts=dict(
+        want["opts"], device=DEVICE)).execute)
+    launches = dict(K.LAUNCHES)
+    opt = out["opt_result"]
+    exact = out["exact_eigenvalues"]
+    fid = [out["fidelity_lists"][f"fidelity_circ_{k}"][-1]
+           for k in range(len(out["final_energies"]))]
+    print(f"WSSVQE {label} execute() on {card}: {dt:.2f} s, final energies "
+          f"{out['final_energies']} (JAX f64 {want['final_energies']}), "
+          f"exact {list(exact)} (JAX f64 {want['exact_eigenvalues']}), "
+          f"fidelities {fid} (JAX f64 {want['fidelities']}); BFGS nit "
+          f"{opt.nit} nfev {opt.nfev} (JAX f64 nit {want['nit']} nfev "
+          f"{want['nfev']}), {dt / opt.nfev:.4f} s a call with the "
+          f"callbacks; {opt.message}")
+    for k in range(2):
+        check(abs(exact[k] - want["exact_eigenvalues"][k]) <= 1e-8,
+              f"WSSVQE {label}: eigenvalue {k} off the reference")
+    n_states = len(out["final_energies"])
+    # one B4 a state an evaluation; one D10 a state an evaluation and a
+    # recorded point
+    check(launches["ham_apply"] >= n_states * opt.nfev
+          and launches["expectation"] > launches["ham_apply"],
+          f"WSSVQE {label}: {launches} for {opt.nfev} evaluations")
+    wss_launches(label, {k: int(v > 0) for k, v in launches.items()},
+                 WSS_GROUPED, 1)
+    return out, exact
+
+
+def phase_wssvqe(ref, card):
+    """WSSVQE on TFIM-4, H2, H4, TFIM-16 and TFIM-20 (phase 18)."""
+    import numpy as np
+    import torch
+    from openvqe_tpu_torch.algorithms import wssvqe as tw
+    from openvqe_tpu_torch.sim import kernels as K
+
+    # TFIM N = 4, 2 states, depth 3 (examples/demo_wssvqe.py)
+    r = ref["tfim4"]
+    wss_point("TFIM-4", tw.ising(4), r, card)
+    out, exact = wss_execute("TFIM-4", "ising",
+                             dict(nqbits=4, n_states=2, depth=3),
+                             r["execute"], card)
+    e = out["final_energies"]
+    # tests/test_wssvqe.py's checks
+    check(e[0] >= exact[0] - 1e-9 and e[1] >= exact[1] - 1e-9,
+          "WSSVQE TFIM-4 below the exact spectrum")
+    check(abs(e[0] - exact[0]) < 0.05, "WSSVQE TFIM-4 ground state off")
+    check(out["fidelity_lists"]["fidelity_circ_0"][-1] > 0.9,
+          "WSSVQE TFIM-4 ground-state fidelity")
+
+    # H2 (r = 0.98), 2 states, depth 4 (examples/demo_wssvqe_h4.py)
+    r = ref["h2"]
+    wss_point("H2", wss_model("H2", r), r, card)
+    out, exact = wss_execute("H2", "H2", dict(n_states=2, depth=4),
+                             r["execute"], card)
+    d0 = out["final_energies"][0] - exact[0]
+    d1 = out["final_energies"][1] - exact[1]
+    print(f"  H2 final energies - exact: {d0:+.3e}, {d1:+.3e} (limits 1e-4, "
+          f"1e-3)")
+    check(abs(d0) < 1e-4 and abs(d1) < 1e-3, "WSSVQE H2 off the exact "
+          "two lowest eigenvalues")
+
+    # H4 (r = 0.85, 8 qubits) at the reference's theta
+    r = ref["h4"]
+    wss_point("H4", wss_model("H4", r), r, card)
+
+    # TFIM N = 16, 3 states, depth 3: the full width of the per-group route
+    r = ref["tfim16"]
+    model = tw.ising(16)
+    cost = wss_point("TFIM-16", model, r, card)
+    ts = [timed(cost.value_and_grad, np.asarray(r["theta"]))[1]
+          for _ in range(3)]
+    print(f"  TFIM-16 objective call: median {sorted(ts)[1]:.3f} s over 3 "
+          f"(min {min(ts):.3f})")
+    weights = r["weights"]
+    x0 = np.random.default_rng(0).normal(scale=0.1,
+                                         size=tw.n_parameters(16, 3))
+    start = cost.value_and_grad(x0)[0]
+    K.reset_launches()
+    out, dt = timed(lambda: tw.run_wssvqe(model, 3, 3,
+                                          maxiter=WSS_BFGS_ITERS,
+                                          device=DEVICE))
+    launches = dict(K.LAUNCHES)
+    lam = out["exact_eigenvalues"]
+    d_lam = float(np.max(np.abs(np.asarray(lam) - r["eigenvalues"])))
+    bound = float(np.dot(weights, lam[:3]))
+    fun = float(out["opt_result"].fun)
+    print(f"WSSVQE TFIM-16 run_wssvqe on {card}: {dt:.2f} s for "
+          f"{out['opt_result'].nit} BFGS iterations, "
+          f"{out['opt_result'].nfev} evaluations "
+          f"({dt / out['opt_result'].nfev:.3f} s each with the callbacks "
+          f"and the float64 eigsh); weighted cost {start!r} -> {fun!r}, "
+          f"bound sum w lambda {bound!r}; eigenvalues {list(lam)} (JAX f64 "
+          f"{r['eigenvalues']}, max|d| {d_lam:.3e}); final energies "
+          f"{out['final_energies']}, fidelities "
+          f"{[out['fidelity_lists'][f'fidelity_circ_{k}'][-1] for k in range(3)]}")
+    check(d_lam <= 1e-8, "WSSVQE TFIM-16 eigenvalues off the reference")
+    check(fun < start, "WSSVQE TFIM-16: BFGS did not lower the cost")
+    check(fun >= bound - TOL_WSS_BOUND, "WSSVQE TFIM-16 below sum w lambda")
+    wss_launches("TFIM-16 run", {k: int(v > 0) for k, v in launches.items()},
+                 WSS_GROUPED, 1)
+
+    # TFIM N = 20, 2 states, depth 3: the streaming route
+    wss_point("TFIM-20", tw.ising(20), ref["tfim20"], card)
+    torch.cuda.empty_cache()
+
+
+def phase_native(build, h16, card):
+    """The native integral engine (phase 19): its build, its integrals
+    against the numpy ones on H2O and LiH, and the engine and seconds of
+    the H16 set-up child (phase 14)."""
+    import platform
+    import numpy as np
+    from openvqe_tpu_torch import native
+    from openvqe_tpu_torch.chem import integrals as I
+    from openvqe_tpu_torch.chem.basis import build_shells
+    check(build is not None and native.available(),
+          "the native engine is off on this host")
+    info = {}
+    for line in Path("/proc/cpuinfo").read_text().splitlines():
+        key, _, value = line.partition(":")
+        info.setdefault(key.strip(), value.strip())
+    cpu = " ".join(f"{k} {info[k]}" for k in (
+        "model name", "vendor_id", "cpu family", "model") if info.get(k))
+    host = (f"host CPU {cpu or platform.processor() or 'not named'}, "
+            f"{os.cpu_count()} cores")
+    print(f"native engine {build['lib']}: g++ "
+          f"{'found the library' if build['cached'] else 'build'} "
+          f"{build['seconds']:.2f} s ({host})")
+    for name, geom in NATIVE_MOLECULES.items():
+        shells, charges, coords = build_shells(geom, "sto-3g")
+        (S, T, V), t_nat = timed(native.one_electron, shells, charges,
+                                 coords)
+        eri, t_eri = timed(native.eri, shells)
+        t0 = time.time()
+        ref = dict(zip(("S", "T"), I.overlap_kinetic(shells)),
+                   V=I.nuclear_attraction(shells, charges, coords),
+                   ERI=I.electron_repulsion(shells))
+        t_np = time.time() - t0
+        got = {"S": S, "T": T, "V": V, "ERI": eri}
+        errs = {k: float(np.max(np.abs(got[k] - ref[k]))) for k in got}
+        print(f"native {name}/STO-3G ({len(S)} functions): max|native - "
+              f"numpy| {errs}; native {t_nat + t_eri:.4f} s, numpy "
+              f"{t_np:.3f} s ({host})")
+        for k, tol in TOL_NATIVE.items():
+            check(errs[k] <= tol, f"native {name} {k} off the numpy one")
+    check(h16.get("engine") == "native",
+          f"the H16 set-up ran the {h16.get('engine')} integrals")
+    secs = h16["seconds"]
+    print(f"H16 set-up child: {h16['engine']} integrals, "
+          f"{'cold' if h16['cold'] else 'cached'}; "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items())
+          + f"; {sum(secs.values()):.2f} s in all ({host})")
+
 
 def main():
     if sys.argv[1:2] == ["--h16-setup"] and len(sys.argv) == 3:
@@ -2685,14 +2966,14 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.time()
     try:
-        phase_build()
+        native_build = phase_build()
         card = card_line()
     except Exception as exc:  # the build failing ends the run
         print(f"FAILED build: {exc!r}", file=sys.stderr)
         return 1
     h16_setup_run = start_h16_setup()
     try:
-        return run_phases(torch, card, t_start, h16_setup_run)
+        return run_phases(torch, card, t_start, h16_setup_run, native_build)
     finally:
         proc = h16_setup_run[0]
         if proc is not None and proc.poll() is None:
@@ -2700,8 +2981,8 @@ def main():
             proc.wait()
 
 
-def run_phases(torch, card, t_start, h16_setup_run):
-    """Phases 2-17; the closing lines when all passed."""
+def run_phases(torch, card, t_start, h16_setup_run, native_build):
+    """Phases 2-19; the closing lines when all passed."""
     failures = []
     rows, launches = {}, {}
     ref = json.loads((ROOT / "tests" / "torch_h8_reference.json").read_text())
@@ -2713,10 +2994,12 @@ def run_phases(torch, card, t_start, h16_setup_run):
         (ROOT / "tests" / "torch_quccsd_reference.json").read_text())
     ref_battery = json.loads(
         (ROOT / "tests" / "torch_battery_reference.json").read_text())
+    ref_wssvqe = json.loads(
+        (ROOT / "tests" / "torch_wssvqe_reference.json").read_text())
     t0 = time.time()
     h8 = h8_problem()
     print(f"H8 set-up (chemistry, operators; host) {time.time() - t0:.2f} s")
-    h10, routes = {}, {}
+    h10, routes, h16_info = {}, {}, {}
 
     def pick(counts, names):
         return {k: counts[k] for k in names}
@@ -2751,10 +3034,13 @@ def run_phases(torch, card, t_start, h16_setup_run):
         ("H10 energy entry point", lambda: phase_h10_xl(h10["problem"],
                                                         ref10, card)),
         ("H16 30-qubit main path", lambda: launches.update(
-            phase_h16(h16_setup_run, card))),
+            phase_h16(h16_setup_run, card, h16_info))),
         ("H4 QUCCSD", lambda: phase_quccsd(ref_qucc, card)),
         ("H8 per-term route", lambda: phase_per_term(h8, ref_qucc, card)),
         ("quantum-battery app", lambda: phase_battery(ref_battery, card)),
+        ("WSSVQE", lambda: phase_wssvqe(ref_wssvqe, card)),
+        ("native integral engine", lambda: phase_native(native_build,
+                                                        h16_info, card)),
     )
     for phase, fn in phases:
         t = time.time()

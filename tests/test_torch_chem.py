@@ -1,20 +1,22 @@
 """The port's chemistry (openvqe_tpu_torch/chem, models/molecule_factory)
 against the JAX package's own chemistry on the CPU, on the same molecules.
 
-The port copies the numpy chemistry with two changes: it has no C++ ERI
-branch, and it fixes the sign of every molecular orbital
-(``chem.scf.fix_mo_phases``).  So the AO integrals, the HF, MP2 and FCI
-energies, the orbital energies and the natural occupations agree as they
-are; the MO integrals and the 1-RDM agree once the same sign fix is applied
-to the JAX package's orbitals; and the qubit Hamiltonians, whose spectra do
-not depend on orbital signs, have the same spectrum.  The JAX side runs its
-numpy integral engine (C++ engine off) unless a case says otherwise.
+The port copies the chemistry with one change: it fixes the sign of every
+molecular orbital (``chem.scf.fix_mo_phases``).  So on the same integral
+engine the AO integrals, the HF, MP2 and FCI energies, the orbital energies
+and the natural occupations agree as they are; the MO integrals and the
+1-RDM agree once the same sign fix is applied to the JAX package's
+orbitals; and the qubit Hamiltonians, whose spectra do not depend on
+orbital signs, have the same spectrum.  Both sides run their numpy
+integral engines (C++ engines off) unless a case says otherwise;
+``tests/test_torch_native.py`` holds the port's C++ engine.
 """
 
 import numpy as np
 import pytest
 
 from openvqe_tpu import native as jax_native
+from openvqe_tpu_torch import native as port_native
 from openvqe_tpu.chem import basis as jbasis
 from openvqe_tpu.chem import frontend as jfrontend
 from openvqe_tpu.chem import integrals as jints
@@ -35,8 +37,10 @@ TOL = 1e-10
 
 
 @pytest.fixture
-def jax_numpy_engine(monkeypatch):
+def numpy_engines(monkeypatch):
+    """Both packages' compute_molecule on their numpy integrals."""
     monkeypatch.setattr(jax_native, "available", lambda: False)
+    monkeypatch.setattr(port_native, "available", lambda: False)
 
 
 def _spec(symbol):
@@ -72,7 +76,7 @@ def test_ao_integrals_match_jax(symbol):
 
 
 @pytest.mark.parametrize("symbol", MOLECULES)
-def test_energies_and_rdm_match_jax(symbol, jax_numpy_engine):
+def test_energies_and_rdm_match_jax(symbol, numpy_engines):
     spec = _spec(symbol)
     args = (spec.geometry, spec.basis, spec.spin, spec.charge)
     t = tfrontend.compute_molecule(*args)
@@ -94,15 +98,18 @@ def test_energies_and_rdm_match_jax(symbol, jax_numpy_engine):
 
 @pytest.mark.parametrize("engine", ["numpy", "native"])
 @pytest.mark.parametrize("symbol", MOLECULES)
-def test_mo_integrals_match_jax_after_phase_fix(symbol, engine):
+def test_mo_integrals_match_jax_after_phase_fix(symbol, engine,
+                                                monkeypatch):
     """The JAX package's orbitals, signs fixed as the port fixes them, give
-    the port's MO integrals; with either of its integral engines, whose
-    unfixed orbital signs may differ.  The C++ engine's AO integrals differ
+    the port's MO integrals, each package on the same integral engine; with
+    either engine, whose unfixed orbital signs may differ.  The C++ engine's AO integrals differ
     from the numpy ones in the last bits, and the SCF, converged to its own
     threshold, carries that to ~1e-10 in the orbitals: that case is held
     to 1e-8, far below what one flipped orbital sign moves (~0.1)."""
     if engine == "native" and not jax_native.available():
         pytest.skip("the JAX package's C++ integral engine did not build")
+    if engine == "numpy":
+        monkeypatch.setattr(port_native, "available", lambda: False)
     spec = _spec(symbol)
     S, T, V, eri, e_nuc = _jax_ao(spec, engine)
     n_elec = sum(1 for _ in spec.geometry) - spec.charge   # H atoms only
@@ -117,7 +124,7 @@ def test_mo_integrals_match_jax_after_phase_fix(symbol, engine):
 
 @pytest.mark.parametrize("active", [False, True])
 @pytest.mark.parametrize("symbol", MOLECULES)
-def test_hamiltonian_spectrum_matches_jax(symbol, active, jax_numpy_engine,
+def test_hamiltonian_spectrum_matches_jax(symbol, active, numpy_engines,
                                           monkeypatch):
     """Orbital signs change the Pauli coefficients, not the spectrum: the
     JAX package's qubit Hamiltonian on its own chemistry and the port's have

@@ -44,7 +44,11 @@ def test_port_imports_without_jax_or_reference():
               "apps.quantum_batteries.cs_vqe",
               "apps.quantum_batteries.rotoselect",
               "apps.quantum_batteries.derive_contextual_subspace",
-              "apps.quantum_batteries.plot_cs_scaling"):
+              "apps.quantum_batteries.plot_cs_scaling",
+              "algorithms.wssvqe", "native", "chem.ccsd", "chem.symmetry",
+              "chem.fit_sto3g", "ops.screening", "config",
+              "mains.main_single_double", "mains.main_triple",
+              "apps.quantum_batteries.li2fesio4"):
         assert f"openvqe_tpu_torch.{m}" in mods, m
     code = (
         "import sys\n"
@@ -81,6 +85,16 @@ def test_port_imports_without_jax_or_reference():
         "from openvqe_tpu_torch.apps.quantum_batteries.utils import "
         "load_cs_hams\n"
         "assert sorted(load_cs_hams()) == [2, 3, 4, 5, 6, 7, 8]\n"
+        "from openvqe_tpu_torch.algorithms import wssvqe\n"
+        "from openvqe_tpu_torch.sim.objective import objective_expectation\n"
+        "for f in ('ising', 'molecule_generator', 'n_parameters', 'hea_ops',\n"
+        "          'hea_state', 'calculate_eigen_vectors', 'run_wssvqe'):\n"
+        "    assert callable(getattr(wssvqe, f)), f\n"
+        "from openvqe_tpu_torch import native\n"
+        "assert native.SOURCE.is_file() and native.BUILD_DIR.name == 'build'\n"
+        "from openvqe_tpu_torch.config import VQEConfig\n"
+        "assert VQEConfig().build().__module__.startswith("
+        "'openvqe_tpu_torch.')\n"
         "from openvqe_tpu_torch.sim import oracle\n"
         "assert callable(oracle.sparse_energy)\n"
         "assert all(p.is_file() for p in K.SOURCES.values())\n"

@@ -14,7 +14,8 @@ B5 at every compiled PER, term tile and REAL with acc None and given, bit
 for bit across PER and tiles) and the two
 pool-overlap kernels (E14 and E15 at every compiled PER, term tile and
 REAL, also on states with +-0 entries and E14 at n = 8), and B4 and D10 on
-the battery app's contextual Hamiltonians (the 2-qubit one diagonal only).  A
+the battery app's contextual Hamiltonians (the 2-qubit one diagonal only),
+and WSSVQE's weighted cost (D10 and B4, or D12 herm and B6).  A
 CUDA kernel has no CPU mode, so these tests are marked ``cuda`` and skip
 on a machine without a card; on one they run with
 ``python -m pytest tests/test_torch_kernels.py -q``.
@@ -1253,3 +1254,36 @@ def test_pool_wrappers_reject_what_the_kernels_do_not_take(dev):
     bo = st.bucket_operands(st.build_pool_buckets(sd)[0], dev)
     with pytest.raises(ValueError):              # chunk below 2^8
         K.pool_bucketed(sigma, psi, bo)
+
+
+@pytest.mark.parametrize("stream", ["0", "force"])
+def test_wssvqe_weighted_cost_matches_plain_version(dev, stream,
+                                                    monkeypatch):
+    """WSSVQE's fused weighted cost on the card (D10 forward and B4
+    backward per group; D12 herm and B6 under OVQE_STREAM=force) against
+    the plain versions on the CPU: the energies within 1e-5, the
+    gradient within 1e-4, and only the route's kernels launch."""
+    from openvqe_tpu_torch.algorithms import wssvqe as tw
+    monkeypatch.setenv("OVQE_STREAM", stream)
+    n, depth, n_states = N, 3, 3
+    model = tw.ising(n)
+    theta = np.random.default_rng(3).normal(
+        scale=0.5, size=tw.n_parameters(n, depth))
+    weights = [3.0, 2.0, 1.0]
+    want = tw.WeightedCost(model, n_states, depth, weights,
+                           device="cpu").value_and_grad(theta)
+    cost = tw.WeightedCost(model, n_states, depth, weights, device=dev)
+    assert cost.obj.stream == (stream == "force")
+    K.reset_launches()
+    total, grad, energies = cost.value_and_grad(theta)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(energies, want[2], rtol=0, atol=1e-5)
+    assert abs(total - want[0]) <= 1e-5 * sum(weights)
+    np.testing.assert_allclose(grad, want[1], rtol=0, atol=1e-4)
+    if cost.obj.stream:                 # one launch a K class
+        used, per_state = (("expect_bucketed", "ham_bucketed"),
+                           len(cost.obj.hclasses))
+    else:
+        used, per_state = ("expectation", "ham_apply"), 1
+    assert {k: K.LAUNCHES[k] for k in K.KERNELS} == {
+        k: n_states * per_state * (k in used) for k in K.KERNELS}
