@@ -190,11 +190,34 @@ imports nothing of JAX and nothing of ``openvqe_tpu``.  Phases:
 19. the native integral engine: the seconds of its g++ build, its
    integrals against the numpy ones on H2O and LiH at STO-3G
    (``tests/test_native.py``'s tolerances), and which engine the H16
-   set-up child of phase 14 ran, with its seconds.
+   set-up child of phase 14 ran, with its seconds;
+20. the multi-device engine (``openvqe_tpu_torch/parallel/``) on H12/STO-3G
+   (a chain at 1.0 Angstrom, 24 qubits, UCCSD with the MP2 guess, as
+   ``benchmarks/bench_large_vqe.py::bench_chain(12)`` builds it): the
+   problem is built once on the host and handed to the ranks through a
+   temporary directory; the single-device port runs it first on its
+   ``OVQE_STREAM_FUSE=0`` route (A2, C8, B6) with the E15 screen.  Then
+   the ranks (this script with ``--sharded-rank``, one process a rank, a
+   FileStore, a timeout on every collective and on the run) on 1 rank
+   over NCCL, 2 and 4 ranks over gloo (all on the one card: NCCL refuses
+   two ranks on one device; 2 ranks over NCCL where the machine has two
+   cards): ``energy_and_grad`` at the MP2 guess and at a seeded theta,
+   the forward state and the sharded pool screen, with the counters set
+   to 0 just before and read just after (A2, C8, B6 and E15 launched on
+   every rank, no other kernel), each against the single-device port
+   (|dE| <= 1e-5 Ha, max|dg| <= 1e-4, screen <= 1e-4, gathered state
+   <= 1e-6), the ranks' values equal and their theta hashes equal; then
+   each rank's A2, C8, B6 and E15 against their plain versions on its own
+   operands (lifted pairs of its longest nonlocal run); seconds,
+   exchanges and bytes per call, and peak device memory per rank.  Ranks
+   that share one card, with exchanges staged through the host, are not
+   a multi-card measurement.
 
 The last three lines of standard output are the card's name and power
 limit, a JSON ``{"kernels": [...]}`` line (one row per kernel, each
-launched on the path its ``launches_on`` names), and the JSON ``{"ok":
+launched on the path its ``launches_on`` names; A2, C8, B6 and E15 also
+carry phase 20's launches per run and rank, ``launches_sharded``), and
+the JSON ``{"ok":
 true, "device": ...}`` line.  Any failed phase, or a kernel that no phase
 launched, exits non-zero without them.
 """
@@ -2945,10 +2968,430 @@ def phase_native(build, h16, card):
           + f"; {sum(secs.values()):.2f} s in all ({host})")
 
 
+# --------------------------------------------------- sharded H12 (phase 20)
+
+H12_SPACING = 1.0        # Angstrom: benchmarks/bench_large_vqe.py bench_chain
+SHARDED_RUNS = (("nccl", 1), ("gloo", 2), ("gloo", 4))
+SHARDED_NCCL2 = ("nccl", 2)     # run (d): only where the machine has 2 cards
+SHARDED_TIMEOUT = 240   # s for one run's ranks, their start-up included
+SHARDED_COLLECTIVE_TIMEOUT = 120    # s for any one collective
+TOL_SH_E = 1e-5         # Ha, against the single-device port (PERF.md 2)
+TOL_SH_G = 1e-4
+TOL_SH_V = 1e-4         # on the ADAPT screen
+TOL_SH_PSI = 1e-6       # on the gathered state (tests/test_streaming.py:52)
+SH_PARITY_GROUPS = 16   # groups of one run held against the plain version
+SH_PARITY_BUCKETS = 4   # buckets of one class held against the plain version
+SHARDED = ("rot_stream", "adjoint_stream", "ham_bucketed", "pool_bucketed")
+
+
+def h12_problem():
+    """H12/STO-3G, the chain at 1.0 Angstrom, as ``benchmarks/
+    bench_large_vqe.py::bench_chain(12)`` builds it (the JAX package's
+    ``h12_24q_iter`` row): JW Hamiltonian, UCCSD generators with the MP2
+    guess, and their JW images as the ADAPT pool."""
+    import numpy as np
+    from openvqe_tpu_torch.chem.frontend import compute_molecule
+    from openvqe_tpu_torch.ops.hamiltonian import (
+        ElectronicStructureHamiltonian, convert_to_h_integrals)
+    from openvqe_tpu_torch.ops.transforms import transform_operator
+    from openvqe_tpu_torch.ops.uccsd import get_cluster_ops_and_init_guess
+    md = compute_molecule([("H", (0, 0, H12_SPACING * k)) for k in range(12)],
+                          "sto-3g", run_fci_flag=False)
+    hpq, hpqrs = convert_to_h_integrals(md.one_body_integrals,
+                                        md.two_body_integrals)
+    ham = ElectronicStructureHamiltonian(
+        hpq, hpqrs, md.nuclear_repulsion).to_spin("JW")
+    n = ham.nbqbits
+    eps = [e for e in md.orbital_energies for _ in range(2)]
+    ops, theta0, hf = get_cluster_ops_and_init_guess(md.n_elec, [0] * n, eps,
+                                                     hpqrs)
+    pool = [transform_operator(op, "JW") for op in ops]
+    theta0 = np.asarray(theta0, np.float64)
+    theta1 = theta0 + np.random.default_rng(12).normal(scale=0.02,
+                                                       size=len(theta0))
+    return dict(ham=ham, gens=[p * 1j for p in pool], pool=pool,
+                theta0=theta0, theta1=theta1, hf=int(hf), n=n,
+                HF=float(md.info["HF"]))
+
+
+def _sync(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _head_groups(go, m):
+    """The first m groups of a ``GroupOperands`` (their own graphs)."""
+    import dataclasses
+    cut = {f: getattr(go, f)[:m].contiguous()
+           for f in ("x", "z", "coef", "coef_im", "k_live", "z_pair")}
+    return dataclasses.replace(go, op=go.op[:m], graphs={}, **cut)
+
+
+def _head_buckets(bo, B):
+    """The first B buckets of a ``BucketOperands``."""
+    import dataclasses
+    cut = {f: getattr(bo, f)[:B].contiguous()
+           for f in ("x_hi", "x_lo", "act", "z", "coef", "coef_im",
+                     "k_live")}
+    return dataclasses.replace(bo, op=None if bo.op is None else bo.op[:B],
+                               act_host=bo.act_host[:B], **cut)
+
+
+def sharded_parity(obj, bound, screen, seed):
+    """A2, C8, B6 and E15 on this rank's own operands against their plain
+    versions on the same card and inputs (seeded states of the shapes the
+    main path gives them): A2 and C8 on the first SH_PARITY_GROUPS groups
+    of the longest nonlocal run (lifted, 2^(L+1) amplitudes; the local run
+    on one rank), B6 on the first SH_PARITY_BUCKETS buckets of each K
+    class of the first nonlocal x_dev class (with a given acc), E15 on the
+    first buckets of the pool's first nonlocal class.  Returns the max
+    |kernel - plain| per kernel."""
+    import numpy as np
+    import torch
+    from openvqe_tpu_torch.sim import kernels as K
+    from openvqe_tpu_torch.sim import streaming as st
+    dev = obj.device
+
+    def rand(n, s):
+        v = np.random.default_rng(seed + s).normal(size=(2, 1 << n))
+        return torch.as_tensor(v / np.linalg.norm(v), dtype=obj.dtype,
+                               device=dev)
+
+    def err(a, b):
+        return float((a - b).abs().max())
+
+    x_dev, go = max(bound.fwd_ops, key=lambda r: (bool(r[0]), r[1].G))
+    go = _head_groups(go, SH_PARITY_GROUPS)
+    fm = bound._fmode
+    psi, lam = rand(go.n, 1), rand(go.n, 2)
+    ang = torch.as_tensor(np.random.default_rng(seed).normal(
+        scale=0.3, size=go.G), dtype=obj.dtype, device=dev)
+    out = {"lifted": bool(x_dev), "groups": go.G, "n_eff": go.n}
+    out["rot_stream"] = err(K.rot_stream(psi, ang, go, fm),
+                            st.rot_stream_ref(psi, ang, go, fm))
+    got = K.adjoint_stream(psi, lam, ang, go, fm)
+    ref = st.adjoint_stream_ref(psi, lam, ang, go, fm)
+    out["adjoint_stream"] = max(err(a, b) for a, b in zip(got, ref))
+    v, classes = next(((v, c) for v, c in obj.ham_parts if v),
+                      obj.ham_parts[0])
+    phi, acc = rand(obj.L, 3), rand(obj.L, 4)
+    out["ham_bucketed"] = max(
+        err(K.ham_bucketed(phi, acc, b), st.ham_bucketed_ref(phi, acc, b))
+        for b in (_head_buckets(c, SH_PARITY_BUCKETS) for c in classes))
+    v, bo = next(((v, b) for v, b in screen.parts if v), screen.parts[0])
+    bo = _head_buckets(bo, SH_PARITY_BUCKETS)
+    sigma = rand(obj.L, 5)
+    out["pool_bucketed"] = err(K.pool_bucketed(sigma, phi, bo),
+                               st.pool_bucketed_ref(sigma, phi, bo))
+    out["pool_real"] = bool(bo.real)
+    _sync(dev)
+    return out
+
+
+def sharded_rank(run_dir):
+    """One rank of a phase-20 run (``python3 chip_smoke.py --sharded-rank
+    DIR``, started by ``run_sharded``): join the group, drive the sharded
+    main path, write the result."""
+    import datetime
+    import pickle
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from openvqe_tpu_torch.parallel import sharded as sh
+    from openvqe_tpu_torch.parallel import sharded_stream as shs
+    from openvqe_tpu_torch.sim import kernels as K
+    run_dir = Path(run_dir)
+    cfg = pickle.loads((run_dir.parent / "config.pkl").read_bytes())
+    rank, world = int(os.environ["OVQE_RANK"]), int(os.environ["OVQE_WORLD"])
+    backend = os.environ["OVQE_BACKEND"]
+    torch.set_num_threads(1)
+    dev = torch.device(cfg["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    dist.init_process_group(
+        backend, rank=rank, world_size=world,
+        store=dist.FileStore(str(run_dir / "store"), world),
+        timeout=datetime.timedelta(seconds=SHARDED_COLLECTIVE_TIMEOUT))
+    try:
+        mesh = sh.make_mesh(world, device=None if dev.type == "cuda"
+                            else dev)
+        p = cfg["problem"]
+        t = time.time()
+        obj = shs.make_sharded_objective(p["ham"], mesh,
+                                         chunk_bits=cfg["chunk_bits"])
+        bound = obj.bind(p["gens"], p["hf"])
+        screen = shs.build_sharded_stream_pool_gradient_fn(p["pool"], obj)
+        t_build = time.time() - t
+        out = {"rank": rank, "stream": obj.stream, "L": obj.L,
+               "runs": [(x, go.G) for x, go in bound.fwd_ops],
+               "classes": [v for v, _ in obj.ham_parts],
+               "pool_classes": [v for v, _ in screen.parts],
+               "real": [bo.real for _, c in obj.ham_parts for bo in c]
+               + [bo.real for _, bo in screen.parts],
+               "t_build": t_build}
+        # the main path, counters set to 0 just before and read just after
+        _sync(dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        K.reset_launches()
+        mesh.reset_stats()
+        t = time.time()
+        out["e0"], out["g0"] = bound.energy_and_grad(p["theta0"])
+        out["e1"], out["g1"] = bound.energy_and_grad(p["theta1"])
+        psi1 = bound.forward(p["theta1"])
+        out["v1"] = screen(psi1)
+        _sync(dev)
+        out["t_main"] = time.time() - t
+        out["launches"] = dict(K.LAUNCHES)
+        out["stats_main"] = dict(mesh.stats)
+        # one more call of each, timed, with its exchanges
+        for key, fn in (("call", lambda: bound.energy_and_grad(p["theta1"])),
+                        ("screen", lambda: screen(psi1))):
+            mesh.reset_stats()
+            _sync(dev)
+            t = time.perf_counter()
+            fn()
+            _sync(dev)
+            out["t_" + key] = time.perf_counter() - t
+            out["stats_" + key] = dict(mesh.stats)
+        if dev.type == "cuda":
+            out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        # one exchange alone of each block the main path sends: psi's
+        # (forward, H pass, screen) and p with lambda's (adjoint)
+        for planes in (2, 4) if world > 1 else ():
+            blk = torch.zeros((planes, 1 << obj.L), dtype=obj.dtype,
+                              device=dev)
+            sh.exchange(blk, 1, mesh)
+            _sync(dev)
+            t = time.perf_counter()
+            for _ in range(3):
+                sh.exchange(blk, 1, mesh)
+            _sync(dev)
+            out[f"t_exchange_{planes}"] = (time.perf_counter() - t) / 3
+        full = sh.gather_state(psi1, mesh)
+        if rank == 0:
+            ref = torch.from_numpy(np.load(run_dir.parent / "ref_psi.npy"))
+            out["dpsi"] = float((full.cpu().double() - ref.double()
+                                 ).abs().max())
+            out["norm1"] = float(torch.sum(full.double() ** 2))
+        del full
+        out["hash"] = sh.check_replicated(p["theta1"] - 0.1 * out["g1"],
+                                          mesh)
+        out["parity"] = sharded_parity(obj, bound, screen, 100 + rank)
+        (run_dir / f"result_{rank}.pkl").write_bytes(pickle.dumps(out))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def run_sharded(tmp, backend, world, timeout=SHARDED_TIMEOUT):
+    """Start ``world`` ranks (this script, ``--sharded-rank``) on
+    ``backend`` meeting through a FileStore under ``tmp``; wait for them
+    (a rank that fails or the time limit kills the others) and return
+    their results."""
+    import pickle
+    run_dir = Path(tmp) / f"{backend}{world}"
+    run_dir.mkdir()
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, OVQE_RANK=str(r), OVQE_WORLD=str(world),
+                   OVQE_BACKEND=backend, OMP_NUM_THREADS="1",
+                   LOCAL_RANK=str(r if backend == "nccl" else 0))
+        # the ranks of one machine meet on the loopback interface
+        env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        env.setdefault("NCCL_SOCKET_IFNAME", "lo")
+        with open(run_dir / f"log_{r}.txt", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--sharded-rank", str(run_dir)], env=env, stdout=log,
+                stderr=subprocess.STDOUT, cwd=str(ROOT)))
+    deadline = time.time() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) \
+                    or time.time() > deadline:
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        for r, c in enumerate(codes):
+            print(f"--- {backend} rank {r} of {world} (exit {c}) ---\n"
+                  + (run_dir / f"log_{r}.txt").read_text()[-3000:],
+                  file=sys.stderr)
+        raise PhaseError(f"sharded run {backend} x {world}: exit codes "
+                         f"{codes}")
+    return [pickle.loads((run_dir / f"result_{r}.pkl").read_bytes())
+            for r in range(world)]
+
+
+def phase_sharded(card, device=DEVICE, problem=None, runs=None,
+                  chunk_bits=None):
+    """H12 at 24 qubits sharded over 1 (NCCL), 2 and 4 (gloo) ranks on one
+    card, against the single-device port (phase 20).  Returns each run's
+    launches of A2, C8, B6 and E15 per rank."""
+    import pickle
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from openvqe_tpu_torch.sim import grouped as gr
+    from openvqe_tpu_torch.sim import streaming as st
+    from openvqe_tpu_torch.sim.compile import compile_pool
+    from openvqe_tpu_torch.sim.objective import VQEObjective
+    t_phase = time.time()
+    dev = torch.device(device)
+    if problem is None:
+        problem = h12_problem()
+        print(f"H12 set-up (host) {time.time() - t_phase:.2f} s: "
+              f"{problem['n']} qubits, {len(problem['ham'])} H terms, "
+              f"{len(problem['gens'])} generators")
+    if runs is None:
+        runs = SHARDED_RUNS
+        if torch.cuda.device_count() >= 2:
+            runs = runs + (SHARDED_NCCL2,)
+        else:
+            print(f"sharded run (d), 2 ranks on NCCL: not run, this "
+                  f"machine has {torch.cuda.device_count()} card and NCCL "
+                  f"refuses two ranks on one device")
+    # the single-device port on its per-group streaming route (A2, C8, B6)
+    # and the E15 screen, on the same card and inputs
+    t = time.time()
+    with env_vars(OVQE_STREAM_FUSE="0"):
+        obj = VQEObjective(problem["ham"], device=dev, chunk_bits=chunk_bits)
+        b = obj.bind(problem["gens"], problem["hf"])
+    check(obj.stream and not obj.fuse, "the single-device reference is not "
+          "on the per-group streaming route")
+    gpool = gr.group_pool(compile_pool(problem["pool"], problem["n"]))
+    screen = st.build_streaming_pool_gradient_fn(
+        gpool, obj.ham_apply, fuse=True, device=dev, chunk_bits=chunk_bits)
+    ref = {}
+    ref["e0"], ref["g0"] = b.energy_and_grad(problem["theta0"])
+    ref["e1"], ref["g1"] = b.energy_and_grad(problem["theta1"])
+    psi1 = b.forward(problem["theta1"])
+    ref["v1"] = screen(psi1)
+    _sync(dev)
+    t_build = time.time() - t
+    ts = []
+    for _ in range(3):
+        t = time.perf_counter()
+        b.energy_and_grad(problem["theta1"])
+        _sync(dev)
+        ts.append(time.perf_counter() - t)
+    t = time.perf_counter()
+    screen(psi1)
+    _sync(dev)
+    t_scr = time.perf_counter() - t
+    print(f"sharded H12 single-device reference on {card}: set-up and "
+          f"first calls {t_build:.2f} s; E(MP2) {ref['e0']!r} (HF "
+          f"{problem['HF']!r}); energy_and_grad {sorted(ts)[1]:.3f} s a call "
+          f"(median of 3), E15 screen {t_scr:.3f} s")
+    tmp = Path(tempfile.mkdtemp(prefix="ovqe_sharded_"))
+    try:
+        np.save(tmp / "ref_psi.npy", psi1.detach().cpu().numpy())
+        del obj, b, screen, psi1
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        (tmp / "config.pkl").write_bytes(pickle.dumps(dict(
+            problem=problem, device=str(dev), chunk_bits=chunk_bits)))
+        counts = {}
+        for backend, world in runs:
+            t = time.time()
+            res = run_sharded(tmp, backend, world)
+            counts[f"{backend} x {world}"] = check_sharded(
+                res, ref, backend, world, time.time() - t, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"sharded H12 phase {time.time() - t_phase:.1f} s in all")
+    return counts
+
+
+def check_sharded(res, ref, backend, world, secs, card):
+    """Phase 20's checks and lines for one run; returns the launches of
+    A2, C8, B6 and E15 per rank."""
+    import numpy as np
+    from openvqe_tpu_torch.sim import kernels as K
+    label = f"sharded H12 {backend} x {world}"
+    r0 = res[0]
+    check(all(r["stream"] for r in res), f"{label}: not the streaming "
+          f"composition")
+    # H and the pool are real: the rank signs keep B6's and E15's REAL
+    check(all(all(r["real"]) for r in res), f"{label}: a rank's signed "
+          f"operands lost the real certificate")
+    de = max(abs(r0["e0"] - ref["e0"]), abs(r0["e1"] - ref["e1"]))
+    dg = max(float(np.max(np.abs(r0[k] - ref[k]))) for k in ("g0", "g1"))
+    dv = float(np.max(np.abs(r0["v1"] - ref["v1"])))
+    for r in res[1:]:
+        check(r["e0"] == r0["e0"] and r["e1"] == r0["e1"]
+              and np.array_equal(r["g1"], r0["g1"])
+              and np.array_equal(r["v1"], r0["v1"])
+              and r["hash"] == r0["hash"],
+              f"{label}: rank {r['rank']} holds other values than rank 0")
+    nonlocal_runs = sum(1 for x, _ in r0["runs"] if x)
+    print(f"{label} on {card}: L = {r0['L']}, {len(r0['runs'])} runs "
+          f"({nonlocal_runs} nonlocal), H x_dev classes {r0['classes']}, "
+          f"pool classes {r0['pool_classes']}; wall {secs:.1f} s "
+          f"(ranks' start-up, set-up {max(r['t_build'] for r in res):.1f} s "
+          f"and main path {max(r['t_main'] for r in res):.2f} s)")
+    print(f"{label}: |dE| {de:.3e} Ha, max|dg| {dg:.3e}, screen max|dv| "
+          f"{dv:.3e}, gathered max|dpsi| {r0['dpsi']:.3e} (|psi|^2 - 1 = "
+          f"{r0['norm1'] - 1:+.3e}); theta hash {r0['hash']} on every rank")
+    sc, ss = r0["stats_call"], r0["stats_screen"]
+    print(f"{label}: energy_and_grad "
+          + ", ".join(f"{r['t_call']:.3f}" for r in res)
+          + f" s a call by rank, {sc['exchanges']} exchanges and "
+          f"{sc['exchange_bytes'] / 2 ** 20:.1f} MiB sent a call by each "
+          f"rank, {sc['all_reduces']} all-reduces; screen "
+          + ", ".join(f"{r['t_screen']:.3f}" for r in res)
+          + f" s, {ss['exchanges']} exchanges, "
+          f"{ss['exchange_bytes'] / 2 ** 20:.1f} MiB; peak device memory "
+          + ", ".join(f"{r.get('peak_bytes', 0) / 2 ** 30:.2f}" for r in res)
+          + " GiB by rank")
+    if world > 1:
+        n_fwd = sum(1 for x, _ in r0["runs"] if x)
+        n_h = sum(1 for v in r0["classes"] if v)
+        t2, t4 = r0["t_exchange_2"], r0["t_exchange_4"]
+        print(f"{label}: one exchange alone, rank 0: psi's block "
+              f"{1e3 * t2:.1f} ms, p and lambda's {1e3 * t4:.1f} ms; "
+              f"{1e3 * (n_fwd * t2 + n_fwd * t4 + n_h * t2):.0f} ms of a "
+              f"call's {1e3 * r0['t_call']:.0f} ms at that rate")
+    par = [r["parity"] for r in res]
+    print(f"{label}: kernels against their plain versions on each rank's "
+          f"operands ({par[0]['groups']} groups of a "
+          f"{'lifted' if par[0]['lifted'] else 'local'} run at "
+          f"{par[0]['n_eff']} qubits): "
+          + ", ".join(f"{k} {max(p[k] for p in par):.2e}" for k in SHARDED)
+          + f"; launches by rank " + "; ".join(
+              ", ".join(f"{k} {r['launches'][k]}" for k in SHARDED)
+              for r in res))
+    check(de <= TOL_SH_E and dg <= TOL_SH_G and dv <= TOL_SH_V
+          and r0["dpsi"] <= TOL_SH_PSI,
+          f"{label}: off the single-device port")
+    check(all(p[k] <= TOL_STATE for p in par for k in SHARDED),
+          f"{label}: a kernel disagrees with its plain version")
+    for r in res:
+        for k in K.KERNELS:
+            if k in SHARDED:
+                check(r["launches"][k] > 0, f"{label}: rank {r['rank']} "
+                      f"did not launch {k}")
+            else:
+                check(r["launches"][k] == 0, f"{label}: rank {r['rank']} "
+                      f"launched {k}, which the sharded path does not run")
+    return {k: [r["launches"][k] for r in res] for k in SHARDED}
+
+
 def main():
     if sys.argv[1:2] == ["--h16-setup"] and len(sys.argv) == 3:
         sys.path.insert(0, str(ROOT))
         return h16_setup(sys.argv[2])
+    if sys.argv[1:2] == ["--sharded-rank"] and len(sys.argv) == 3:
+        sys.path.insert(0, str(ROOT))
+        return sharded_rank(sys.argv[2])
     try:
         import torch
     except ImportError:
@@ -2982,7 +3425,7 @@ def main():
 
 
 def run_phases(torch, card, t_start, h16_setup_run, native_build):
-    """Phases 2-19; the closing lines when all passed."""
+    """Phases 2-20; the closing lines when all passed."""
     failures = []
     rows, launches = {}, {}
     ref = json.loads((ROOT / "tests" / "torch_h8_reference.json").read_text())
@@ -2999,7 +3442,7 @@ def run_phases(torch, card, t_start, h16_setup_run, native_build):
     t0 = time.time()
     h8 = h8_problem()
     print(f"H8 set-up (chemistry, operators; host) {time.time() - t0:.2f} s")
-    h10, routes, h16_info = {}, {}, {}
+    h10, routes, h16_info, sharded = {}, {}, {}, {}
 
     def pick(counts, names):
         return {k: counts[k] for k in names}
@@ -3041,6 +3484,7 @@ def run_phases(torch, card, t_start, h16_setup_run, native_build):
         ("WSSVQE", lambda: phase_wssvqe(ref_wssvqe, card)),
         ("native integral engine", lambda: phase_native(native_build,
                                                         h16_info, card)),
+        ("sharded H12", lambda: sharded.update(phase_sharded(card))),
     )
     for phase, fn in phases:
         t = time.time()
@@ -3057,6 +3501,10 @@ def run_phases(torch, card, t_start, h16_setup_run, native_build):
     for name, row in rows.items():
         row["launches"] = launches[name]
         row["launches_on"] = LAUNCHES_ON[name]
+        if name in SHARDED:
+            # phase 20's main path, per run and rank
+            row["launches_sharded"] = {run: c[name]
+                                       for run, c in sharded.items()}
     idle = sorted(set(LAUNCHES_ON) - {k for k, r in rows.items()
                                       if r["launches"] > 0})
     if idle:

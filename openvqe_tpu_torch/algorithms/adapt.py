@@ -17,8 +17,13 @@ printed lines:
   ``sim/eigensolver.py`` (dense ``eigh`` up to 6 qubits).
 
 ``device`` (default CUDA), ``dtype``, ``stream`` and ``chunk_bits`` go to
-the ``VQEObjective``; the tests run the loops on the CPU.  ``mesh`` is not
-ported (ROADMAP queue 9).
+the ``VQEObjective``; the tests run the loops on the CPU.  With ``mesh``
+(``parallel.sharded.Mesh``, one process per rank) the objective and the
+screen are the mesh's (``parallel/sharded_stream.py``), on the mesh's
+device: every rank runs the loop on replicated values, the states are the
+ranks' blocks, the Lanczos reference and the fidelities all-reduce their
+sums, only rank 0 prints, logs and writes checkpoints, and the final
+parameters are held equal across ranks (``check_replicated``).
 """
 
 from __future__ import annotations
@@ -48,32 +53,58 @@ from ..utils.sorted_gradient import (
 )
 
 
+def _mesh_fns(objective):
+    """(reduce, shard) of a sharded objective's mesh, (None, None) on one
+    device."""
+    mesh = getattr(objective, "mesh", None)
+    if mesh is None:
+        return None, None
+    from ..parallel.sharded import all_reduce_sum, shard_state
+    return (lambda t: all_reduce_sum(t, mesh),
+            lambda v: shard_state(v, mesh, objective.dtype))
+
+
 def exact_ground_state(hamiltonian_sp: PauliSum, max_qubits: int = 24,
                        objective: Optional[VQEObjective] = None
                        ) -> Optional[Tuple[float, torch.Tensor]]:
     """(E0, plane state) by Lanczos over the objective's H pass (dense
     ``eigh`` up to 6 qubits), on the objective's device (a new objective
-    runs on CUDA); None above ``max_qubits``."""
+    runs on CUDA); None above ``max_qubits``.  On a sharded objective the
+    state is this rank's block."""
     n = hamiltonian_sp.nbqbits
     if n > max_qubits:
         return None
     if objective is None:
         objective = VQEObjective(hamiltonian_sp, n)
+    reduce, shard = _mesh_fns(objective)
     if (1 << n) <= 64:
         w, v = np.linalg.eigh(hamiltonian_sp.to_matrix())
-        return float(w[0]), torch.as_tensor(
-            sv.complex_to_planes(v[:, 0]), dtype=objective.dtype,
-            device=objective.device)
+        planes = sv.complex_to_planes(v[:, 0])
+        return float(w[0]), (shard(planes) if shard else torch.as_tensor(
+            planes, dtype=objective.dtype, device=objective.device))
     return eigensolver.ground_state(objective.ham_apply, n,
                                     dtype=objective.dtype,
-                                    device=objective.device)
+                                    device=objective.device, reduce=reduce,
+                                    shard=shard)
 
 
-def _fidelity(psi, ground) -> float:
-    """|<ground|psi>|^2 for plane states, computed on their device."""
+def _fidelity(psi, ground, objective=None) -> float:
+    """|<ground|psi>|^2 for plane states, computed on their device (over
+    the ranks of a sharded ``objective``'s mesh)."""
     if ground is None:
         return float("nan")
-    return eigensolver.fidelity(ground, psi)
+    return eigensolver.fidelity(ground, psi, _mesh_fns(objective)[0])
+
+
+def _writer(mesh) -> bool:
+    """Only rank 0 of a mesh prints, logs and writes checkpoints."""
+    return mesh is None or mesh.rank == 0
+
+
+def _check_replicated(mesh, values) -> None:
+    if mesh is not None:
+        from ..parallel.sharded import check_replicated
+        check_replicated(values, mesh)
 
 
 def _sort_gradients(list_grad: List[float]):
@@ -87,11 +118,21 @@ def _sort_gradients(list_grad: List[float]):
 def _objective_and_screen(hamiltonian_sp: PauliSum, n: int, pool_ops,
                           mesh=None, device=None, dtype=None, stream=None,
                           chunk_bits=None):
-    """(objective, pool-screen fn) on one device: the streaming screen when
-    the objective streams (n >= 20 by default), the grouped one below."""
+    """(objective, pool-screen fn) on one device (the streaming screen when
+    the objective streams, n >= 20 by default, the grouped one below) or
+    over a mesh (the streaming composition's screen or the plain sharded
+    one, as ``make_sharded_objective`` picks; ``device`` is the mesh's)."""
     if mesh is not None:
-        raise NotImplementedError(
-            "multi-device runs are not ported yet (ROADMAP.md, queue 9)")
+        from ..parallel import sharded as sh
+        from ..parallel import sharded_stream as shs
+        objective = shs.make_sharded_objective(
+            hamiltonian_sp, mesh, n, dtype=dtype, stream=stream,
+            chunk_bits=chunk_bits)
+        if objective.stream:
+            return objective, shs.build_sharded_stream_pool_gradient_fn(
+                pool_ops, objective)
+        return objective, sh.build_sharded_pool_gradient_fn(pool_ops,
+                                                            objective)
     objective = VQEObjective(hamiltonian_sp, n, device=device, dtype=dtype,
                              stream=stream, chunk_bits=chunk_bits)
     gpool = gr.group_pool(compile_pool(pool_ops, n))
@@ -153,6 +194,8 @@ def fermionic_adapt_vqe(
     objective, grad_fn = _objective_and_screen(
         hamiltonian_sp, n, cluster_ops_sp, mesh, device, dtype, stream,
         chunk_bits)
+    writer = _writer(mesh)
+    verbose = verbose and writer
 
     ground = exact_ground_state(hamiltonian_sp, fidelity_max_qubits,
                                 objective=objective)
@@ -168,7 +211,7 @@ def fermionic_adapt_vqe(
         print(" The reference energy of the molecular system is: %12.8f"
               % ref_energy)
 
-    logger = RunLogger(log_path)
+    logger = RunLogger(log_path if writer else None)
     if ground is None:
         logger.log({"n_qubits": n,
                     "fidelity_max_qubits": fidelity_max_qubits},
@@ -208,7 +251,7 @@ def fermionic_adapt_vqe(
             print(" Norm of the gradients in current iteration = %12.8f"
                   % curr_norm)
             print(" Max gradient in current iteration= %12.8f" % next_deriv)
-        fid = _fidelity(psi, ground_vec)
+        fid = _fidelity(psi, ground_vec, objective)
 
         converged = curr_norm < threshold_needed
         if converged or abs(curr_norm - prev_norm) < 1e-8:
@@ -282,11 +325,12 @@ def fermionic_adapt_vqe(
                     "opt_nfev": int(getattr(opt_result, "nfev", -1)),
                     "norm": curr_norm, "fidelity": fid,
                     "n_ops": len(ansatz_gens), "CNOTs": counts["CNOT"]})
-        if checkpoint_path:
+        if checkpoint_path and writer:
             save_checkpoint(checkpoint_path, AdaptState(
                 n_iter=n_iter, op_indices=op_indices,
                 parameters=parameters_ansatz, prev_norm=prev_norm,
                 last_energy=last_energy, iterations=iterations))
+    _check_replicated(mesh, parameters_ansatz)
     return iterations, result
 
 
@@ -333,13 +377,15 @@ def qubit_adapt_vqe(
     n = hamiltonian_sp.nbqbits
     objective, grad_fn = _objective_and_screen(
         hamiltonian_sp, n, pool_mix, mesh, device, dtype, stream, chunk_bits)
+    writer = _writer(mesh)
+    verbose = verbose and writer
 
     psi = objective.psi0(hf_init_sp)
     ref_energy = objective.expectation(psi)
     if verbose:
         print("reference_energy:", ref_energy)
 
-    logger = RunLogger(log_path)
+    logger = RunLogger(log_path if writer else None)
     ansatz_gens: List[PauliSum] = []
     op_indices: List[int] = []
     parameters_sim: List[float] = []
@@ -420,9 +466,10 @@ def qubit_adapt_vqe(
         iterations_sim["RX"].append(counts["RX"])
         logger.log({"iteration": n_iter, "energy": last_energy,
                     "norm": curr_norm, "n_ops": len(ansatz_gens)})
-        if checkpoint_path:
+        if checkpoint_path and writer:
             save_checkpoint(checkpoint_path, AdaptState(
                 n_iter=n_iter, op_indices=op_indices,
                 parameters=parameters_sim, prev_norm=prev_norm,
                 last_energy=last_energy, iterations=iterations_sim))
+    _check_replicated(mesh, parameters_sim)
     return iterations_sim, iterations_ana, result_sim, result_ana

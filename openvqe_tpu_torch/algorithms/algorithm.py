@@ -25,12 +25,14 @@ class Algorithm:
 
     # ---------------------------------------------------------------- flow
     def build_mesh(self):
-        """Multi-device runs (opts["mesh_devices"]) are not ported yet;
+        """``parallel.sharded.Mesh`` of opts["mesh_devices"] ranks (the
+        process group ``torchrun`` starts; on opts["device"] if given);
         None = single device."""
-        if self.opts.get("mesh_devices"):
-            raise NotImplementedError(
-                "multi-device runs are not ported yet (ROADMAP.md, queue 9)")
-        return None
+        nd = self.opts.get("mesh_devices")
+        if not nd:
+            return None
+        from ..parallel.sharded import make_mesh
+        return make_mesh(int(nd), device=self.opts.get("device"))
 
     def presentation(self, molecule_factory):
         r, geometry, charge, spin, basis = molecule_factory.get_parameters(

@@ -21,9 +21,12 @@ from ..utils.gate_count import staircase_gate_counts
 
 
 def _objective(hamiltonian_sp: PauliSum, mesh=None, device=None):
+    """One device, or the mesh's objective (``parallel.sharded_stream.
+    make_sharded_objective``: the streaming composition when the local
+    blocks outgrow the per-group route), on the mesh's device."""
     if mesh is not None:
-        raise NotImplementedError(
-            "multi-device runs are not ported yet (ROADMAP.md, queue 9)")
+        from ..parallel.sharded_stream import make_sharded_objective
+        return make_sharded_objective(hamiltonian_sp, mesh)
     return VQEObjective(hamiltonian_sp, device=device)
 
 
@@ -78,9 +81,13 @@ class EnergyUCC:
                 return val
         else:
             fun, jac = bound.scipy_fun_jac(energies)
-        return scipy.optimize.minimize(
+        opt = scipy.optimize.minimize(
             fun, x0=np.asarray(theta0, dtype=float), method=method,
             tol=tolerance, jac=jac, options={"maxiter": 50000, "disp": False})
+        if mesh is not None:
+            from ..parallel.sharded import check_replicated
+            check_replicated(opt.x, mesh)
+        return opt
 
     def get_energies(self, hamiltonian_sp, cluster_ops_sp, pool_generator,
                      hf_init_sp, theta_current1, theta_current2, fci,

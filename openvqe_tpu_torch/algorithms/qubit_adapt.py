@@ -15,7 +15,7 @@ from .algorithm import Algorithm
 class QubitAdapt(Algorithm):
 
     def generate_pool_without_cluster(self, cluster_ops, nbqbits,
-                                      molecule_symbol):
+                                      molecule_symbol, seed=None):
         print(" --------------------------------------------------------------------------")
         print("                      Generate Pool without Cluster:")
         print(" --------------------------------------------------------------------------")
@@ -25,7 +25,7 @@ class QubitAdapt(Algorithm):
         return qubitpool.generate_pool_without_cluster(
             pool_type=pool_type, nbqbits=nbqbits, qubit_pool=qubit_pool,
             molecule_symbol=molecule_symbol,
-            seed=self.opts.get("pool_seed"))
+            seed=self.opts.get("pool_seed") if seed is None else seed)
 
     def execute(self):
         self.opts = {
@@ -44,8 +44,14 @@ class QubitAdapt(Algorithm):
         pool_size, cluster_ops, cluster_ops_sp = self.generate_cluster_ops(
             molecule_factory)
         nbqbits = hamiltonian_sp.nbqbits
+        mesh = self.build_mesh()
+        seed = None
+        if mesh is not None and self.opts.get("pool_seed") is None:
+            # every rank must draw the same random pool
+            from ..parallel.sharded import shared_seed
+            seed = shared_seed(mesh)
         len_returned_pool, returned_pool = self.generate_pool_without_cluster(
-            cluster_ops, nbqbits, self.molecule_symbol)
+            cluster_ops, nbqbits, self.molecule_symbol, seed)
         hf_init = molecule_factory.find_hf_init(hamiltonian, n_elec,
                                                 noons_full, orb_energies_full)
         reference_ket, hf_init_sp = molecule_factory.get_reference_ket(
@@ -78,7 +84,7 @@ class QubitAdapt(Algorithm):
             method_sim=self.opts["optimizer"],
             checkpoint_path=self.opts.get("checkpoint_path"),
             log_path=self.opts.get("log_path"),
-            mesh=self.build_mesh(),
+            mesh=mesh,
             device=self.opts.get("device"),
         )
         print("iterations are:", iterations_sim)

@@ -22,9 +22,14 @@ the weighted cost sum_k w_k <psi_k|H|psi_k> minimized jointly by scipy.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"`` (the
 argument, or ``opts["device"]`` of ``WSSVQE``); on the card the ansatz
-states are float32, the kernels' type.  The sharded branch of the JAX
-package (``mesh``, ``opts["mesh_devices"]``) raises until the multi-device
-modules are ported (ROADMAP.md, queue 9).
+states are float32, the kernels' type.  With ``mesh`` (``run_wssvqe``) or
+``opts["mesh_devices"]`` (``WSSVQE``, one process per rank) every state is
+sharded over the ranks (``_build_sharded_wssvqe``): the gates of
+``parallel/sharded_gates.py`` on each rank's block, autograd through
+their exchanges, each energy ``objective_expectation`` of the mesh's
+objective (``make_sharded_objective``: the all-reduced expectation
+forward, this rank's block of 2 H psi backward), and the gradient's
+per-rank parts all-reduced; the fidelities gather the states.
 
 No ``taper`` option, as in the JAX package: the HEA's RY/RZ generators
 commute with no Z2 symmetry of the Hamiltonian, and the subspace search
@@ -101,16 +106,22 @@ def hea_state(theta, k: int, nqbits: int, depth: int,
               dtype: torch.dtype = torch.float64) -> torch.Tensor:
     """Hardware-efficient ansatz on basis state |k> (reference :70-105) as
     planes on ``device``; a theta tensor keeps its autograd graph."""
-    theta = (theta.to(device) if isinstance(theta, torch.Tensor)
-             else torch.as_tensor(np.asarray(theta, np.float64), device=device))
-    psi = sv.hf_state(nqbits, k, dtype, device)
+    return _hea(sv.hf_state(nqbits, k, dtype, device), theta, nqbits, depth,
+                sv)
+
+
+def _hea(psi, theta, nqbits: int, depth: int, gates, *extra) -> torch.Tensor:
+    """The HEA's gates on psi, from ``gates`` (``statevector``, or
+    ``parallel.sharded_gates`` with the mesh as ``extra``)."""
+    theta = (theta.to(psi.device) if isinstance(theta, torch.Tensor)
+             else torch.as_tensor(np.asarray(theta, np.float64),
+                                  device=psi.device))
     for kind, a, b in hea_ops(nqbits, depth):
-        if kind == "ry":
-            psi = sv.apply_ry(psi, theta[b], a, nqbits)
-        elif kind == "rz":
-            psi = sv.apply_rz(psi, theta[b], a, nqbits)
+        if kind == "cnot":
+            psi = gates.apply_cnot(psi, a, b, nqbits, *extra)
         else:
-            psi = sv.apply_cnot(psi, a, b, nqbits)
+            psi = getattr(gates, "apply_" + kind)(psi, theta[b], a, nqbits,
+                                                  *extra)
     return psi
 
 
@@ -135,12 +146,6 @@ def calculate_eigen_vectors(model: PauliSum, vals: int, device=None
     return w[order], [v[:, i] for i in order]
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device runs are not ported yet (ROADMAP.md, queue 9)")
-
-
 class WeightedCost:
     """sum_k w_k <psi_k(theta)|H|psi_k(theta)> over one objective: each
     energy through ``objective_expectation``, the gradient by autograd,
@@ -153,7 +158,10 @@ class WeightedCost:
         self.n = model.nbqbits
         self.depth = depth
         self.weights = [float(w) for w in weights][:n_states]
-        self.obj = VQEObjective(model, device=device)
+        self.obj = self._objective(model, device)
+
+    def _objective(self, model: PauliSum, device):
+        return VQEObjective(model, device=device)
 
     def state(self, theta, k: int) -> torch.Tensor:
         return hea_state(theta, k, self.n, self.depth, self.obj.device,
@@ -182,6 +190,60 @@ class WeightedCost:
     # (fun, jac) for scipy sharing one evaluation per point
     scipy_fun_jac = BoundAnsatz.scipy_fun_jac
 
+    def gather(self, psi: torch.Tensor) -> torch.Tensor:
+        """The full state of ``state``'s planes (here the planes)."""
+        return psi
+
+
+def hea_state_local(theta, k: int, nqbits: int, depth: int, mesh,
+                    dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """This rank's block of ``hea_state`` (the gates of
+    ``parallel/sharded_gates.py``); a theta tensor keeps its autograd
+    graph."""
+    from ..parallel import sharded_gates as sg
+    return _hea(sg.basis_state_local(k, nqbits, mesh, dtype), theta, nqbits,
+                depth, sg, mesh)
+
+
+class ShardedWeightedCost(WeightedCost):
+    """``WeightedCost`` with every state sharded over ``mesh``: the states
+    are this rank's blocks, the energies all-reduced, and the gradient's
+    per-rank parts (each rank's gates) all-reduced once per call."""
+
+    def __init__(self, model: PauliSum, n_states: int, depth: int,
+                 weights: Sequence[float], mesh):
+        self.mesh = mesh
+        super().__init__(model, n_states, depth, weights)
+
+    def _objective(self, model: PauliSum, device):
+        from ..parallel.sharded_stream import make_sharded_objective
+        return make_sharded_objective(model, self.mesh)
+
+    def state(self, theta, k: int) -> torch.Tensor:
+        return hea_state_local(theta, k, self.n, self.depth, self.mesh,
+                               self.obj.dtype)
+
+    def value_and_grad(self, x) -> Tuple[float, np.ndarray, List[float]]:
+        from ..parallel.sharded import all_reduce_sum
+        total, grad, energies = super().value_and_grad(x)
+        return (total, all_reduce_sum(torch.from_numpy(grad),
+                                      self.mesh).numpy(), energies)
+
+    def gather(self, psi: torch.Tensor) -> torch.Tensor:
+        """The full state of this rank's block (every rank takes part)."""
+        from ..parallel.sharded import gather_state
+        return gather_state(psi, self.mesh)
+
+
+def _build_sharded_wssvqe(model: PauliSum, n: int, depth: int,
+                          n_states: int, weights: Sequence[float],
+                          mesh) -> ShardedWeightedCost:
+    """The weighted cost with the statevectors sharded over ``mesh``
+    (``value_and_grad``, ``energy``, ``state`` and ``gather``)."""
+    if n != model.nbqbits:
+        raise ValueError(f"model has {model.nbqbits} qubits, not {n}")
+    return ShardedWeightedCost(model, n_states, depth, weights, mesh)
+
 
 def run_wssvqe(model: PauliSum, n_states: int, depth: int,
                weights: Optional[Sequence[float]] = None,
@@ -190,13 +252,15 @@ def run_wssvqe(model: PauliSum, n_states: int, depth: int,
                track_fidelity: bool = True, mesh=None, device=None) -> Dict:
     """Jointly minimize sum_k w_k <psi_k(theta)|H|psi_k(theta)> and return
     per-state energies, fidelities vs the exact eigenvectors, and the
-    optimization trace (reference opt_funct, :151-178)."""
-    _no_mesh(mesh)
+    optimization trace (reference opt_funct, :151-178).  ``mesh`` shards
+    every statevector over its ranks (on the mesh's device)."""
     n = model.nbqbits
     if weights is None:
         weights = [float(n_states - i) for i in range(n_states)]
     weights = list(weights)
-    cost = WeightedCost(model, n_states, depth, weights, device)
+    cost = (WeightedCost(model, n_states, depth, weights, device)
+            if mesh is None else
+            _build_sharded_wssvqe(model, n, depth, n_states, weights, mesh))
 
     exact_vals, exact_vecs = (None, None)
     if track_fidelity:
@@ -215,7 +279,7 @@ def run_wssvqe(model: PauliSum, n_states: int, depth: int,
                 energy_lists[f"energy_circ_{i}"].append(
                     cost.obj.expectation(psi))
                 if track_fidelity:
-                    ov = np.vdot(exact_vecs[i], sv.to_host(psi))
+                    ov = np.vdot(exact_vecs[i], sv.to_host(cost.gather(psi)))
                     fidelity_lists[f"fidelity_circ_{i}"].append(
                         float(np.abs(ov) ** 2))
 
@@ -226,6 +290,9 @@ def run_wssvqe(model: PauliSum, n_states: int, depth: int,
                                   jac=jac, callback=record,
                                   options={"maxiter": maxiter})
     record(opt.x)
+    if mesh is not None:
+        from ..parallel.sharded import check_replicated
+        check_replicated(opt.x, mesh)
 
     final_energies = [energy_lists[f"energy_circ_{i}"][-1]
                       for i in range(n_states)]
@@ -264,8 +331,13 @@ class WSSVQE:
         return ham.to_spin("JW")
 
     def execute(self) -> Dict:
-        opts = dict(self.opts)
-        _no_mesh(opts.pop("mesh", None) or opts.pop("mesh_devices", None))
         model = self.build_model()
         self.nqbits = model.nbqbits
-        return run_wssvqe(model, self.n_states, self.depth, **opts)
+        opts = dict(self.opts)
+        mesh = opts.pop("mesh", None)
+        nd = opts.pop("mesh_devices", None)
+        if mesh is None and nd:
+            from ..parallel.sharded import make_mesh
+            mesh = make_mesh(int(nd), device=opts.get("device"))
+        return run_wssvqe(model, self.n_states, self.depth, mesh=mesh,
+                          **opts)

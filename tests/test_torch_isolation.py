@@ -48,7 +48,9 @@ def test_port_imports_without_jax_or_reference():
               "algorithms.wssvqe", "native", "chem.ccsd", "chem.symmetry",
               "chem.fit_sto3g", "ops.screening", "config",
               "mains.main_single_double", "mains.main_triple",
-              "apps.quantum_batteries.li2fesio4"):
+              "apps.quantum_batteries.li2fesio4", "parallel",
+              "parallel.sharded", "parallel.sharded_stream",
+              "parallel.sharded_gates"):
         assert f"openvqe_tpu_torch.{m}" in mods, m
     code = (
         "import sys\n"

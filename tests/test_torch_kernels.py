@@ -33,7 +33,8 @@ from openvqe_tpu_torch.sim import convert
 from openvqe_tpu_torch.sim import grouped as gr
 from openvqe_tpu_torch.sim import kernels as K
 from openvqe_tpu_torch.sim import streaming as st
-from openvqe_tpu_torch.sim.compile import compile_op_sequence
+from openvqe_tpu_torch.sim.compile import (compile_op_sequence, compile_pauli_sum,
+                                           compile_pool)
 from openvqe_tpu_torch.sim.objective import StreamBoundAnsatz, VQEObjective
 from test_torch_grouped_fields import odd_y_seq
 from test_torch_ham_fields import _complex_set
@@ -1287,3 +1288,95 @@ def test_wssvqe_weighted_cost_matches_plain_version(dev, stream,
         used, per_state = ("expectation", "ham_apply"), 1
     assert {k: K.LAUNCHES[k] for k in K.KERNELS} == {
         k: n_states * per_state * (k in used) for k in K.KERNELS}
+
+
+def _sharded_problem(n, seed=8):
+    """Odd-Y generators at n qubits with X or Y on qubit 0, on qubit 1, on
+    both and on neither (local and nonlocal runs at 2 and 4 ranks), an H
+    with a diagonal and off-diagonal groups on and off the device qubits,
+    and the generators' x1j images as a real pool."""
+    rng = np.random.default_rng(seed)
+
+    def odd_y(head):
+        while True:
+            s = head + "".join(rng.choice(list("IXYZ"),
+                                          p=[0.5, 0.17, 0.18, 0.15])
+                               for _ in range(n - 2))
+            if s.count("Y") % 2 == 1:
+                return PauliSum.from_term(n, float(rng.normal() * 0.4), s)
+
+    gens = [odd_y(h) for h in ("II", "XI", "YZ", "IX", "ZI", "YX", "IY",
+                               "XX", "IZ")]
+    ham = PauliSum.identity(n, 0.3)
+    for head in ("ZZ", "IZ", "II", "XI", "IY", "YX", "ZI", "XZ", "ZY"):
+        for _ in range(3):
+            s = head + "".join(rng.choice(list("IXYZ"),
+                                          p=[0.4, 0.2, 0.2, 0.2])
+                               for _ in range(n - 2))
+            ham = ham + PauliSum.from_term(n, float(rng.normal() * 0.5), s)
+    return ham, gens, [g * 1j for g in gens]
+
+
+@pytest.mark.parametrize("d", [1, 2])
+def test_sharded_kernels_on_lifted_operands(dev, d):
+    """A2, C8, B6 and E15 on the operands the sharded streaming composition
+    gives each rank (``parallel/sharded_stream.py``) at n = 14 on 2^d
+    ranks, held against their plain versions: A2 and C8 on the lifted
+    (2, 2^(L+1)) pair arrays of every nonlocal run and on a local run, B6
+    on every x_dev class's rank-signed buckets with the exchanged block as
+    the permuted operand and a given acc, E15 on every class of the real
+    pool (its REAL instance).  No process group: each rank's operands are
+    built here from its rank number."""
+    from openvqe_tpu_torch.parallel import sharded as sh
+    from openvqe_tpu_torch.parallel import sharded_stream as shs
+    n = 14
+    L = n - d
+    ham, gens, pool = _sharded_problem(n)
+    gseq = gr.group_op_sequence(compile_op_sequence(gens, n))
+    gham = gr.group_pauli_sum(compile_pauli_sum(ham, n))
+    gpool = gr.group_pool(compile_pool(pool, n))
+    runs = shs._split_runs(gseq, d)
+    assert any(r.x_dev for r in runs) and any(not r.x_dev for r in runs)
+    counts = dict(K.LAUNCHES)
+    cb = st.chunk_bits_for(L)
+    for rank in range(1 << d):
+        for i, run in enumerate(runs):
+            go = shs.run_operands(run, rank, dev, torch.float32, gseq.fmode)
+            rgo = shs.run_operands(run, rank, dev, torch.float32, gseq.fmode,
+                                   reverse=True)
+            assert go.odd_y and go.n == run.n_eff == L + bool(run.x_dev)
+            psi = _state(dev, 10 + i, go.n)
+            lam = _state(dev, 20 + i, go.n)
+            ang = st.group_angles(go, np.random.default_rng(i).normal(
+                size=len(gens)), torch.float32, dev)
+            a = K.rot_stream(psi, ang, go, gseq.fmode)
+            ref = st.rot_stream_ref(psi, ang, go, gseq.fmode)
+            assert float((a - ref).abs().max()) <= TOL
+            rang = st.group_angles(rgo, np.random.default_rng(i).normal(
+                size=len(gens)), torch.float32, dev)
+            p, l, g = K.adjoint_stream(a, lam, rang, rgo, gseq.fmode)
+            pr, lr, grf = st.adjoint_stream_ref(a, lam, rang, rgo,
+                                                gseq.fmode)
+            assert float((p - pr).abs().max()) <= TOL
+            assert float((l - lr).abs().max()) <= TOL
+            assert float((g - grf).abs().max()) <= TOL
+        phi, acc = _state(dev, 30, L), _state(dev, 31, L)
+        for v, classes in shs._split_ham_stream(gham, d, rank, cb, dev,
+                                                torch.float32):
+            for bo in classes:
+                out = K.ham_bucketed(phi, acc, bo)
+                ref = st.ham_bucketed_ref(phi, acc, bo)
+                assert float((out - ref).abs().max()) <= TOL
+        sigma = _state(dev, 32, L)
+        for v, x, z, ar, ai, op in sh.pool_parts(gpool, L, rank):
+            bk, _ = st.build_pool_buckets(st.build_stream_data(
+                L, x, z, ar, op=op, coef_im=ai, chunk_bits=cb))
+            bo = st.bucket_operands(bk, dev)
+            assert bo.real
+            rows = K.pool_bucketed(sigma, phi, bo)
+            ref = st.pool_bucketed_ref(sigma, phi, bo)
+            assert float((rows - ref).abs().max()) <= TOL
+    torch.cuda.synchronize()
+    for k in ("rot_stream", "adjoint_stream", "ham_bucketed",
+              "pool_bucketed"):
+        assert K.LAUNCHES[k] > counts[k], k

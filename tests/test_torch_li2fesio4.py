@@ -94,6 +94,7 @@ def test_config_dispatches_through_the_port():
         "openvqe_tpu_torch.algorithms.fermionic_adapt")
     assert algo.opts["device"] == "cpu"
     assert algo.opts["max_external_iterations"] == 3
-    with pytest.raises(NotImplementedError, match="queue 9"):
+    # a mesh is the ranks of an initialized process group (torchrun)
+    with pytest.raises(RuntimeError, match="torchrun"):
         VQEConfig(molecule="H2", mesh_devices=2,
                   extra_opts={"device": "cpu"}).run()

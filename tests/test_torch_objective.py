@@ -112,11 +112,15 @@ def test_out_of_slice_paths_raise(h4_supccgsd):
     e, g = b.energy_and_grad(np.zeros(1))
     assert abs(e - h4_supccgsd[3]["HF"]) < 1e-8 and g.shape == (1,)
     from openvqe_tpu_torch.algorithms.energy_ucc import build_vqe_objective
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_vqe_objective(hsp, [], 0, mesh=object(), device="cpu")
+    from openvqe_tpu_torch.parallel.sharded import Mesh
+    # the sharded paths take odd-Y groups only, as the JAX package's do
+    mesh = Mesh(rank=0, size=2, device=torch.device("cpu"), backend="gloo")
+    with pytest.raises(ValueError, match="odd-Y"):
+        build_vqe_objective(hsp, [even_y], 0, mesh=mesh)
     from openvqe_tpu_torch.vqe import VQE
     with pytest.raises(KeyError, match="Algorithm not found"):
         VQE.algorithm("qucc", "H4", "spin_complement_gsd", "JW", False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a mesh is the ranks of an initialized process group (torchrun)
+    with pytest.raises(RuntimeError, match="torchrun"):
         VQE.algorithm("ucc", "H2", "sUPCCGSD", "JW", False,
                       {"mesh_devices": 2}).build_mesh()

@@ -12,8 +12,9 @@ package's on the CPU in float64.
   ``JAX_PLATFORMS=cpu python tests/torch_wssvqe_reference.py``): H2 and H4
   on the port's chemistry, and TFIM-16, to 1e-10;
 * one ``execute()`` of TFIM-4 against the JAX package's run in that file;
-* the entry points' refusals: a mesh, and an H without the Hermitian
-  certificate.
+* the entry points' refusals: a mesh without a process group, one with
+  more ranks than amplitude bits, and an H without the Hermitian
+  certificate (WSSVQE on a mesh: ``tests/test_torch_sharded_wssvqe.py``).
 
 The card check of the weighted cost is in ``tests/test_torch_kernels.py``
 (marked ``cuda``)."""
@@ -160,10 +161,12 @@ def test_execute_tfim4_matches_reference():
 
 
 def test_mesh_and_non_hermitian_models_raise():
-    with pytest.raises(NotImplementedError, match="queue 9"):
+    from openvqe_tpu_torch.parallel.sharded import Mesh
+    with pytest.raises(RuntimeError, match="torchrun"):
         tw.WSSVQE(opts={"mesh_devices": 2, "device": "cpu"}).execute()
-    with pytest.raises(NotImplementedError, match="queue 9"):
-        tw.run_wssvqe(tw.ising(4), 2, 1, mesh=object(), device="cpu")
+    mesh = Mesh(rank=0, size=8, device=torch.device("cpu"), backend="gloo")
+    with pytest.raises(ValueError, match="need n > log2"):
+        tw.run_wssvqe(tw.ising(3), 2, 1, mesh=mesh)
     model = tw.ising(3) + PauliSum.from_term(3, 0.3j, "XY", [0, 1])
     with pytest.raises(ValueError, match="Hermitian"):
         tw.WeightedCost(model, 2, 1, [2.0, 1.0], device="cpu"
