@@ -38,11 +38,13 @@ norm, an energy, a gradient entry, a screen row and every vdot of the
 Lanczos reference is all-reduced explicitly.
 
 This module's engine (``ShardedVQEObjective``) is the JAX package's XLA
-engine, which runs no Pallas kernel: plain PyTorch on the rank's device,
-one exchange per group with x_dev != 0 in the ordered sweeps and one per
-x_dev class in the order-free H pass and pool screen.  Where the local
-blocks outgrow the per-group route, ``sharded_stream.py`` runs the CUDA
-kernels instead (``make_sharded_objective`` picks).  Not ported: the JAX
+engine: the kernels' plain versions on the rank's CPU tensors, one
+exchange per group with x_dev != 0 in the ordered sweeps and one per
+x_dev class in the order-free H pass and pool screen.  It takes CPU
+tensors only, as the plain versions do; on the card the mesh's engine is
+always ``sharded_stream.py``'s, which runs the CUDA kernels where each
+rank holds L >= 9 qubits (``make_sharded_objective`` picks; below that a
+mesh of cards raises).  Not ported: the JAX
 package's masked ``_dyn_ppermute`` (a ppermute pattern must be static
 there; the partner is a runtime integer here) and its segmented mode (a
 device-call watchdog of the TPU runtime).
@@ -103,9 +105,8 @@ class Mesh:
 
 def make_mesh(n_devices: Optional[int] = None, device=None) -> Mesh:
     """The mesh of the initialized default process group.  ``n_devices``
-    (if given) must equal its world size, a power of two.  ``device``
-    defaults to ``cuda:LOCAL_RANK`` on NCCL and to the current CUDA device
-    on gloo; ``"cpu"`` runs the plain versions (gloo only)."""
+    (if given) must equal its world size, a power of two.  The rank's
+    device is ``_rank_device``'s."""
     if not (dist.is_available() and dist.is_initialized()):
         raise RuntimeError(
             "make_mesh needs torch.distributed initialized with one process "
@@ -122,20 +123,36 @@ def make_mesh(n_devices: Optional[int] = None, device=None) -> Mesh:
     if backend not in ("nccl", "gloo"):
         raise ValueError(f"unsupported process-group backend {backend!r}")
     rank = dist.get_rank()
-    if device is None and backend == "nccl":
-        local = os.environ.get("LOCAL_RANK")
-        device = torch.device(
-            "cuda", int(local) if local is not None
-            else rank % max(1, torch.cuda.device_count()))
-    dev = sv.resolve_device(device)
+    dev = _rank_device(device, backend, rank)
     if dev.type == "cuda":
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
         torch.cuda.set_device(dev)
-    elif backend == "nccl":
-        raise ValueError("NCCL moves device tensors: give the mesh a CUDA "
-                         "device, or use a gloo group for the CPU")
     return Mesh(rank=rank, size=size, device=dev, backend=backend)
+
+
+def _rank_device(device, backend: str, rank: int) -> torch.device:
+    """On NCCL a card of the rank's own: ``cuda:LOCAL_RANK`` (torchrun
+    sets it; without it rank mod the card count) where ``device`` is None
+    or names no card, and a card other than LOCAL_RANK's raises (two ranks
+    on one card fail in NCCL).  On gloo ``device`` as given (None: the
+    current CUDA device; ``"cpu"`` runs the plain versions)."""
+    dev = sv.resolve_device(device)
+    if backend == "nccl":
+        if dev.type != "cuda":
+            raise ValueError("NCCL moves device tensors: give the mesh a "
+                             "CUDA device, or use a gloo group for the CPU")
+        local = os.environ.get("LOCAL_RANK")
+        own = (int(local) if local is not None
+               else rank % max(1, torch.cuda.device_count()))
+        if dev.index is None:
+            return torch.device("cuda", own)
+        if local is not None and dev.index != own:
+            raise ValueError(
+                f"rank {rank} has LOCAL_RANK {own} but was given {dev}: on "
+                f"NCCL each rank drives the card of its LOCAL_RANK")
+        return dev
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 def log2_devices(mesh: Mesh) -> int:
@@ -510,14 +527,20 @@ class _ShardedObjectiveBase:
 
 class ShardedVQEObjective(_ShardedObjectiveBase):
     """Mesh mirror of ``sim.objective.VQEObjective`` for local blocks the
-    per-group route holds: the JAX package's XLA engine in plain PyTorch
-    on the rank's device.  ``bind`` -> ``ShardedBoundAnsatz``;
+    per-group route holds: the JAX package's XLA engine, the plain
+    versions on the rank's CPU tensors.  ``bind`` -> ``ShardedBoundAnsatz``;
     ``ham_apply`` / ``energy_and_lam`` / ``expectation`` act on this
     rank's block (the energy all-reduced)."""
 
     def __init__(self, hamiltonian_sp: PauliSum, mesh: Mesh,
                  n: Optional[int] = None,
                  dtype: Optional[torch.dtype] = None):
+        if mesh.device.type != "cpu":
+            raise ValueError(
+                f"the plain sharded engine takes CPU tensors only; on "
+                f"{mesh.device} the mesh runs the streaming composition "
+                f"(make_sharded_objective), which needs L = n - d >= 9 "
+                f"qubits a rank and OVQE_STREAM other than 0")
         self._init_mesh(hamiltonian_sp, n, mesh, dtype)
         self._parts = _ham_parts(_split_ham(self.gham, self.d), mesh.rank,
                                  self.device, self.dtype)
@@ -571,11 +594,16 @@ class ShardedBoundAnsatz:
 
 # ------------------------------------------------------- public entry points
 
+def _objective(hamiltonian_sp: PauliSum, mesh: Mesh, dtype):
+    from .sharded_stream import make_sharded_objective
+    return make_sharded_objective(hamiltonian_sp, mesh, dtype=dtype)
+
+
 def build_sharded_ham_fns(hamiltonian_sp: PauliSum, mesh: Mesh,
                           dtype: Optional[torch.dtype] = None):
     """(ham_apply(psi_loc) -> this rank's block of H psi, energy(psi_loc) ->
-    <psi|H|psi>) over the mesh."""
-    obj = ShardedVQEObjective(hamiltonian_sp, mesh, dtype=dtype)
+    <psi|H|psi>) over the mesh, on ``make_sharded_objective``'s engine."""
+    obj = _objective(hamiltonian_sp, mesh, dtype)
     return obj.ham_apply, obj.expectation
 
 
@@ -583,8 +611,7 @@ def build_sharded_energy_fn(hamiltonian_sp: PauliSum,
                             generators: Sequence[PauliSum], hf_init: int,
                             mesh: Mesh, dtype: Optional[torch.dtype] = None):
     """(energy, energy_and_grad, forward) over the mesh."""
-    bound = ShardedVQEObjective(hamiltonian_sp, mesh, dtype=dtype).bind(
-        generators, hf_init)
+    bound = _objective(hamiltonian_sp, mesh, dtype).bind(generators, hf_init)
     return bound.energy, bound.energy_and_grad, bound.forward
 
 
@@ -643,8 +670,7 @@ def sharded_vqe_step(hamiltonian_sp: PauliSum, generators: Sequence[PauliSum],
                      dtype: Optional[torch.dtype] = None):
     """One sharded training step (energy, adjoint gradient, SGD update):
     step(theta) -> (new theta, energy), replicated on every rank."""
-    bound = ShardedVQEObjective(hamiltonian_sp, mesh, dtype=dtype).bind(
-        generators, hf_init)
+    bound = _objective(hamiltonian_sp, mesh, dtype).bind(generators, hf_init)
 
     def step(theta):
         e, g = bound.energy_and_grad(theta)

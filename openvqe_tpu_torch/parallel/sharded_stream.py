@@ -75,12 +75,16 @@ def sharded_streaming_supported(n: int, d: int, device=None) -> bool:
 
 def sharded_stream_policy(n: int, mesh: Mesh) -> bool:
     """OVQE_STREAM parsed as ``objective.stream_policy`` parses it, on the
-    local blocks: ``1`` (default) streams where L = n - d > 19, ``0``
-    never, ``force`` wherever ``sharded_streaming_supported``."""
+    local blocks: ``0`` never streams, ``force`` streams wherever
+    ``sharded_streaming_supported``, and ``1`` (default) streams where L =
+    n - d > 19 on the CPU and wherever supported on the card, where the
+    plain engine (``ShardedVQEObjective``, CPU tensors only) does not
+    run."""
     env = os.environ.get("OVQE_STREAM", "1").lower()
     if env not in ("1", "0", "force"):
         raise ValueError(f"OVQE_STREAM must be 1|0|force, got {env!r}")
-    want = env == "force" or (n - mesh.d) > st.MAX_N_PER_GROUP
+    want = env == "force" or mesh.device.type == "cuda" \
+        or (n - mesh.d) > st.MAX_N_PER_GROUP
     return want and env != "0" and sharded_streaming_supported(
         n, mesh.d, mesh.device)
 
@@ -90,10 +94,10 @@ def make_sharded_objective(hamiltonian_sp: PauliSum, mesh: Mesh,
                            dtype: Optional[torch.dtype] = None,
                            stream: Optional[bool] = None,
                            chunk_bits: Optional[int] = None):
-    """The mesh's objective, as ``VQEObjective`` picks its route: the
-    streaming composition when the local blocks outgrow the per-group
-    route (``sharded_stream_policy``; ``stream`` True or False forces
-    it), the plain sharded engine otherwise."""
+    """The mesh's objective: the streaming composition where
+    ``sharded_stream_policy`` streams (``stream`` True or False forces
+    it), the plain sharded engine otherwise (on the CPU only: on the card
+    it raises, as at L = n - d < 9 there)."""
     n_ = n if n is not None else hamiltonian_sp.nbqbits
     if stream is None:
         stream = sharded_stream_policy(n_, mesh)

@@ -13,7 +13,8 @@ run picks the JAX run's operators, and the four algorithms run through
 ``VQE.algorithm(..., {"mesh_devices": 2})`` to the single-device port's
 results.  The two primitives' gradients (all-reduce passes it through,
 exchange sends it back) and the ranks' agreement are checked on the ranks'
-own values.
+own values, and ``make_mesh``'s choice of card on an NCCL group with the
+group and the cards mocked.
 """
 
 import contextlib
@@ -173,6 +174,43 @@ def jsharded(ranks, request):
 
 def test_mesh_needs_an_initialized_process_group():
     with pytest.raises(RuntimeError, match="torchrun"):
+        tsh.make_mesh(2, device="cpu")
+
+
+@pytest.fixture
+def nccl_group(monkeypatch):
+    """A 2-rank NCCL default group as ``make_mesh`` sees it (rank 1, two
+    cards), with no group and no card behind it."""
+    for name, value in (("is_available", True), ("is_initialized", True),
+                        ("get_world_size", 2), ("get_backend", "nccl"),
+                        ("get_rank", 1)):
+        monkeypatch.setattr(tsh.dist, name, lambda v=value: v)
+    monkeypatch.setattr(tsh.torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(tsh.torch.cuda, "device_count", lambda: 2)
+    set_to = []
+    monkeypatch.setattr(tsh.torch.cuda, "set_device", set_to.append)
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
+    return set_to
+
+
+@pytest.mark.parametrize("local_rank, device, want", [
+    ("1", None, 1), ("1", "cuda", 1), ("1", "cuda:1", 1), (None, None, 1),
+    (None, "cuda", 1), (None, "cuda:0", 0), ("0", "cuda", 0)])
+def test_nccl_mesh_takes_the_ranks_own_card(nccl_group, monkeypatch,
+                                            local_rank, device, want):
+    if local_rank is not None:
+        monkeypatch.setenv("LOCAL_RANK", local_rank)
+    mesh = tsh.make_mesh(2, device=device)
+    assert mesh.device == tsh.torch.device("cuda", want)
+    assert nccl_group == [mesh.device]
+
+
+def test_nccl_mesh_refuses_another_card_or_the_cpu(nccl_group,
+                                                   monkeypatch):
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    with pytest.raises(ValueError, match="LOCAL_RANK"):
+        tsh.make_mesh(2, device="cuda:0")
+    with pytest.raises(ValueError, match="NCCL moves device tensors"):
         tsh.make_mesh(2, device="cpu")
 
 

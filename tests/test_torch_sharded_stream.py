@@ -288,6 +288,29 @@ def test_stream_policy_reads_ovqe_stream(monkeypatch, env, n, want):
     assert tss.sharded_stream_policy(n, mesh) is want
 
 
+@pytest.mark.parametrize("env, n, want", [
+    ("1", 10, True), ("1", 20, True), ("force", 12, True), ("1", 9, False),
+    ("0", 24, False)])
+def test_stream_policy_on_the_card_streams_wherever_supported(
+        monkeypatch, env, n, want):
+    # the plain engine takes CPU tensors only: a mesh of cards streams at
+    # every L = n - d >= 9, below the CPU's L > 19
+    mesh = tsh.Mesh(rank=0, size=2, device=torch.device("cuda", 0),
+                    backend="nccl")
+    monkeypatch.setenv("OVQE_STREAM", env)
+    assert tss.sharded_stream_policy(n, mesh) is want
+
+
+@pytest.mark.parametrize("env, n", [("1", 9), ("0", 24)])
+def test_plain_engine_refuses_a_mesh_of_cards(monkeypatch, env, n):
+    mesh = tsh.Mesh(rank=0, size=2, device=torch.device("cuda", 0),
+                    backend="nccl")
+    monkeypatch.setenv("OVQE_STREAM", env)
+    ham = TPauliSum(n, {(0, 1): 1.0})
+    with pytest.raises(ValueError, match="CPU tensors only"):
+        tss.make_sharded_objective(ham, mesh)
+
+
 def test_stream_policy_refuses_other_values(monkeypatch):
     mesh = tsh.Mesh(rank=0, size=2, device=torch.device("cpu"),
                     backend="gloo")

@@ -69,14 +69,13 @@ class Launch:
 
 
 def launch_ranks(world: int, job: str, payload, tmp, timeout: float = 240,
-                 collective_timeout: float = 60,
-                 backend: str = "gloo") -> Launch:
+                 collective_timeout: float = 60) -> Launch:
     """Start ``job`` on ``world`` ranks and return at once."""
     tmp = Path(tmp) / f"ranks_{world}_{job.replace(':', '_')}"
     tmp.mkdir(parents=True, exist_ok=True)
     (tmp / "payload.pkl").write_bytes(pickle.dumps(payload))
     env = dict(os.environ, OVQE_RANKS_DIR=str(tmp), OVQE_WORLD=str(world),
-               OVQE_JOB=job, OVQE_BACKEND=backend,
+               OVQE_JOB=job,
                OVQE_COLLECTIVE_TIMEOUT=str(collective_timeout),
                OMP_NUM_THREADS="1", JAX_PLATFORMS="cpu")
     procs = []
@@ -106,7 +105,7 @@ def rank_main() -> int:
     tmp = Path(os.environ["OVQE_RANKS_DIR"])
     rank, world = int(os.environ["OVQE_RANK"]), int(os.environ["OVQE_WORLD"])
     dist.init_process_group(
-        os.environ["OVQE_BACKEND"], rank=rank, world_size=world,
+        "gloo", rank=rank, world_size=world,
         store=dist.FileStore(str(tmp / "store"), world),
         timeout=datetime.timedelta(
             seconds=float(os.environ["OVQE_COLLECTIVE_TIMEOUT"])))
