@@ -1,0 +1,64 @@
+"""The arithmetic that the device metrics' readers share, and the
+per-function shares that a traced run prints on standard error."""
+
+from vqebench import traces, work
+
+# the kernels of each function of a call, by the start of their names; a
+# row reduction finishes the adjoint in an energy-and-gradient call and
+# the expectation in an energy-only one.  Only printed, never a metric.
+FUNCTIONS = {
+    True: {"sweep": ("rot_",), "hpass": ("ham_",),
+           "adjoint": ("adjoint_", "row_reduce")},
+    False: {"sweep": ("rot_",), "expect": ("expect_", "row_reduce")},
+}
+
+
+def traced(run, kind):
+    """The trace, if the run was traced and its calls are of ``kind``
+    (True: energy and gradient, False: energy only)."""
+    t = run.trace
+    w = run.window
+    if t is None or not t.calls or t.window_s <= 0 or run.work is None:
+        return None
+    if (w.grads[0] is not None) != kind:
+        return None
+    return t
+
+
+def call_roofline(run, kind):
+    """Per cent of a whole call's least time over the device's busy time."""
+    t = traced(run, kind)
+    if t is None or t.busy_s <= 0:
+        return None
+    least = work.least_seconds(
+        run.work["energy_and_grad" if kind else "energy"], run.device_kind)
+    return None if least is None else 100.0 * t.calls * least / t.busy_s
+
+
+def idle(run, kind):
+    t = traced(run, kind)
+    if t is None or t.busy_s <= 0:
+        return None
+    return 100.0 * (1.0 - t.busy_s / t.window_s)
+
+
+def function_lines(run):
+    """One line a function of the traced calls: its least time a call
+    (``vqebench/work.py``), its kernels' time a call and the share."""
+    kind = run.window.grads[0] is not None
+    t = traced(run, kind)
+    if t is None:
+        return []
+    lines = []
+    for fn, heads in FUNCTIONS[kind].items():
+        least = work.least_seconds(run.work[fn], run.device_kind)
+        spent = sum(d for name, d in t.kernels
+                    if traces.short(name).startswith(heads))
+        if least is None or spent <= 0:
+            lines.append(f"function {fn}: no kernel of it in the trace")
+            continue
+        lines.append(
+            f"function {fn}: least {1e3 * least!r} ms a call, its kernels "
+            f"{1e3 * spent / t.calls!r} ms a call, "
+            f"{100.0 * t.calls * least / spent!r} % of its roofline")
+    return lines
