@@ -14,7 +14,10 @@ printed lines:
 * inner re-optimisations use the objective's energy with the exact
   reversible-adjoint gradient (BFGS paths); COBYLA stays derivative-free;
 * fidelity tracking uses the matrix-free Lanczos ground state of
-  ``sim/eigensolver.py`` (dense ``eigh`` up to 6 qubits).
+  ``sim/eigensolver.py`` (dense ``eigh`` up to 6 qubits);
+* each iteration's log record holds the durations of its spans
+  ``ovqe.adapt.screen``, ``ovqe.adapt.bind`` and ``ovqe.adapt.optimize``
+  (``t_screen_s``, ``t_bind_s``, ``t_optimize_s``, to the millisecond).
 
 ``device`` (default CUDA), ``dtype``, ``stream`` and ``chunk_bits`` go to
 the ``VQEObjective``; the tests run the loops on the CPU.  With ``mesh``
@@ -28,7 +31,6 @@ parameters are held equal across ranks (``check_replicated``).
 
 from __future__ import annotations
 
-import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -44,7 +46,7 @@ from ..sim.compile import compile_pool
 from ..sim.objective import VQEObjective
 from ..utils.checkpoint import AdaptState, load_checkpoint, save_checkpoint
 from ..utils.gate_count import staircase_gate_counts
-from ..utils.run_logger import RunLogger
+from ..utils.run_logger import RunLogger, timed
 from ..utils.sorted_gradient import (
     abs_sort_desc,
     corresponding_index,
@@ -241,17 +243,17 @@ def fermionic_adapt_vqe(
     for n_iter in range(start_iter, max_external_iterations):
         if verbose:
             print("\n Fermionic_ADAPT-VQE iteration: ", n_iter)
-        _t0 = time.time()
-        v = grad_fn(psi)
-        list_grad = (2.0 * np.real(v)).tolist()
-        curr_norm = float(np.sqrt(np.sum(np.square(list_grad))))
-        sorted_vals, sorted_idx = _sort_gradients(list_grad)
+        with timed("ovqe.adapt.screen") as t_screen:
+            v = grad_fn(psi)
+            list_grad = (2.0 * np.real(v)).tolist()
+            curr_norm = float(np.sqrt(np.sum(np.square(list_grad))))
+            sorted_vals, sorted_idx = _sort_gradients(list_grad)
+            fid = _fidelity(psi, ground_vec, objective)
         next_deriv = sorted_vals[0] if sorted_vals else 0.0
         if verbose:
             print(" Norm of the gradients in current iteration = %12.8f"
                   % curr_norm)
             print(" Max gradient in current iteration= %12.8f" % next_deriv)
-        fid = _fidelity(psi, ground_vec, objective)
 
         converged = curr_norm < threshold_needed
         if converged or abs(curr_norm - prev_norm) < 1e-8:
@@ -276,13 +278,12 @@ def fermionic_adapt_vqe(
             ansatz_gens.append(cluster_ops_sp[sorted_idx[j]] * 1j)
             op_indices.append(sorted_idx[j])
 
-        _t1 = time.time()
-        bound = objective.bind(ansatz_gens, hf_init_sp)
-        if optimizer in ("COBYLA", "Nelder-Mead", "Powell"):
-            fun, jac = bound.energy, None
-        else:
-            fun, jac = bound.scipy_fun_jac()
-        _t2 = time.time()
+        with timed("ovqe.adapt.bind") as t_bind:
+            bound = objective.bind(ansatz_gens, hf_init_sp)
+            if optimizer in ("COBYLA", "Nelder-Mead", "Powell"):
+                fun, jac = bound.energy, None
+            else:
+                fun, jac = bound.scipy_fun_jac()
         method, tol_kw, opts = optimizer, tolerance, {"maxiter": 100000,
                                                       "disp": False}
         if optimizer == "BFGS" and _lbfgs_on_f32_stream(objective):
@@ -292,18 +293,14 @@ def fermionic_adapt_vqe(
             opts = {"maxiter": 1000, "ftol": 1e-7, "gtol": 1e-5,
                     "maxfun": 40 * max(1, len(parameters_ansatz)) + 60,
                     "disp": False}
-        opt_result = scipy.optimize.minimize(
-            fun, x0=np.asarray(parameters_ansatz, dtype=float),
-            method=method, tol=tol_kw, jac=jac, options=opts)
+        with timed("ovqe.adapt.optimize") as t_optimize:
+            opt_result = scipy.optimize.minimize(
+                fun, x0=np.asarray(parameters_ansatz, dtype=float),
+                method=method, tol=tol_kw, jac=jac, options=opts)
         parameters_ansatz = list(map(float, opt_result.x))
         last_energy = float(opt_result.fun)
-        _t3 = time.time()
         if verbose:
             print(" Finished energy iteration_i: %20.12f" % last_energy)
-            print(f" [timing] screen {_t1 - _t0:.1f}s  bind "
-                  f"{_t2 - _t1:.1f}s  optimize {_t3 - _t2:.1f}s "
-                  f"({getattr(opt_result, 'nfev', '?')} evals, "
-                  f"{getattr(opt_result, 'nit', '?')} iters)")
         psi = bound.forward(parameters_ansatz)  # stays on device
         prev_norm = curr_norm
 
@@ -319,9 +316,9 @@ def fermionic_adapt_vqe(
         iterations["RY"].append(counts["RY"])
         iterations["RX"].append(counts["RX"])
         logger.log({"iteration": n_iter, "energy": last_energy,
-                    "t_screen_s": round(_t1 - _t0, 2),
-                    "t_bind_s": round(_t2 - _t1, 2),
-                    "t_optimize_s": round(_t3 - _t2, 2),
+                    "t_screen_s": round(t_screen.seconds, 3),
+                    "t_bind_s": round(t_bind.seconds, 3),
+                    "t_optimize_s": round(t_optimize.seconds, 3),
                     "opt_nfev": int(getattr(opt_result, "nfev", -1)),
                     "norm": curr_norm, "fidelity": fid,
                     "n_ops": len(ansatz_gens), "CNOTs": counts["CNOT"]})
@@ -411,10 +408,11 @@ def qubit_adapt_vqe(
     for n_iter in range(start_iter, adapt_maxiter):
         if verbose:
             print("\n Qubit ADAPT-VQE iteration: ", n_iter)
-        v = grad_fn(psi)
-        list_grad = (2.0 * np.abs(v)).tolist()
-        curr_norm = float(np.sqrt(np.sum(np.square(list_grad))))
-        sorted_vals, sorted_idx = _sort_gradients(list_grad)
+        with timed("ovqe.adapt.screen") as t_screen:
+            v = grad_fn(psi)
+            list_grad = (2.0 * np.abs(v)).tolist()
+            curr_norm = float(np.sqrt(np.sum(np.square(list_grad))))
+            sorted_vals, sorted_idx = _sort_gradients(list_grad)
         if verbose:
             print(" Norm of <[H,A]> = %12.8f" % curr_norm)
 
@@ -438,15 +436,17 @@ def qubit_adapt_vqe(
             ansatz_gens.append(pool_mix[sorted_idx[m]])
             op_indices.append(sorted_idx[m])
 
-        bound = objective.bind(ansatz_gens, hf_init_sp)
-        if method_sim in ("COBYLA", "Nelder-Mead", "Powell"):
-            fun, jac = bound.energy, None
-        else:
-            fun, jac = bound.scipy_fun_jac()
-        opt = scipy.optimize.minimize(
-            fun, x0=np.asarray(parameters_sim, dtype=float),
-            method=method_sim, tol=tolerance_sim, jac=jac,
-            options={"maxiter": 100000, "disp": False})
+        with timed("ovqe.adapt.bind") as t_bind:
+            bound = objective.bind(ansatz_gens, hf_init_sp)
+            if method_sim in ("COBYLA", "Nelder-Mead", "Powell"):
+                fun, jac = bound.energy, None
+            else:
+                fun, jac = bound.scipy_fun_jac()
+        with timed("ovqe.adapt.optimize") as t_optimize:
+            opt = scipy.optimize.minimize(
+                fun, x0=np.asarray(parameters_sim, dtype=float),
+                method=method_sim, tol=tolerance_sim, jac=jac,
+                options={"maxiter": 100000, "disp": False})
         parameters_sim = list(map(float, opt.x))
         last_energy = float(opt.fun)
         if verbose:
@@ -465,6 +465,9 @@ def qubit_adapt_vqe(
         iterations_sim["RY"].append(counts["RY"])
         iterations_sim["RX"].append(counts["RX"])
         logger.log({"iteration": n_iter, "energy": last_energy,
+                    "t_screen_s": round(t_screen.seconds, 3),
+                    "t_bind_s": round(t_bind.seconds, 3),
+                    "t_optimize_s": round(t_optimize.seconds, 3),
                     "norm": curr_norm, "n_ops": len(ansatz_gens)})
         if checkpoint_path and writer:
             save_checkpoint(checkpoint_path, AdaptState(

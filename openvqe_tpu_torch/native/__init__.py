@@ -27,6 +27,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from ..utils.run_logger import count
+
 SOURCE = Path(__file__).resolve().parent / "eri.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-march=native",
@@ -70,6 +72,7 @@ def build(source: Path = SOURCE, build_dir: Path = BUILD_DIR) -> Path:
     build_dir.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     res = _run([_compiler(), *CXX_FLAGS, "-o", str(tmp), str(source)])
+    count("lib_builds")
     if res.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"g++ failed to build {source.name} "
@@ -85,6 +88,7 @@ def _load() -> ctypes.CDLL:
     path = build()
     try:
         lib = ctypes.CDLL(str(path))
+        count("lib_loads")
     except OSError as exc:
         raise RuntimeError(f"cannot load the native engine {path}: "
                            f"{exc}") from exc

@@ -11,6 +11,8 @@
 
 #include <cuda_runtime.h>
 
+#include <vector>
+
 #define ST_THREADS 256          // H-apply / expectation blocks
 
 // The dynamic shared memory of a launch (group_walk's layout: WalkSmem).
@@ -560,11 +562,28 @@ row_reduce_kernel(const T* __restrict__ partials, int nb, float scale,
 // operand set; their kernels read each call's pointers from a device
 // buffer that a replay fills in stream order.
 
+// The kernel nodes of a captured graph.
+inline int kernel_nodes(cudaGraph_t graph, long long* kernels) {
+  size_t n = 0;
+  int e = (int)cudaGraphGetNodes(graph, nullptr, &n);
+  if (e) return e;
+  std::vector<cudaGraphNode_t> nodes(n);
+  if (n) e = (int)cudaGraphGetNodes(graph, nodes.data(), &n);
+  long long k = 0;
+  for (size_t i = 0; !e && i < n; ++i) {
+    cudaGraphNodeType t = cudaGraphNodeTypeEmpty;
+    e = (int)cudaGraphNodeGetType(nodes[i], &t);
+    k += t == cudaGraphNodeTypeKernel;
+  }
+  *kernels = k;
+  return e;
+}
+
 // launch(stream) captured into an executable graph (*exec) on a stream of
-// its own; nothing executes.  Returns launch's error code, else the
-// capture's.
+// its own, its kernel nodes counted into *kernels; nothing executes.
+// Returns launch's error code, else the capture's.
 template <typename F>
-int capture_graph(const F& launch, void** exec) {
+int capture_graph(const F& launch, void** exec, long long* kernels) {
   cudaStream_t cs;
   int e = (int)cudaStreamCreateWithFlags(&cs, cudaStreamNonBlocking);
   if (e) return e;
@@ -574,6 +593,7 @@ int capture_graph(const F& launch, void** exec) {
     cudaGraph_t graph = nullptr;
     e = (int)cudaStreamEndCapture(cs, &graph);
     if (!e && el) e = el;
+    if (!e) e = kernel_nodes(graph, kernels);
     if (!e)
       e = (int)cudaGraphInstantiate((cudaGraphExec_t*)exec, graph, 0ull);
     if (graph) cudaGraphDestroy(graph);

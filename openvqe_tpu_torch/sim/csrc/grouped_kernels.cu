@@ -1027,13 +1027,13 @@ int ovqe_adjoint_sweep(const float* p, const float* l, float* p_out,
 
 // The per-group route of A1 (adj 0) or C7 (adj 1) on (x, zp, s, kl),
 // captured once into an executable graph (*exec); a replay reads the
-// call's pointers from args (a SweepArgs in device memory).  N / 2 must
-// be a multiple of 2^11 pairs.  The capture runs on a stream of its own
-// and executes nothing.
+// call's pointers from args (a SweepArgs in device memory); its kernel
+// nodes go to *kernels.  N / 2 must be a multiple of 2^11 pairs.  The
+// capture runs on a stream of its own and executes nothing.
 int ovqe_sweep_group_graph(int adj, long long N, const int* x,
                            const int* zp, const float* s, const int* kl,
                            int G, int K, int fmode, int nb, const void* args,
-                           void** exec) {
+                           void** exec, long long* kernels) {
   if (N < 2 * GR_GRAPH_PER * GR_THREADS || N > (1ll << 30) || (N & (N - 1)) ||
       G <= 0 || K <= 0 || (adj && nb != sweep_nb(N)))
     return (int)cudaErrorInvalidValue;
@@ -1045,7 +1045,7 @@ int ovqe_sweep_group_graph(int adj, long long N, const int* x,
                    : group_launches<false>(a, N, x, zp, s, kl, G, K, fmode,
                                            nb, cs);
       },
-      exec);
+      exec, kernels);
 }
 
 // Write one call's SweepArgs (host memory, copied in stream order) to

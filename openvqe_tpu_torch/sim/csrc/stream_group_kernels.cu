@@ -644,17 +644,17 @@ int ovqe_rot_stream(long long N, const int* x, const int* zp, const float* s,
 
 // ovqe_rot_stream captured once into an executable graph (*exec), as
 // ovqe_adjoint_stream_graph captures C8: at H10 one graph launch for the
-// 875 kernels.
+// 875 kernels (*kernels).
 int ovqe_rot_stream_graph(long long N, const int* x, const int* zp,
                           const float* s, const int* kl, int G, int K,
                           int fmode, int per, int nb, const void* args,
-                          void** exec) {
+                          void** exec, long long* kernels) {
   return capture_graph(
       [&](cudaStream_t cs) {
         return ovqe_rot_stream(N, x, zp, s, kl, G, K, fmode, per, nb, args,
                                cs);
       },
-      exec);
+      exec, kernels);
 }
 
 // C8 on the operand set (x, zp, s, kl) of G groups: G launches in order,
@@ -679,18 +679,18 @@ int ovqe_adjoint_stream(long long N, const int* x, const int* zp,
 // ovqe_adjoint_stream captured once into an executable graph (*exec): the
 // launches are the same, and a replay (ovqe_graph_replay) reads
 // the call's states, angles and outputs from args, so on an H10 adjoint
-// the host issues one graph launch for the 876 kernels.  The capture runs
-// on a stream of its own and executes nothing.
+// the host issues one graph launch for the 876 kernels (*kernels).  The
+// capture runs on a stream of its own and executes nothing.
 int ovqe_adjoint_stream_graph(long long N, const int* x, const int* zp,
                               const float* s, const int* kl, int G, int K,
                               int fmode, int per, int nb, const void* args,
-                              void** exec) {
+                              void** exec, long long* kernels) {
   return capture_graph(
       [&](cudaStream_t cs) {
         return ovqe_adjoint_stream(N, x, zp, s, kl, G, K, fmode, per, nb,
                                    args, cs);
       },
-      exec);
+      exec, kernels);
 }
 
 // Write one call's AdjointArgs (host memory, copied in stream order) to

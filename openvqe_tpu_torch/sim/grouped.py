@@ -42,6 +42,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.run_logger import COUNTERS, span
 from .compile import CompiledOpSequence, CompiledPauliSum
 
 _TOL = 1e-11
@@ -467,16 +468,48 @@ def clamp_op(op: np.ndarray, n_params: int) -> np.ndarray:
     return np.minimum(np.asarray(op, np.int64), n_params - 1)
 
 
-def segment_grad(gts: torch.Tensor, op: np.ndarray,
-                 n_params: int) -> torch.Tensor:
-    """Sum per-group entries into parameters (CPU, float64).  Entries of
-    groups whose op is past the end of theta are dropped, as the JAX
-    package's scatters and segment_sum drop out-of-range ids."""
+def upload(host, dtype, device) -> torch.Tensor:
+    """A host array as a tensor of ``dtype`` on ``device``.  A copy from
+    pageable memory waits for the device's stream, so each upload counts
+    one in ``syncs`` and its bytes in ``h2d_bytes``, on either device."""
+    t = torch.as_tensor(host, dtype=dtype, device=device)
+    COUNTERS["syncs"] += 1
+    COUNTERS["h2d_bytes"] += t.nbytes
+    return t
+
+
+def readback(t: torch.Tensor):
+    """``t`` on the host, a Python number for a 0-dim tensor: the host
+    waits on the device (span ``ovqe.readback``); counts one in ``syncs``
+    and its bytes in ``d2h_bytes``, on either device."""
+    with span("ovqe.readback"):
+        out = t.item() if t.ndim == 0 else t.detach().cpu()
+    COUNTERS["syncs"] += 1
+    COUNTERS["d2h_bytes"] += t.nbytes
+    return out
+
+
+def segment_sum(gts: torch.Tensor, op: np.ndarray,
+                n_params: int) -> torch.Tensor:
+    """Sum per-group entries already on the host into parameters
+    (float64).  Entries of groups whose op is past the end of theta are
+    dropped, as the JAX package's scatters and segment_sum drop
+    out-of-range ids."""
     op_t = torch.as_tensor(np.asarray(op, np.int64))
     keep = op_t < n_params
     grad = torch.zeros(n_params, dtype=torch.float64)
-    grad.index_add_(0, op_t[keep], gts.detach().cpu().to(torch.float64)[keep])
+    grad.index_add_(0, op_t[keep], gts.to(torch.float64)[keep])
     return grad
+
+
+def segment_grad(gts: torch.Tensor, op: np.ndarray,
+                 n_params: int) -> torch.Tensor:
+    """Per-group entries read back (``readback``) and summed into
+    parameters on the host (CPU, float64; span ``ovqe.grad_sum``), with
+    ``segment_sum``'s drop of out-of-range ids."""
+    host = readback(gts)
+    with span("ovqe.grad_sum"):
+        return segment_sum(host, op, n_params)
 
 
 # --------------------------------------------------------- pool screening

@@ -44,10 +44,13 @@ pool overlap a ``convert.PoolOperands``; pool-overlap rows are (G, 2) or
 (B, gcap, 2) float32 (re, im); state planes are (2, 2^n) float32, all
 contiguous and on one device.  Outputs are allocated with ``torch.empty``
 and the kernels run on the current stream.  ``LAUNCHES`` counts, per
-wrapper, the calls that launched the kernel.  ``rot_sweep`` and
-``adjoint_sweep`` (A1, C7) run one launch per sweep, the state held in the
-shared memory of one thread-block cluster (``cluster_size`` picks its
-blocks from n; a cluster the card refuses raises); where one cluster
+wrapper, the calls that launched the kernel, and the counters
+``device_launches.<wrapper>`` of ``utils/run_logger.py`` the kernels
+those calls put on the device (a graph's kernel nodes for a replay).
+``rot_sweep`` and ``adjoint_sweep`` (A1, C7) run one launch per sweep,
+the state held in the shared memory of one thread-block cluster
+(``cluster_size`` picks its blocks from n; a cluster the card refuses
+raises); where one cluster
 cannot hold the states (A1 at n >= 19, C7 at n >= 18) their per-group
 kernels replay one CUDA graph per operand set, as ``rot_stream`` and
 ``adjoint_stream`` (A2, C8) do on every call.  ``rot_sweep``, ``adjoint_sweep``, ``rot_fused``, ``adjoint_fused``,
@@ -80,6 +83,7 @@ from typing import Dict
 
 import torch
 
+from ..utils.run_logger import COUNTERS, count
 from . import convert
 from . import grouped as gr
 from . import streaming as st
@@ -98,6 +102,9 @@ KERNELS = ("rot_sweep", "expectation", "ham_apply", "adjoint_sweep",
            "expect_hoisted", "rot_stream", "adjoint_stream", "ham_stream",
            "expect_stream", "pool_overlap", "pool_bucketed")
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+# the kernels each host launch puts on the device, by wrapper, in the
+# always-on counters of ``utils/run_logger.py``
+DEVICE_LAUNCHES = {k: f"device_launches.{k}" for k in KERNELS}
 build_log = ""          # nvcc's output (-Xptxas -v) of the last build
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -147,6 +154,7 @@ def build() -> Dict[str, Path]:
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        count("lib_builds")
     logs, failed = [], []
     for name, (tmp, proc) in procs.items():
         out, _ = proc.communicate()
@@ -165,7 +173,7 @@ _SIGNATURES = {
     "grouped": {
         "ovqe_rot_sweep": "PPIIPPPPPIIIP",
         "ovqe_adjoint_sweep": "PPPPIIPPPPPIIIPIPP",
-        "ovqe_sweep_group_graph": "ILPPPPIIIIPP",
+        "ovqe_sweep_group_graph": "ILPPPPIIIIPPP",
         "ovqe_graph_replay": "PPPP",
         "ovqe_graph_destroy": "P",
         "ovqe_sweep_attrs": "IIIIIP",
@@ -187,9 +195,9 @@ _SIGNATURES = {
     },
     "stream_group": {
         "ovqe_rot_stream": "LPPPPIIIIIPP",
-        "ovqe_rot_stream_graph": "LPPPPIIIIIPP",
+        "ovqe_rot_stream_graph": "LPPPPIIIIIPPP",
         "ovqe_adjoint_stream": "LPPPPIIIIIPP",
-        "ovqe_adjoint_stream_graph": "LPPPPIIIIIPP",
+        "ovqe_adjoint_stream_graph": "LPPPPIIIIIPPP",
         "ovqe_graph_replay": "PPPP",
         "ovqe_graph_destroy": "P",
         "ovqe_stream_group_attrs": "IIIP",
@@ -215,6 +223,7 @@ def _load(name: str = "grouped") -> ctypes.CDLL:
                  "L": ctypes.c_longlong}
         for lib_name, path in build().items():
             lib = ctypes.CDLL(str(path))
+            count("lib_loads")
             for fn_name, sig in _SIGNATURES[lib_name].items():
                 fn = getattr(lib, fn_name)
                 fn.argtypes = [types[c] for c in sig]
@@ -265,14 +274,16 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _launch(name: str, fn, *args) -> None:
+def _launch(name: str, fn, *args, kernels: int) -> None:
     """Call a C entry point (tensors go as device pointers), raise on its
-    cudaGetLastError() code, and count the launch."""
+    cudaGetLastError() code, and count the launch (``LAUNCHES``) and the
+    ``kernels`` it puts on the device (``DEVICE_LAUNCHES``)."""
     rc = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
               for a in args))
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
     LAUNCHES[name] += 1
+    COUNTERS[DEVICE_LAUNCHES[name]] += kernels
 
 
 def _fmode(fmode: int) -> int:
@@ -340,7 +351,7 @@ def _rot_cluster(psi, angles, so: convert.SeqOperands, fmode: int, C: int):
     out = torch.empty_like(psi)
     _launch("rot_sweep", _load().ovqe_rot_sweep, psi, out, so.n,
             C.bit_length() - 1, so.x, so.z_pair, so.s, so.k_live, angles,
-            so.G, so.K, fmode, _stream(psi))
+            so.G, so.K, fmode, _stream(psi), kernels=1)
     return out
 
 
@@ -357,7 +368,7 @@ def _adjoint_cluster(p, lam, angles, so: convert.SeqOperands, fmode: int,
     _launch("adjoint_sweep", _load().ovqe_adjoint_sweep, p, lam, p_out,
             l_out, so.n, C.bit_length() - 1, so.x, so.z_pair, so.s,
             so.k_live, angles, so.G, so.K, fmode, partials, nb, gts,
-            _stream(p))
+            _stream(p), kernels=2)
     return p_out, l_out, gts
 
 
@@ -514,7 +525,7 @@ def _ham(psi, ho: convert.HamOperands, per: int):
     out = torch.empty_like(psi)
     _launch("ham_apply", _load().ovqe_ham_apply, psi, out, N, ho.x, ho.z,
             ho.a_re, ho.a_im, ho.k_live, ho.G, ho.K, int(ho.real), per,
-            _stream(psi))
+            _stream(psi), kernels=1)
     return out
 
 
@@ -582,7 +593,7 @@ def _expect(psi, ho: convert.HamOperands, per: int):
     out = torch.empty(1, dtype=torch.float32, device=psi.device)
     _launch("expectation", lib.ovqe_expectation, psi, N, ho.x, ho.z,
             ho.a_re, ho.a_im, ho.k_live, ho.G, ho.K, int(ho.real), per,
-            partials, nb, out, _stream(psi))
+            partials, nb, out, _stream(psi), kernels=2)
     return out[0]
 
 
@@ -676,7 +687,7 @@ def rot_fused(psi, ang, bo: st.BucketOperands, fmode: int,
     _aligned(out)
     _launch("rot_fused", lib.ovqe_rot_fused, out, N, bo.chunk_bits, bo.x_hi,
             bo.x_lo, bo.act, bo.z, bo.coef, ang, bo.B, bo.gcap, bo.K,
-            _fmode(fmode), _stream(psi))
+            _fmode(fmode), _stream(psi), kernels=bo.B)
     return out
 
 
@@ -702,7 +713,8 @@ def adjoint_fused(p, lam, ang, bo: st.BucketOperands, fmode: int):
     gts = torch.empty((bo.B, bo.gcap), dtype=torch.float32, device=p.device)
     _launch("adjoint_fused", lib.ovqe_adjoint_fused, p_out, l_out, N,
             bo.chunk_bits, bo.x_hi, bo.x_lo, bo.act, bo.z, bo.coef, ang,
-            bo.B, bo.gcap, bo.K, _fmode(fmode), partials, gts, _stream(p))
+            bo.B, bo.gcap, bo.K, _fmode(fmode), partials, gts, _stream(p),
+            kernels=bo.B + 1)
     return p_out, l_out, gts
 
 
@@ -764,7 +776,8 @@ def ham_bucketed(psi, acc, bo: st.BucketOperands):
     out = torch.empty_like(psi)
     _launch("ham_bucketed", lib.ovqe_ham_bucketed, psi, acc, out, N,
             bo.chunk_bits, bo.x_hi, bo.x_lo, bo.k_live, bo.z, bo.coef,
-            bo.coef_im, bo.B, bo.gcap, bo.K, int(bo.real), _stream(psi))
+            bo.coef_im, bo.B, bo.gcap, bo.K, int(bo.real), _stream(psi),
+            kernels=1)
     return out
 
 
@@ -784,7 +797,7 @@ def expect_bucketed(psi, bo: st.BucketOperands, herm: bool = False):
     _launch("expect_bucketed", lib.ovqe_expect_bucketed, psi, N,
             bo.chunk_bits, bo.x_hi, bo.x_lo, bo.k_live, bo.z, bo.coef,
             bo.coef_im, bo.B, bo.gcap, bo.K, int(bo.real), int(bool(herm)),
-            partials, out, _stream(psi))
+            partials, out, _stream(psi), kernels=2)
     return out[0]
 
 
@@ -808,7 +821,7 @@ def expect_hoisted(psi, ho: st.HoistOperands):
     _launch("expect_hoisted", lib.ovqe_expect_hoisted, psi, N,
             bo.chunk_bits, bo.x_hi, bo.x_lo, bo.k_live, bo.z, bo.coef,
             bo.coef_im, bo.B, bo.gcap, bo.K, int(bo.real), partials, out,
-            _stream(psi))
+            _stream(psi), kernels=2)
     return out[0]
 
 
@@ -888,28 +901,32 @@ class _Graph:
     the C entry point ``capture`` of library ``lib``, and the device buffer
     its kernels read each call's five pointers from (``AdjointArgs`` in
     ``csrc/stream_group_kernels.cu``, ``SweepArgs`` in
-    ``csrc/grouped_kernels.cu``).  Each library frees it with
-    ``ovqe_graph_destroy``."""
+    ``csrc/grouped_kernels.cu``).  ``kernels`` is the graph's kernel
+    nodes, counted at capture (counter ``graph_captures``).  Each library
+    frees it with ``ovqe_graph_destroy``."""
 
     def __init__(self, lib: str, capture: str, device, *args):
         self.lib, self.device = lib, device
         with torch.cuda.device(device):
             self.args = torch.empty(5, dtype=torch.int64, device=device)
-            exec_ = ctypes.c_void_p()
+            exec_, kernels = ctypes.c_void_p(), ctypes.c_longlong()
             rc = getattr(_load(lib), capture)(
-                *args, self.args.data_ptr(), ctypes.addressof(exec_))
+                *args, self.args.data_ptr(), ctypes.addressof(exec_),
+                ctypes.addressof(kernels))
         if rc != 0:
             raise RuntimeError(f"{capture}: CUDA error {rc} while capturing "
                                f"a graph")
-        self.exec = exec_.value
+        self.exec, self.kernels = exec_.value, kernels.value
+        count("graph_captures")
 
     def replay(self, name: str, ptrs: tuple, stream: int) -> None:
         """Fill the five pointers in stream order, launch the graph on
-        ``stream`` and count the launch under ``name``."""
+        ``stream`` and count the launch and its kernels under ``name``."""
         host = (ctypes.c_void_p * 5)(*ptrs)
         with torch.cuda.device(self.device):
             _launch(name, _load(self.lib).ovqe_graph_replay, self.exec,
-                    self.args, ctypes.addressof(host), stream)
+                    self.args, ctypes.addressof(host), stream,
+                    kernels=self.kernels)
 
     def __del__(self):
         lib = _libs.get(getattr(self, "lib", None))
@@ -1020,7 +1037,7 @@ def _ham_stream(psi, acc, go: st.GroupOperands, per: int):
     out = torch.empty_like(psi)
     _launch("ham_stream", lib.ovqe_ham_stream, psi, acc, out, N, go.x, go.z,
             go.coef, go.coef_im, go.k_live, go.G, go.K, int(go.real), per,
-            _stream(psi))
+            _stream(psi), kernels=1)
     return out
 
 
@@ -1073,7 +1090,7 @@ def _expect_stream(psi, go: st.GroupOperands, herm: bool, per: int):
     out = torch.empty(1, dtype=torch.float32, device=psi.device)
     _launch("expect_stream", lib.ovqe_expect_stream, psi, N, go.x, go.z,
             go.coef, go.coef_im, go.k_live, go.G, go.K, int(go.real),
-            int(bool(herm)), per, partials, nb, out, _stream(psi))
+            int(bool(herm)), per, partials, nb, out, _stream(psi), kernels=2)
     return out[0]
 
 
@@ -1130,7 +1147,7 @@ def pool_overlap(sigma, psi, po: convert.PoolOperands):
                                device=psi.device)
         _launch("pool_overlap", lib.ovqe_pool_overlap, sigma, psi, N, po.x,
                 po.z, po.a_re, po.a_im, po.k_live, po.G, po.K, int(po.real),
-                partials, nb, out, _stream(psi))
+                partials, nb, out, _stream(psi), kernels=2)
     return out
 
 
@@ -1153,7 +1170,7 @@ def pool_bucketed(sigma, psi, bo: st.BucketOperands):
     _launch("pool_bucketed", lib.ovqe_pool_bucketed, sigma, psi, N,
             bo.chunk_bits, bo.x_hi, bo.x_lo, bo.k_live, bo.z, bo.coef,
             bo.coef_im, bo.B, bo.gcap, bo.K, int(bo.real), partials, out,
-            _stream(psi))
+            _stream(psi), kernels=2)
     return out
 
 

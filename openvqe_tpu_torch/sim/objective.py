@@ -50,6 +50,13 @@ The JAX package runs its per-term H there; both compute the same
 function.  The JAX package's segmented mode is a device-call watchdog of
 its TPU runtime and is not ported.
 
+Each ``energy`` and ``energy_and_grad`` call is a root span ``ovqe.call``
+of ``utils/run_logger.py``, with its angle gathers (``ovqe.angles``), the
+stages ``ovqe.sweep``, ``ovqe.hpass``, ``ovqe.expect`` and ``ovqe.adjoint``
+(timed on the device while tracing is on), its readbacks and the
+gradient's host sum inside it; with tracing off they cost a flag check
+each.
+
 ``objective_expectation`` makes the expectation differentiable with
 respect to the state for the gate-level ansatze (CS-VQE's and WSSVQE's
 HEA): the forward is the energy-only call (D10, or D12 on the streaming
@@ -66,6 +73,7 @@ import numpy as np
 import torch
 
 from ..ops.pauli import PauliSum
+from ..utils.run_logger import call, span, stage
 from . import convert
 from . import grouped as gr
 from . import kernels as K
@@ -170,7 +178,8 @@ class VQEObjective:
                             self.c_re * psi[1] + self.c_im * psi[0]])
 
     def _lam0(self, psi) -> torch.Tensor:
-        """H|psi> without the identity offset."""
+        """H|psi> without the identity offset (the callers' span
+        ``ovqe.hpass``)."""
         if not self.stream:
             return K.ham_apply(psi, self.hops)
         acc = None
@@ -179,12 +188,15 @@ class VQEObjective:
         return torch.zeros_like(psi) if acc is None else acc
 
     def _energy(self, psi) -> float:
-        """Re <psi|H|psi>: the kernels' sum plus c <psi|psi>."""
-        if self.stream:
-            e = st.expect_sum(psi, self.eops, self.herm)
-        else:
-            e = K.expectation(psi, self.hops)
-        return float(e + self.c_re * torch.sum(psi * psi))
+        """Re <psi|H|psi>: the kernels' sum plus c <psi|psi> (span
+        ``ovqe.expect``), read back to the host."""
+        with stage("ovqe.expect", self.device):
+            if self.stream:
+                e = st.expect_sum(psi, self.eops, self.herm)
+            else:
+                e = K.expectation(psi, self.hops)
+            e = e + self.c_re * torch.sum(psi * psi)
+        return gr.readback(e)
 
     def energy_and_lam(self, psi: torch.Tensor
                        ) -> Tuple[float, torch.Tensor]:
@@ -193,14 +205,16 @@ class VQEObjective:
         p = self._on_device(psi)
         # the constant stays out of the f32 elementwise accumulation:
         # e = <psi|lam0> + c <psi|psi>
-        lam0 = self._lam0(p)
-        e = torch.sum(p * lam0) + self.c_re * torch.sum(p * p)
-        return float(e), (lam0 + self._const(p)).to(psi.dtype)
+        with stage("ovqe.hpass", self.device):
+            lam0 = self._lam0(p)
+            e = torch.sum(p * lam0) + self.c_re * torch.sum(p * p)
+        return gr.readback(e), (lam0 + self._const(p)).to(psi.dtype)
 
     def ham_apply(self, psi) -> torch.Tensor:
         """H|psi>, identity offset included."""
         psi = self._on_device(psi)
-        return self._lam0(psi) + self._const(psi)
+        with stage("ovqe.hpass", self.device):
+            return self._lam0(psi) + self._const(psi)
 
     def expectation(self, psi) -> float:
         """Re <psi|H|psi>."""
@@ -231,33 +245,39 @@ class BoundAnsatz:
 
     def _angles(self, theta) -> torch.Tensor:
         """-theta[op] per group, with the JAX package's index clamp
-        (``grouped.clamp_op``), in the objective's dtype."""
-        th = np.asarray(theta, np.float64).reshape(-1)
+        (``grouped.clamp_op``), in the objective's dtype (span
+        ``ovqe.angles``)."""
         if not len(self._ops.op):
             return torch.zeros(0, dtype=self._obj.dtype,
                                device=self._obj.device)
-        ang = -th[gr.clamp_op(self._ops.op, len(th))]
-        return torch.as_tensor(ang, dtype=self._obj.dtype,
-                               device=self._obj.device)
+        with span("ovqe.angles"):
+            th = np.asarray(theta, np.float64).reshape(-1)
+            ang = -th[gr.clamp_op(self._ops.op, len(th))]
+            return gr.upload(ang, self._obj.dtype, self._obj.device)
 
     def forward(self, theta) -> torch.Tensor:
         """Final statevector planes (2, 2^n) on the objective's device."""
         o = self._ops
-        return K.rot_sweep(self._psi0, self._angles(theta), o, o.fmode)
+        ang = self._angles(theta)
+        with stage("ovqe.sweep", self._obj.device):
+            return K.rot_sweep(self._psi0, ang, o, o.fmode)
 
     def _grad(self, theta, psi, lam) -> np.ndarray:
         o = self._ops
-        _, _, gts = K.adjoint_sweep(psi, lam, self._angles(theta), o,
-                                    o.fmode)
+        ang = self._angles(theta)
+        with stage("ovqe.adjoint", self._obj.device):
+            _, _, gts = K.adjoint_sweep(psi, lam, ang, o, o.fmode)
         return gr.segment_grad(gts, o.op, int(np.asarray(theta).size)).numpy()
 
     def energy(self, theta) -> float:
-        return self._obj._energy(self.forward(theta))
+        with call("energy"):
+            return self._obj._energy(self.forward(theta))
 
     def energy_and_grad(self, theta) -> Tuple[float, np.ndarray]:
-        psi = self.forward(theta)
-        e, lam = self._obj.energy_and_lam(psi)
-        return e, self._grad(theta, psi, lam)
+        with call("energy_and_grad"):
+            psi = self.forward(theta)
+            e, lam = self._obj.energy_and_lam(psi)
+            return e, self._grad(theta, psi, lam)
 
     def scipy_fun_jac(self, energies: Optional[List[float]] = None):
         """(fun, jac) pair sharing one fused evaluation per point."""
@@ -307,19 +327,20 @@ class StreamBoundAnsatz(BoundAnsatz):
         if self._fwd is None:
             return self._psi0.clone()
         rot = K.rot_fused if self._fused else K.rot_stream
-        return rot(self._psi0, self._ops_angles(self._fwd, theta), self._fwd,
-                   self._fmode)
+        ang = self._ops_angles(self._fwd, theta)
+        with stage("ovqe.sweep", self._obj.device):
+            return rot(self._psi0, ang, self._fwd, self._fmode)
 
     def _grad(self, theta, psi, lam) -> np.ndarray:
         n_params = int(np.asarray(theta).size)
         if self._adj is None:
             return np.zeros(n_params)
         ang = self._ops_angles(self._adj, theta)
+        adjoint = K.adjoint_fused if self._fused else K.adjoint_stream
+        with stage("ovqe.adjoint", self._obj.device):
+            _, _, gts = adjoint(psi, lam, ang, self._adj, self._fmode)
         if self._fused:
-            _, _, gts = K.adjoint_fused(psi, lam, ang, self._adj,
-                                        self._fmode)
             return st.bucket_grad(gts, self._adj, n_params).numpy()
-        _, _, gts = K.adjoint_stream(psi, lam, ang, self._adj, self._fmode)
         return gr.segment_grad(gts, self._adj.op, n_params).numpy()
 
 
@@ -350,10 +371,11 @@ class PerTermBoundAnsatz(BoundAnsatz):
         return self._obj._on_device(self._sweep(theta))
 
     def energy_and_grad(self, theta) -> Tuple[float, np.ndarray]:
-        e, grad = sv.adjoint_energy_and_grad(
-            np.asarray(theta, np.float64), self._psi0, self._sargs,
-            self._obj.energy_and_lam)
-        return e, grad.numpy()
+        with call("energy_and_grad"):
+            e, grad = sv.adjoint_energy_and_grad(
+                np.asarray(theta, np.float64), self._psi0, self._sargs,
+                self._obj.energy_and_lam)
+            return e, grad.numpy()
 
 
 class _Expectation(torch.autograd.Function):

@@ -74,6 +74,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.run_logger import span
 from . import grouped as gr
 from . import statevector as sv
 
@@ -648,19 +649,24 @@ def expect_sum(psi, eops: list, herm: bool):
 
 def bucket_angles(bo: BucketOperands, theta, dtype, device) -> torch.Tensor:
     """(B, gcap) angles -theta[op] with the JAX package's index clamp
-    (``grouped.clamp_op``); padding slots get 0."""
-    th = np.asarray(theta, np.float64).reshape(-1)
-    ang = -th[gr.clamp_op(bo.op, len(th))] * bo.act_host
-    return torch.as_tensor(ang, dtype=dtype, device=device)
+    (``grouped.clamp_op``); padding slots get 0.  Gathered on the host and
+    uploaded (span ``ovqe.angles``, ``grouped.upload``)."""
+    with span("ovqe.angles"):
+        th = np.asarray(theta, np.float64).reshape(-1)
+        ang = -th[gr.clamp_op(bo.op, len(th))] * bo.act_host
+        return gr.upload(ang, dtype, device)
 
 
 def bucket_grad(gts: torch.Tensor, bo: BucketOperands,
                 n_params: int) -> torch.Tensor:
-    """Per-(bucket, slot) gradient entries summed into theta with the JAX
-    package's drop of out-of-range ids (``grouped.segment_grad``)."""
+    """Per-(bucket, slot) gradient entries read back (``grouped.readback``)
+    and summed into theta on the host (span ``ovqe.grad_sum``) with the JAX
+    package's drop of out-of-range ids (``grouped.segment_sum``)."""
     act = bo.act_host
-    return gr.segment_grad(gts.detach().cpu()[torch.from_numpy(act)],
-                           bo.op[act], n_params)
+    host = gr.readback(gts)
+    with span("ovqe.grad_sum"):
+        return gr.segment_sum(host[torch.from_numpy(act)], bo.op[act],
+                              n_params)
 
 
 @dataclass
@@ -751,10 +757,12 @@ def group_operands(sd: StreamGroupData, device, dtype=torch.float32
 
 
 def group_angles(go: GroupOperands, theta, dtype, device) -> torch.Tensor:
-    """(G,) angles -theta[op] with the JAX package's index clamp."""
-    th = np.asarray(theta, np.float64).reshape(-1)
-    ang = -th[gr.clamp_op(go.op, len(th))] if go.G else np.zeros(0)
-    return torch.as_tensor(ang, dtype=dtype, device=device)
+    """(G,) angles -theta[op] with the JAX package's index clamp, gathered
+    and uploaded as ``bucket_angles``'s."""
+    with span("ovqe.angles"):
+        th = np.asarray(theta, np.float64).reshape(-1)
+        ang = -th[gr.clamp_op(go.op, len(th))] if go.G else np.zeros(0)
+        return gr.upload(ang, dtype, device)
 
 
 # ------------------------------------------------- plain kernel versions

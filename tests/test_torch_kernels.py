@@ -36,6 +36,7 @@ from openvqe_tpu_torch.sim import streaming as st
 from openvqe_tpu_torch.sim.compile import (compile_op_sequence, compile_pauli_sum,
                                            compile_pool)
 from openvqe_tpu_torch.sim.objective import StreamBoundAnsatz, VQEObjective
+from openvqe_tpu_torch.utils import run_logger as rl
 from test_torch_grouped_fields import odd_y_seq
 from test_torch_ham_fields import _complex_set
 from test_torch_stream_group_fields import odd_y_groups
@@ -966,6 +967,44 @@ def test_stream_group_kernels_match_plain_versions(dev, monkeypatch, fmode):
             "adjoint_stream": 2, "adjoint_fused": 1}
     assert {k: K.LAUNCHES[k] - counts[k] for k in K.KERNELS} == \
         {k: want.get(k, 0) for k in K.KERNELS}
+
+
+def test_traced_calls_count_kernels_syncs_and_stage_times(dev, monkeypatch):
+    """Traced energy and energy-and-gradient calls on both streaming
+    routes: each record's ``device_launches`` count each wrapper's kernels
+    (A3 one a run, C9 one more for the row sums, B6 one a K class, D12 two
+    a class, A2 and C8 their graph's kernel nodes, G and G + 1), ``syncs``
+    are 2 and 4, and each stage has its device time, within the call's."""
+    b, fb, fobj, _, n_par = _group_route(monkeypatch, dev, 1)
+    theta = np.random.default_rng(2).normal(size=n_par)
+    rl.reset()
+    rl.enable()
+    try:
+        for bound in (fb, b):
+            for kind in ("energy", "energy_and_grad"):
+                getattr(bound, kind)(theta)
+    finally:
+        rl.enable(False)
+    nh = len(fobj.hclasses)
+    want = [{"rot_fused": fb._fwd.B, "expect_bucketed": 2 * nh},
+            {"rot_fused": fb._fwd.B, "ham_bucketed": nh,
+             "adjoint_fused": fb._adj.B + 1},
+            {"rot_stream": b._fwd.G, "expect_bucketed": 2 * nh},
+            {"rot_stream": b._fwd.G, "ham_bucketed": nh,
+             "adjoint_stream": b._adj.G + 1}]
+    recs = rl.calls()
+    assert [r["kind"] for r in recs] == ["energy", "energy_and_grad"] * 2
+    for r, w in zip(recs, want):
+        got = {k.split(".", 1)[1]: v for k, v in r["counts"].items()
+               if k.startswith("device_launches.")}
+        assert got == w, r["counts"]
+        energy = r["kind"] == "energy"
+        assert r["counts"]["syncs"] == (2 if energy else 4)
+        stages = ({"ovqe.sweep", "ovqe.expect"} if energy else
+                  {"ovqe.sweep", "ovqe.hpass", "ovqe.adjoint"})
+        assert set(r["device_ms"]) == stages
+        assert all(v > 0 for v in r["device_ms"].values())
+        assert 0 <= r["port_idle_ms"] < r["wall_ms"]
 
 
 # C8's compiled PERs and the states that run each (n, msb(x) of the
