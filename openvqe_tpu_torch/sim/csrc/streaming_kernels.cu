@@ -47,7 +47,16 @@
 //     KB of states leave one per SM);
 //   - the adjoint's gradient shares are reduced inside each warp per group
 //     and across warps once per run, in a fixed order, so every entry
-//     repeats bit for bit.
+//     repeats bit for bit;
+//   - only the pairs of each slot's live cube (streaming.live_cubes: a JW
+//     double is live on one pair in 8, H12's UCCSD on 14.0 % of its pairs,
+//     the rest exp(-i theta 0) = 1): the cube's bits above the chunk pick
+//     the chunks a run stages (the launch covers only those the whole run
+//     can touch) and skip a slot in the others, its bits inside the chunk
+//     pick the pairs, a thread takes SW_PER >> popcount of them (see the
+//     note above SweepGroup).  m = 0 is every pair.  A dead pair is left
+//     as it is, where psi + (0 psi + 0 psi_x) would turn a -0 into +0: the
+//     only way the states differ from visiting every pair.
 // * ham_bucketed / expect_bucketed (redesigned for Hopper): one launch per
 //   K class (the sum is order-free).  A block owns one output chunk with
 //   its accumulators in registers (PER amplitudes per thread; B6 adds in
@@ -91,6 +100,7 @@
 #include "common.cuh"
 
 #define SW_PER 8                // pairs per thread and group of A3 / C9
+                                // at m = 0 (loop_bits takes 3 bits of q)
 #define SW_MAX_THREADS 512      // 2^(ST_MAX_CB - 3): threads = chunk / 8
 #define SW_KTILE 16             // largest compile-time K; tiles above it
 #define ST_MIN_CB 8             // PER = 2^(cb - 8) amplitudes per thread
@@ -98,12 +108,25 @@
 
 namespace {
 
-// Chunk pair of this block for a bucket with high mask xh: the partner
-// distance is xh, or 1 when xh == 0 (two independent chunks).
-__device__ __forceinline__ void chunk_pair(unsigned xh, unsigned& cA,
+// The r-th integer, in increasing order, whose bits at the set bits of fix
+// are clear: a zero inserted at each set bit of fix, lowest first.  Linear
+// over disjoint bits: deposit(a | b) = deposit(a) | deposit(b).
+__device__ __forceinline__ unsigned deposit(unsigned r, unsigned fix) {
+  for (; fix; fix &= fix - 1u) r = insert_zero(r, __ffs(fix) - 1);
+  return r;
+}
+
+// Chunk pair of this block for a run with high mask xh: the partner
+// distance is xh, or 1 when xh == 0 (two independent chunks).  The run's
+// live slots all lie in chunks c with c & mh == vh (its run cube,
+// streaming.run_cube_of), so the blocks enumerate only those: block i takes
+// the i-th chunk whose bits at mh and at the distance's highest bit are
+// those of vh and 0.
+__device__ __forceinline__ void chunk_pair(unsigned xh, unsigned mh,
+                                           unsigned vh, unsigned& cA,
                                            unsigned& cB) {
   const unsigned d = xh ? xh : 1u;
-  cA = insert_zero(blockIdx.x, 31 - __clz(d));
+  cA = deposit(blockIdx.x, (1u << (31 - __clz(d))) | mh) | vh;
   cB = cA ^ d;
 }
 
@@ -152,20 +175,36 @@ __device__ __forceinline__ void stage(float* sm, float* const* st, int nst,
 //                              (-1)^popcount(l & ze_k),
 //     ze_k = (z_k & (C - 1)) | parity((d << cb) & z_k) << cb,
 // so the chunk's sign is folded into the coefficient once per block (cs_k)
-// and the effective mask ze_k covers both chunks of an x_hi = 0 run.  A
-// group's pairs are l = insert_zero(t, h), t < C, h the highest bit of the
-// local mask.  With T = C / SW_PER threads and t = q T + tid, insert_zero
-// is linear over the disjoint bits of q T and tid, so
-//     F(l) = sum_k [cs_k (-1)^popcount(insert_zero(q T, h) & ze_k)]
-//                  (-1)^popcount(insert_zero(tid, h) & ze_k).
+// and the effective mask ze_k covers both chunks of an x_hi = 0 run.
+//
+// Live cubes.  A slot's field is exactly 0.0 outside its live cube (m, v)
+// (streaming.live_cubes, certified on the host in this float32 sum), where
+// exp(-i theta F) is the identity.  The part of m above the chunk picks
+// the chunks: a block whose chunk cA has (cA << cb) & m != v there skips
+// the slot, and the launch covers only the chunks of the run's common cube
+// (chunk_pair).  Inside the chunk the slot's pairs are the local canonical
+// ends l (bit h, the local mask's highest, clear) with l & m_lo == v_lo:
+// P = C >> popcount(m_lo) of them, l = deposit(t, fix) | v_lo, t < P,
+// fix = 1 << h | m_lo.  With T = C / SW_PER threads, each thread takes
+// QP = P / T of them (at least one; threads past P idle), t = q T + tid,
+// and deposit is linear over the disjoint bits of q T and tid, so
+//     F(l) = sum_k [cs_k (-1)^popcount(deposit(q T, fix) & ze_k)]
+//                  (-1)^popcount((deposit(tid, fix) | v_lo) & ze_k).
 // The bracket is tab[g2][k][q], built once per block for the run's groups;
 // the second factor is one popcount per thread, term and group.  The
 // partner l ^ xloc needs no field: F(j ^ x) = -F(j) on odd-Y operands.
+// m = 0 is every pair, QP = SW_PER.
 
 // Per-slot data of a run, in shared memory.
 struct SweepGroup {
-  unsigned xloc;        // local mask; 0: a padding slot (or x = 0)
-  int h;                // its highest bit
+  unsigned xloc;        // local mask; 0: a padding slot (or x = 0), or a
+                        // slot whose live cube misses this block's chunks
+  unsigned fix;         // the local bits a pair index skips: h and m_lo
+  unsigned vlo;         // the cube's value on m_lo
+  unsigned np;          // the block's pairs of the slot, C >> popcount(m_lo)
+  int qp;               // pairs a thread, QP
+  unsigned dq[3];       // deposit(2^i T, fix): loop pair q's local bits are
+                        // the OR of those at the set bits i of q
   RotAngle ra;
 };
 
@@ -186,17 +225,32 @@ __host__ __device__ inline size_t sweep_smem(int nst, int cb, int gcap,
 __device__ __forceinline__ void sweep_tables(
     float* tab, unsigned* zt, SweepGroup* grp, const int* __restrict__ xl,
     const int* __restrict__ act, const int* __restrict__ z,
-    const float* __restrict__ s, const float* __restrict__ ang, int b,
-    int gcap, int K, int Kp, int fmode, int cb, unsigned xhb, unsigned cA) {
+    const float* __restrict__ s, const float* __restrict__ ang,
+    const int* __restrict__ cm, const int* __restrict__ cv, int b, int gcap,
+    int K, int Kp, int fmode, int cb, unsigned xhb, unsigned cA) {
   const unsigned C = 1u << cb, T = blockDim.x;
   const unsigned d = xhb ? xhb : 1u;
   for (int i = threadIdx.x; i < gcap * Kp; i += T) {
     const int g2 = i / Kp, k = i - g2 * Kp;
     const size_t slot = (size_t)b * gcap + g2;
+    const unsigned m = (unsigned)cm[slot], v = (unsigned)cv[slot];
+    const bool here = !(((cA << cb) ^ v) & m & ~(C - 1u));
     const unsigned xloc =
-        act[slot] ? ((xhb ? C : 0u) | (unsigned)xl[slot]) : 0u;
+        act[slot] && here ? ((xhb ? C : 0u) | (unsigned)xl[slot]) : 0u;
     const int h = xloc ? 31 - __clz(xloc) : 0;
-    if (k == 0) grp[g2] = SweepGroup{xloc, h, rot_angle(ang[slot], fmode)};
+    const unsigned fix = (1u << h) | (m & (C - 1u));
+    const int pm = __popc(m & (C - 1u));
+    if (k == 0) {
+      SweepGroup& g = grp[g2];
+      g.xloc = xloc;
+      g.fix = fix;
+      g.vlo = v & (C - 1u);
+      g.np = C >> pm;
+      g.qp = pm < 3 ? SW_PER >> pm : 1;
+#pragma unroll
+      for (int e = 0; e < 3; ++e) g.dq[e] = deposit(T << e, fix);
+      g.ra = rot_angle(ang[slot], fmode);
+    }
     unsigned zk = 0u;
     float c = 0.f;
     if (k < K) {
@@ -209,32 +263,39 @@ __device__ __forceinline__ void sweep_tables(
     float* row = tab + (size_t)i * SW_PER;
 #pragma unroll
     for (int q = 0; q < SW_PER; ++q)
-      row[q] = parity(insert_zero(q * T, h) & ze) ? -c : c;
+      row[q] = parity(deposit(q * T, fix) & ze) ? -c : c;
   }
 }
 
-// Fields F[q] of a thread's SW_PER pairs of one group (thread part lf):
-// per term one popcount, then SW_PER FMAs against the group's table.  The
-// terms add in the order k = 0 .. Kp - 1; padding adds exact zeros.
-template <int KT>
-__device__ __forceinline__ void sweep_fields(float (&F)[SW_PER], unsigned lf,
+// Fields F[q] of a thread's QP pairs of one group (thread part lf): per
+// term one popcount, then QP FMAs against the group's table.  The terms
+// add in the order k = 0 .. Kp - 1; padding adds exact zeros.
+template <int KT, int QP>
+__device__ __forceinline__ void sweep_fields(float (&F)[QP], unsigned lf,
                                              const float* tab,
                                              const unsigned* zt, int Kp) {
 #pragma unroll
-  for (int q = 0; q < SW_PER; ++q) F[q] = 0.f;
+  for (int q = 0; q < QP; ++q) F[q] = 0.f;
   for (int k0 = 0; k0 < Kp; k0 += KT) {
 #pragma unroll
     for (int k = 0; k < KT; ++k) {
       const float sg = parity(lf & zt[k0 + k]) ? -1.f : 1.f;
-      const float4* row =
-          reinterpret_cast<const float4*>(tab + (k0 + k) * SW_PER);
+      const float* row = tab + (k0 + k) * SW_PER;
+      if constexpr (QP >= 4) {
 #pragma unroll
-      for (int q4 = 0; q4 < SW_PER / 4; ++q4) {
-        const float4 v = row[q4];
-        F[4 * q4] = fmaf(sg, v.x, F[4 * q4]);
-        F[4 * q4 + 1] = fmaf(sg, v.y, F[4 * q4 + 1]);
-        F[4 * q4 + 2] = fmaf(sg, v.z, F[4 * q4 + 2]);
-        F[4 * q4 + 3] = fmaf(sg, v.w, F[4 * q4 + 3]);
+        for (int q4 = 0; q4 < QP / 4; ++q4) {
+          const float4 v = reinterpret_cast<const float4*>(row)[q4];
+          F[4 * q4] = fmaf(sg, v.x, F[4 * q4]);
+          F[4 * q4 + 1] = fmaf(sg, v.y, F[4 * q4 + 1]);
+          F[4 * q4 + 2] = fmaf(sg, v.z, F[4 * q4 + 2]);
+          F[4 * q4 + 3] = fmaf(sg, v.w, F[4 * q4 + 3]);
+        }
+      } else if constexpr (QP == 2) {
+        const float2 v = *reinterpret_cast<const float2*>(row);
+        F[0] = fmaf(sg, v.x, F[0]);
+        F[1] = fmaf(sg, v.y, F[1]);
+      } else {
+        F[0] = fmaf(sg, row[0], F[0]);
       }
     }
   }
@@ -258,49 +319,114 @@ __device__ __forceinline__ SweepSmem sweep_carve(float* after_states,
   return m;
 }
 
+// Local bits of a thread's loop pair q of a slot (q < SW_PER = 8).
+__device__ __forceinline__ unsigned loop_bits(const unsigned (&dq)[3],
+                                              int q) {
+  return ((q & 1) ? dq[0] : 0u) | ((q & 2) ? dq[1] : 0u) |
+         ((q & 4) ? dq[2] : 0u);
+}
+
+// One group of rot_fused on a thread's QP pairs: each pair {l, l ^ xloc}
+// is one thread's, both ends of both planes read before either is written
+// (the order of streaming.py:1239-1251).
+template <int KT, int QP>
+__device__ __forceinline__ void rot_pairs(float* re, float* im,
+                                          const SweepGroup& g,
+                                          const float* tab,
+                                          const unsigned* zt, int Kp,
+                                          int fmode) {
+  const unsigned xloc = g.xloc, dq[3] = {g.dq[0], g.dq[1], g.dq[2]};
+  const RotAngle ra = g.ra;
+  const unsigned lf = deposit(threadIdx.x, g.fix) | g.vlo;
+  float F[QP];
+  sweep_fields<KT, QP>(F, lf, tab, zt, Kp);
+#pragma unroll
+  for (int q = 0; q < QP; ++q) {
+    const unsigned l = loop_bits(dq, q) | lf, ll = l ^ xloc;
+    float cm, sn;                         // cm: cos - 1; the partner: -sn
+    rot_cm(ra, F[q], fmode, cm, sn);
+    const float a0 = re[l], a1 = im[l], b0 = re[ll], b1 = im[ll];
+    re[l] = a0 + (cm * a0 + sn * b0);
+    im[l] = a1 + (cm * a1 + sn * b1);
+    re[ll] = b0 + (cm * b0 - sn * a0);
+    im[ll] = b1 + (cm * b1 - sn * a1);
+  }
+}
+
+// One group of adjoint_fused on a thread's QP pairs; returns the thread's
+// share of the gradient entry, its pairs added in order.
+template <int KT, int QP>
+__device__ __forceinline__ float adjoint_pairs(float* pre, float* pim,
+                                               float* lre, float* lim,
+                                               const SweepGroup& g,
+                                               const float* tab,
+                                               const unsigned* zt, int Kp,
+                                               int fmode) {
+  const unsigned xloc = g.xloc, dq[3] = {g.dq[0], g.dq[1], g.dq[2]};
+  const RotAngle ra = g.ra;
+  const unsigned lf = deposit(threadIdx.x, g.fix) | g.vlo;
+  float F[QP];
+  sweep_fields<KT, QP>(F, lf, tab, zt, Kp);
+  float contrib = 0.f;
+#pragma unroll
+  for (int q = 0; q < QP; ++q) {
+    const unsigned i = loop_bits(dq, q) | lf, ii = i ^ xloc;
+    float cm, sn;                         // cm: cos - 1; the partner: -sn
+    rot_cm(ra, F[q], fmode, cm, sn);
+    const float p0j = pre[i], p1j = pim[i], p0k = pre[ii], p1k = pim[ii];
+    const float l0j = lre[i], l1j = lim[i], l0k = lre[ii], l1k = lim[ii];
+    contrib += F[q] * ((l0j * p0k + l1j * p1k) - (l0k * p0j + l1k * p1j));
+    pre[i] = p0j + (cm * p0j - sn * p0k);
+    pim[i] = p1j + (cm * p1j - sn * p1k);
+    pre[ii] = p0k + (cm * p0k + sn * p0j);
+    pim[ii] = p1k + (cm * p1k + sn * p1j);
+    lre[i] = l0j + (cm * l0j - sn * l0k);
+    lim[i] = l1j + (cm * l1j - sn * l1k);
+    lre[ii] = l0k + (cm * l0k + sn * l0j);
+    lim[ii] = l1k + (cm * l1k + sn * l1j);
+  }
+  return contrib;
+}
+
 // ---------------------------------------------------------------- kernel 1
 // rot_fused: bucket b of a rotation sequence, one launch per run in order.
 // Replaces openvqe_tpu/sim/streaming.py::_rot_fused_kernel.  Local mask
-// xloc = (x_hi ? 1 << cb : 0) | x_lo; each pair {l, l ^ xloc} is one
-// thread's for the group: both ends of both planes are read before either
-// is written (the order of streaming.py:1239-1251).
+// xloc = (x_hi ? 1 << cb : 0) | x_lo; each slot visits the pairs of its
+// live cube (the note above), QP of them a thread.
 template <int KT>
 __global__ void __launch_bounds__(SW_MAX_THREADS, 2)
 rot_fused_kernel(float* __restrict__ psi, unsigned N, int cb,
                  const int* __restrict__ xh, const int* __restrict__ xl,
                  const int* __restrict__ act, const int* __restrict__ z,
                  const float* __restrict__ s, const float* __restrict__ ang,
-                 int b, int gcap, int K, int Kp, int fmode) {
+                 const int* __restrict__ cm, const int* __restrict__ cv,
+                 unsigned mh, unsigned vh, int b, int gcap, int K, int Kp,
+                 int fmode) {
   extern __shared__ float4 sw_sm[];
   float* sm = reinterpret_cast<float*>(sw_sm);
-  const unsigned C = 1u << cb, T = blockDim.x, xhb = (unsigned)xh[b];
+  const unsigned C = 1u << cb, xhb = (unsigned)xh[b];
   unsigned cA, cB;
-  chunk_pair(xhb, cA, cB);
+  chunk_pair(xhb, mh, vh, cA, cB);
   float* re = sm;
   float* im = sm + 2 * C;
   const SweepSmem m = sweep_carve(sm + 4 * C, gcap, Kp);
   float* states[1] = {psi};
   stage(sm, states, 1, N, cb, cA, cB, true);
-  sweep_tables(m.tab, m.zt, m.grp, xl, act, z, s, ang, b, gcap, K, Kp, fmode,
-               cb, xhb, cA);
+  sweep_tables(m.tab, m.zt, m.grp, xl, act, z, s, ang, cm, cv, b, gcap, K,
+               Kp, fmode, cb, xhb, cA);
   __syncthreads();
   for (int g2 = 0; g2 < gcap; ++g2) {
-    const SweepGroup g = m.grp[g2];
+    const SweepGroup& g = m.grp[g2];
     if (!g.xloc) continue;
-    const unsigned lf = insert_zero(threadIdx.x, g.h);
-    float F[SW_PER];
-    sweep_fields<KT>(F, lf, m.tab + (size_t)g2 * Kp * SW_PER,
-                     m.zt + g2 * Kp, Kp);
-#pragma unroll
-    for (int q = 0; q < SW_PER; ++q) {
-      const unsigned l = insert_zero(q * T, g.h) | lf, ll = l ^ g.xloc;
-      float cm, sn;                       // cm: cos - 1; the partner: -sn
-      rot_cm(g.ra, F[q], fmode, cm, sn);
-      const float a0 = re[l], a1 = im[l], b0 = re[ll], b1 = im[ll];
-      re[l] = a0 + (cm * a0 + sn * b0);
-      im[l] = a1 + (cm * a1 + sn * b1);
-      re[ll] = b0 + (cm * b0 - sn * a0);
-      im[ll] = b1 + (cm * b1 - sn * a1);
+    const float* tab = m.tab + (size_t)g2 * Kp * SW_PER;
+    const unsigned* zt = m.zt + g2 * Kp;
+    switch (g.qp) {
+      case SW_PER: rot_pairs<KT, SW_PER>(re, im, g, tab, zt, Kp, fmode); break;
+      case 4: rot_pairs<KT, 4>(re, im, g, tab, zt, Kp, fmode); break;
+      case 2: rot_pairs<KT, 2>(re, im, g, tab, zt, Kp, fmode); break;
+      default:
+        if (threadIdx.x < g.np)
+          rot_pairs<KT, 1>(re, im, g, tab, zt, Kp, fmode);
     }
     __syncthreads();
   }
@@ -313,26 +439,29 @@ rot_fused_kernel(float* __restrict__ psi, unsigned N, int cb,
 // lambda are staged together; per group each pair first adds its share of
 // -2 sum_j F(j) (lam_j . p_{j^x}), with F(j ^ x) = -F(j) the share
 // F(l) (lam_l . p_ll - lam_ll . p_l), then un-rotates both states:
-// p'(j) = p(j) + (cm(j) p(j) - s(j) p(j ^ x)).  The shares are summed in
-// each warp (shuffles, fixed order) into red[slot][warp]; after the run
-// the block adds its warps in order into partials[slot][blockIdx.x] (zero
-// for a padding slot), and row_reduce_kernel finishes the (B, gcap)
-// entries.
+// p'(j) = p(j) + (cm(j) p(j) - s(j) p(j ^ x)); a slot visits the pairs of
+// its live cube only (a dead pair's share is 0).  The shares are summed in
+// each warp (shuffles, fixed order) into red[slot][warp]; after the run the
+// block adds its warps in order into partials[slot][blockIdx.x] (zero for
+// a padding slot or one this block skips) and zeroes its share of the
+// row's tail, the entries of the chunks the launch does not cover, so
+// that row_reduce_kernel finishes the (B, gcap) entries over every row.
 template <int KT>
 __global__ void __launch_bounds__(SW_MAX_THREADS, 1)
 adjoint_fused_kernel(float* __restrict__ p, float* __restrict__ l,
                      unsigned N, int cb, const int* __restrict__ xh,
                      const int* __restrict__ xl, const int* __restrict__ act,
                      const int* __restrict__ z, const float* __restrict__ s,
-                     const float* __restrict__ ang, int b, int gcap, int K,
-                     int Kp, int fmode,
-                     float* __restrict__ partials) {
+                     const float* __restrict__ ang,
+                     const int* __restrict__ cm, const int* __restrict__ cv,
+                     unsigned mh, unsigned vh, int b, int gcap, int K,
+                     int Kp, int fmode, float* __restrict__ partials) {
   extern __shared__ float4 sw_sm[];
   float* sm = reinterpret_cast<float*>(sw_sm);
   const unsigned C = 1u << cb, C2 = 2u * C, T = blockDim.x;
   const unsigned xhb = (unsigned)xh[b], warps = T / 32;
   unsigned cA, cB;
-  chunk_pair(xhb, cA, cB);
+  chunk_pair(xhb, mh, vh, cA, cB);
   float* pre = sm;
   float* pim = sm + C2;
   float* lre = sm + 2 * C2;
@@ -340,33 +469,32 @@ adjoint_fused_kernel(float* __restrict__ p, float* __restrict__ l,
   const SweepSmem m = sweep_carve(sm + 4 * C2, gcap, Kp);
   float* states[2] = {p, l};
   stage(sm, states, 2, N, cb, cA, cB, true);
-  sweep_tables(m.tab, m.zt, m.grp, xl, act, z, s, ang, b, gcap, K, Kp, fmode,
-               cb, xhb, cA);
+  sweep_tables(m.tab, m.zt, m.grp, xl, act, z, s, ang, cm, cv, b, gcap, K,
+               Kp, fmode, cb, xhb, cA);
   __syncthreads();
   for (int g2 = 0; g2 < gcap; ++g2) {
-    const SweepGroup g = m.grp[g2];
+    const SweepGroup& g = m.grp[g2];
     if (!g.xloc) continue;
-    const unsigned lf = insert_zero(threadIdx.x, g.h);
-    float F[SW_PER];
-    sweep_fields<KT>(F, lf, m.tab + (size_t)g2 * Kp * SW_PER,
-                     m.zt + g2 * Kp, Kp);
+    const float* tab = m.tab + (size_t)g2 * Kp * SW_PER;
+    const unsigned* zt = m.zt + g2 * Kp;
     float contrib = 0.f;
-#pragma unroll
-    for (int q = 0; q < SW_PER; ++q) {
-      const unsigned i = insert_zero(q * T, g.h) | lf, ii = i ^ g.xloc;
-      float cm, sn;                       // cm: cos - 1; the partner: -sn
-      rot_cm(g.ra, F[q], fmode, cm, sn);
-      const float p0j = pre[i], p1j = pim[i], p0k = pre[ii], p1k = pim[ii];
-      const float l0j = lre[i], l1j = lim[i], l0k = lre[ii], l1k = lim[ii];
-      contrib += F[q] * ((l0j * p0k + l1j * p1k) - (l0k * p0j + l1k * p1j));
-      pre[i] = p0j + (cm * p0j - sn * p0k);
-      pim[i] = p1j + (cm * p1j - sn * p1k);
-      pre[ii] = p0k + (cm * p0k + sn * p0j);
-      pim[ii] = p1k + (cm * p1k + sn * p1j);
-      lre[i] = l0j + (cm * l0j - sn * l0k);
-      lim[i] = l1j + (cm * l1j - sn * l1k);
-      lre[ii] = l0k + (cm * l0k + sn * l0j);
-      lim[ii] = l1k + (cm * l1k + sn * l1j);
+    switch (g.qp) {
+      case SW_PER:
+        contrib = adjoint_pairs<KT, SW_PER>(pre, pim, lre, lim, g, tab, zt,
+                                            Kp, fmode);
+        break;
+      case 4:
+        contrib = adjoint_pairs<KT, 4>(pre, pim, lre, lim, g, tab, zt, Kp,
+                                       fmode);
+        break;
+      case 2:
+        contrib = adjoint_pairs<KT, 2>(pre, pim, lre, lim, g, tab, zt, Kp,
+                                       fmode);
+        break;
+      default:
+        if (threadIdx.x < g.np)
+          contrib = adjoint_pairs<KT, 1>(pre, pim, lre, lim, g, tab, zt, Kp,
+                                         fmode);
     }
     for (int o = 16; o > 0; o >>= 1)
       contrib += __shfl_down_sync(0xffffffffu, contrib, o);
@@ -374,11 +502,15 @@ adjoint_fused_kernel(float* __restrict__ p, float* __restrict__ l,
       m.red[g2 * warps + threadIdx.x / 32] = contrib;
     __syncthreads();
   }
+  const unsigned nrow = N >> (cb + 1), rep = nrow / gridDim.x;
   for (int g2 = threadIdx.x; g2 < gcap; g2 += T) {
     float tot = 0.f;
     if (m.grp[g2].xloc)
       for (unsigned w = 0; w < warps; ++w) tot += m.red[g2 * warps + w];
-    partials[((size_t)b * gcap + g2) * gridDim.x + blockIdx.x] = tot;
+    float* row = partials + ((size_t)b * gcap + g2) * nrow;
+    row[blockIdx.x] = tot;
+    for (unsigned r = 1; r < rep; ++r)
+      row[gridDim.x + blockIdx.x * (rep - 1) + (r - 1)] = 0.f;
   }
   stage(sm, states, 2, N, cb, cA, cB, false);
 }
@@ -756,18 +888,25 @@ void sweep_k(int K, int& KT, int& Kp) {
 
 unsigned sweep_threads(int cb) { return (1u << cb) / SW_PER; }
 
+// Blocks of run b: the chunk pairs whose chunk cA matches the run cube
+// rc[2b], rc[2b + 1] (a host array).
+unsigned sweep_blocks(long long N, int cb, const int* rc, int b) {
+  return (unsigned)(N >> (cb + 1)) >> __builtin_popcount((unsigned)rc[2 * b]);
+}
+
 template <int KT>
 int launch_rot(float* psi, long long N, int cb, const int* xh, const int* xl,
                const int* act, const int* z, const float* s,
-               const float* ang, int B, int gcap, int K, int Kp, int fmode,
-               cudaStream_t st) {
+               const float* ang, const int* cm, const int* cv, const int* rc,
+               int B, int gcap, int K, int Kp, int fmode, cudaStream_t st) {
   const size_t smem = sweep_smem(1, cb, gcap, Kp);
   int e = set_smem(rot_fused_kernel<KT>, smem);
   if (e) return e;
-  const unsigned nblk = (unsigned)(N >> (cb + 1));
   for (int b = 0; b < B; ++b) {
-    rot_fused_kernel<KT><<<nblk, sweep_threads(cb), smem, st>>>(
-        psi, (unsigned)N, cb, xh, xl, act, z, s, ang, b, gcap, K, Kp, fmode);
+    rot_fused_kernel<KT><<<sweep_blocks(N, cb, rc, b), sweep_threads(cb),
+                           smem, st>>>(
+        psi, (unsigned)N, cb, xh, xl, act, z, s, ang, cm, cv,
+        (unsigned)rc[2 * b], (unsigned)rc[2 * b + 1], b, gcap, K, Kp, fmode);
     e = (int)cudaGetLastError();
     if (e) return e;
   }
@@ -777,15 +916,17 @@ int launch_rot(float* psi, long long N, int cb, const int* xh, const int* xl,
 template <int KT>
 int launch_adjoint(float* p, float* l, long long N, int cb, const int* xh,
                    const int* xl, const int* act, const int* z,
-                   const float* s, const float* ang, int B, int gcap, int K,
+                   const float* s, const float* ang, const int* cm,
+                   const int* cv, const int* rc, int B, int gcap, int K,
                    int Kp, int fmode, float* partials, cudaStream_t st) {
   const size_t smem = sweep_smem(2, cb, gcap, Kp);
   int e = set_smem(adjoint_fused_kernel<KT>, smem);
   if (e) return e;
-  const unsigned nblk = (unsigned)(N >> (cb + 1));
   for (int b = 0; b < B; ++b) {
-    adjoint_fused_kernel<KT><<<nblk, sweep_threads(cb), smem, st>>>(
-        p, l, (unsigned)N, cb, xh, xl, act, z, s, ang, b, gcap, K, Kp, fmode,
+    adjoint_fused_kernel<KT><<<sweep_blocks(N, cb, rc, b),
+                               sweep_threads(cb), smem, st>>>(
+        p, l, (unsigned)N, cb, xh, xl, act, z, s, ang, cm, cv,
+        (unsigned)rc[2 * b], (unsigned)rc[2 * b + 1], b, gcap, K, Kp, fmode,
         partials);
     e = (int)cudaGetLastError();
     if (e) return e;
@@ -809,50 +950,51 @@ int sweep_attrs(int adjoint, int cb, int gcap, int Kp, int* out) {
 
 extern "C" {
 
+// cm, cv (B, gcap) on the device: each slot's live cube; rc (B, 2) on the
+// host: each run's cube above the chunk (streaming.BucketOperands).
 int ovqe_rot_fused(float* psi, long long N, int cb, const int* xh,
                    const int* xl, const int* act, const int* z,
-                   const float* s, const float* ang, int B, int gcap, int K,
+                   const float* s, const float* ang, const int* cm,
+                   const int* cv, const int* rc, int B, int gcap, int K,
                    int fmode, void* stream) {
   if (!cb_ok(N, cb)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   int KT, Kp;
   sweep_k(K, KT, Kp);
+#define OVQE_ROT(KT_)                                                       \
+  launch_rot<KT_>(psi, N, cb, xh, xl, act, z, s, ang, cm, cv, rc, B, gcap, \
+                  K, Kp, fmode, st)
   switch (KT) {
-    case 1: return launch_rot<1>(psi, N, cb, xh, xl, act, z, s, ang, B, gcap,
-                                 K, Kp, fmode, st);
-    case 2: return launch_rot<2>(psi, N, cb, xh, xl, act, z, s, ang, B, gcap,
-                                 K, Kp, fmode, st);
-    case 4: return launch_rot<4>(psi, N, cb, xh, xl, act, z, s, ang, B, gcap,
-                                 K, Kp, fmode, st);
-    case 8: return launch_rot<8>(psi, N, cb, xh, xl, act, z, s, ang, B, gcap,
-                                 K, Kp, fmode, st);
-    default: return launch_rot<SW_KTILE>(psi, N, cb, xh, xl, act, z, s, ang,
-                                         B, gcap, K, Kp, fmode, st);
+    case 1: return OVQE_ROT(1);
+    case 2: return OVQE_ROT(2);
+    case 4: return OVQE_ROT(4);
+    case 8: return OVQE_ROT(8);
+    default: return OVQE_ROT(SW_KTILE);
   }
+#undef OVQE_ROT
 }
 
 int ovqe_adjoint_fused(float* p, float* l, long long N, int cb,
                        const int* xh, const int* xl, const int* act,
-                       const int* z, const float* s, const float* ang, int B,
+                       const int* z, const float* s, const float* ang,
+                       const int* cm, const int* cv, const int* rc, int B,
                        int gcap, int K, int fmode, float* partials,
                        float* gts, void* stream) {
   if (!cb_ok(N, cb)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   int KT, Kp, e;
   sweep_k(K, KT, Kp);
+#define OVQE_ADJ(KT_)                                                       \
+  launch_adjoint<KT_>(p, l, N, cb, xh, xl, act, z, s, ang, cm, cv, rc, B,  \
+                      gcap, K, Kp, fmode, partials, st)
   switch (KT) {
-    case 1: e = launch_adjoint<1>(p, l, N, cb, xh, xl, act, z, s, ang, B,
-                                  gcap, K, Kp, fmode, partials, st); break;
-    case 2: e = launch_adjoint<2>(p, l, N, cb, xh, xl, act, z, s, ang, B,
-                                  gcap, K, Kp, fmode, partials, st); break;
-    case 4: e = launch_adjoint<4>(p, l, N, cb, xh, xl, act, z, s, ang, B,
-                                  gcap, K, Kp, fmode, partials, st); break;
-    case 8: e = launch_adjoint<8>(p, l, N, cb, xh, xl, act, z, s, ang, B,
-                                  gcap, K, Kp, fmode, partials, st); break;
-    default: e = launch_adjoint<SW_KTILE>(p, l, N, cb, xh, xl, act, z, s,
-                                          ang, B, gcap, K, Kp, fmode,
-                                          partials, st); break;
+    case 1: e = OVQE_ADJ(1); break;
+    case 2: e = OVQE_ADJ(2); break;
+    case 4: e = OVQE_ADJ(4); break;
+    case 8: e = OVQE_ADJ(8); break;
+    default: e = OVQE_ADJ(SW_KTILE); break;
   }
+#undef OVQE_ADJ
   if (e) return e;
   row_reduce_kernel<ST_THREADS, float><<<B * gcap, ST_THREADS, 0, st>>>(
       partials, (int)(N >> (cb + 1)), -2.f, gts);

@@ -57,8 +57,12 @@ kernels replay one CUDA graph per operand set, as ``rot_stream`` and
 ``rot_stream`` and ``adjoint_stream`` compute one field per pair and take
 only operands that carry the odd-Y certificate (``SeqOperands.odd_y``,
 ``BucketOperands.odd_y``, ``GroupOperands.odd_y``), on either device:
-without it they raise ``ValueError``.  The kernels that stage states with
-16-byte loads (``rot_sweep`` and ``adjoint_sweep`` on a cluster,
+without it they raise ``ValueError``.  ``rot_fused`` and ``adjoint_fused``
+(A3, C9) visit only the pairs of each slot's live cube
+(``BucketOperands.cube_m``, ``cube_v``, ``run_cube``) and add the pairs
+they visit and those of their live slots' staged chunks to the counters
+``sweep_pairs.live`` and ``sweep_pairs.all``.  The kernels that stage
+states with 16-byte loads (``rot_sweep`` and ``adjoint_sweep`` on a cluster,
 ``rot_fused``, ``adjoint_fused``, ``ham_bucketed``, ``expect_bucketed``,
 ``expect_hoisted``) refuse a state on the card whose data is not 16-byte
 aligned.  ``grouped_attributes``, ``ham_attributes``,
@@ -81,6 +85,7 @@ import subprocess
 from pathlib import Path
 from typing import Dict
 
+import numpy as np
 import torch
 
 from ..utils.run_logger import COUNTERS, count
@@ -185,8 +190,8 @@ _SIGNATURES = {
         "ovqe_block_threads": "",
     },
     "streaming": {
-        "ovqe_rot_fused": "PLIPPPPPPIIIIP",
-        "ovqe_adjoint_fused": "PPLIPPPPPPIIIIPPP",
+        "ovqe_rot_fused": "PLIPPPPPPPPPIIIIP",
+        "ovqe_adjoint_fused": "PPLIPPPPPPPPPIIIIPPP",
         "ovqe_ham_bucketed": "PPPLIPPPPPPIIIIP",
         "ovqe_expect_bucketed": "PLIPPPPPPIIIIIPPP",
         "ovqe_expect_hoisted": "PLIPPPPPPIIIIPPP",
@@ -661,6 +666,30 @@ def _odd_y(ops) -> None:
             "needs F(j ^ x) = -F(j)")
 
 
+def _cubes(psi: torch.Tensor, bo: st.BucketOperands) -> int:
+    """Check the live cubes of a sweep's operands (``bucket_operands``
+    computes them with ``odd_y``); return the host address of the runs'
+    cubes."""
+    if bo.cube_m is None or bo.cube_v is None or bo.run_cube is None:
+        raise ValueError("sweep operands without live cubes "
+                         "(streaming.bucket_operands)")
+    _check("cube_m", bo.cube_m, torch.int32, (bo.B, bo.gcap), psi.device)
+    _check("cube_v", bo.cube_v, torch.int32, (bo.B, bo.gcap), psi.device)
+    rc = bo.run_cube
+    if rc.dtype != np.int32 or rc.shape != (bo.B, 2) \
+            or not rc.flags.c_contiguous:
+        raise ValueError(f"run_cube must be a contiguous ({bo.B}, 2) int32 "
+                         f"array")
+    return rc.ctypes.data
+
+
+def _count_pairs(bo: st.BucketOperands) -> None:
+    """The pairs a sweep visits and those of its live slots' staged chunks
+    (``BucketOperands.pairs``): their ratio is the share the cubes keep."""
+    count("sweep_pairs.live", bo.pairs[0])
+    count("sweep_pairs.all", bo.pairs[1])
+
+
 def _aligned(*states: torch.Tensor) -> None:
     """The sweeps and the bucketed H kernels stage states with 16-byte
     (float4) loads."""
@@ -676,18 +705,23 @@ def rot_fused(psi, ang, bo: st.BucketOperands, fmode: int,
     run); ang (B, gcap) holds -theta[op] per slot.  ``inplace`` rotates
     psi itself (16-byte aligned on the card) and returns it (no second
     state).  ``bo`` must carry the odd-Y certificate (``bo.odd_y``) on
-    either device."""
+    either device.  The kernel visits only the pairs of each slot's live
+    cube (``bo.cube_m``, ``bo.cube_v``) and leaves the others, where the
+    rotation is the identity, as they are (the plain version writes
+    psi + 0 there: a -0 may come back as +0)."""
     _odd_y(bo)
     if psi.device.type == "cpu":
         return _in_place(psi, st.rot_fused_ref(psi, ang, bo, fmode), inplace)
     N = _buckets(psi, bo, (bo.coef,))
     _check("ang", ang, torch.float32, (bo.B, bo.gcap), psi.device)
+    rc = _cubes(psi, bo)
     lib = _load("streaming")
     out = psi if inplace else torch.empty_like(psi).copy_(psi)
     _aligned(out)
     _launch("rot_fused", lib.ovqe_rot_fused, out, N, bo.chunk_bits, bo.x_hi,
-            bo.x_lo, bo.act, bo.z, bo.coef, ang, bo.B, bo.gcap, bo.K,
-            _fmode(fmode), _stream(psi), kernels=bo.B)
+            bo.x_lo, bo.act, bo.z, bo.coef, ang, bo.cube_m, bo.cube_v, rc,
+            bo.B, bo.gcap, bo.K, _fmode(fmode), _stream(psi), kernels=bo.B)
+    _count_pairs(bo)
     return out
 
 
@@ -695,13 +729,15 @@ def adjoint_fused(p, lam, ang, bo: st.BucketOperands, fmode: int):
     """Reversible adjoint over the runs of the REVERSED sequence in ``bo``;
     returns (p_prev, lam_prev, gts) with gts (B, gcap) the per-slot
     gradient entries (0 in padding slots).  ``bo`` must carry the odd-Y
-    certificate (``bo.odd_y``) on either device."""
+    certificate (``bo.odd_y``) on either device.  As ``rot_fused``, the
+    kernel visits only the pairs of each slot's live cube."""
     _odd_y(bo)
     if p.device.type == "cpu":
         return st.adjoint_fused_ref(p, lam, ang, bo, fmode)
     N = _buckets(p, bo, (bo.coef,))
     _check("lam", lam, torch.float32, (2, N), p.device)
     _check("ang", ang, torch.float32, (bo.B, bo.gcap), p.device)
+    rc = _cubes(p, bo)
     lib = _load("streaming")
     p_out, l_out = torch.empty_like(p), torch.empty_like(lam)
     p_out.copy_(p)
@@ -713,13 +749,16 @@ def adjoint_fused(p, lam, ang, bo: st.BucketOperands, fmode: int):
     gts = torch.empty((bo.B, bo.gcap), dtype=torch.float32, device=p.device)
     _launch("adjoint_fused", lib.ovqe_adjoint_fused, p_out, l_out, N,
             bo.chunk_bits, bo.x_hi, bo.x_lo, bo.act, bo.z, bo.coef, ang,
-            bo.B, bo.gcap, bo.K, _fmode(fmode), partials, gts, _stream(p),
-            kernels=bo.B + 1)
+            bo.cube_m, bo.cube_v, rc, bo.B, bo.gcap, bo.K, _fmode(fmode),
+            partials, gts, _stream(p), kernels=bo.B + 1)
+    _count_pairs(bo)
     return p_out, l_out, gts
 
 
 SWEEP_PER = 8           # SW_PER of csrc/streaming_kernels.cu: pairs per
-                        # thread and group of A3 and C9, 2^cb / 8 threads
+                        # thread and group of A3 and C9 at cube m = 0 (a
+                        # cube with b bits inside the chunk: 8 >> b, at
+                        # least 1), 2^cb / 8 threads
 
 
 def sweep_attributes(name: str, bo: st.BucketOperands) -> Dict[str, int]:

@@ -12,7 +12,10 @@ share x_hi can share one residency of that chunk pair:
   consecutive groups with equal x_hi (``build_seq_buckets``); order is
   kept exactly, since rotations do not commute.  ``Buckets.odd_y``
   certifies every live term odd-Y, so F(j ^ x) = -F(j) and the fused
-  sweeps compute one field per pair;
+  sweeps compute one field per pair; ``Buckets.live_cubes`` certifies for
+  each group a cube of the index outside which its float32 field is
+  exactly 0.0 (``live_cubes``), and the fused sweeps visit only the pairs
+  inside it (``BucketOperands.cube_m`` / ``cube_v`` / ``run_cube``);
 * Hamiltonian groups are order-free and are **bucketed** by x_hi after a
   stable sort (``build_ham_buckets``), split into two K classes by the
   last live coefficient column (``build_ham_buckets_split``): most
@@ -210,7 +213,7 @@ def stream_ham_data(gham, chunk_bits: int = CHUNK_BITS,
 
 
 def _popcount(v) -> np.ndarray:
-    v = np.asarray(v, np.int64)
+    v = np.array(v, np.int64)       # a copy: the loop shifts it in place
     out = np.zeros_like(v)
     while np.any(v):
         out += v & 1
@@ -283,6 +286,127 @@ class Buckets:
         live &= (self.act != 0)[..., None]
         odd = _popcount(x[..., None] & self.z) & 1 == 1
         return bool(np.all(odd | ~live))
+
+    def live_cubes(self) -> Tuple[np.ndarray, np.ndarray]:
+        """The live cube of every slot, (m, v) of shape (B, gcap) over the
+        full n-bit index (``live_cubes``); (0, 0), all pairs, in padding
+        slots."""
+        x = (self.x_hi.astype(np.int64)[:, None] << self.chunk_bits) \
+            | self.x_lo
+        act = (self.act != 0).reshape(-1)
+        m = np.zeros(act.shape, np.int64)
+        v = np.zeros(act.shape, np.int64)
+        m[act], v[act] = live_cubes(
+            x.reshape(-1)[act], self.z.reshape(-1, self.K)[act],
+            self.coef.reshape(-1, self.K)[act], self.n)
+        return m.reshape(self.act.shape), v.reshape(self.act.shape)
+
+
+# --------------------------------------------- live cubes of rotation groups
+#
+# A rotation group's field F(j) = sum_k c_k (-1)^popcount(j & z_k) vanishes
+# on most x-bit patterns of a UCC generator: a JW double is live on 2 of
+# its 16 patterns, one pair in 8.  Where F(j) is 0.0, exp(-i theta F) is
+# the identity, so the sweeps A3 and C9 need not visit the pair {j, j ^ x}.
+# The certificate is a cube (m, v) per group: m a subset of x's bits below
+# its highest, v a value on m, such that every pair whose canonical end j
+# (x's highest bit clear) has j & m != v has a field of exactly 0.0 in the
+# kernels' own float32 sum (the terms added in the order k = 0 .. K - 1).
+# It is proven term by term: j splits into its x bits (the pattern) and the
+# rest, and the rest enters each term's sign through z_k & ~x only, as one
+# of 2^d sign classes (d the GF(2) rank of those masks); the float32 sum is
+# evaluated on every pattern and every class.  m = 0 is every pair.
+CUBE_MAX_BITS = 8       # x masks with more bits get m = 0 (2^|x| patterns)
+CUBE_MAX_RANK = 4       # more than 2^4 sign classes of the rest: m = 0
+
+
+def _rest_classes(zr: np.ndarray) -> Optional[np.ndarray]:
+    """(R, K) signs of the terms in each class of j's bits outside x, from
+    the terms' masks zr = z & ~x there: jr ranges over the subsets of the
+    pivots of zr's reduced row echelon form over GF(2), whose unit vectors
+    pick out the coordinates of each zr_k independently.  None above
+    CUBE_MAX_RANK."""
+    basis: List[int] = []
+    for r in np.unique(zr).tolist():
+        for b in basis:
+            if r & (1 << (b.bit_length() - 1)):
+                r ^= b
+        if r:
+            top = 1 << (r.bit_length() - 1)
+            basis = [b ^ r if b & top else b for b in basis] + [r]
+    if len(basis) > CUBE_MAX_RANK:
+        return None
+    piv = [1 << (b.bit_length() - 1) for b in basis]
+    jr = np.array([sum(p for i, p in enumerate(piv) if s >> i & 1)
+                   for s in range(1 << len(piv))], np.int64)
+    return 1 - 2 * (_popcount(jr[:, None] & zr[None, :]) & 1)
+
+
+def _live_patterns(pos: np.ndarray, z: np.ndarray, c: np.ndarray,
+                   rs: np.ndarray) -> np.ndarray:
+    """live[s, p]: slot s's float32 field, its terms added in order, is not
+    0.0 on x-bit pattern p (bit i of p on bit pos[s, i]) in some class of
+    rs (S, R, K)."""
+    S, w = pos.shape
+    p = np.arange(1 << w, dtype=np.int64)
+    pm = np.zeros((S, 1 << w), np.int64)
+    for i in range(w):
+        pm |= ((p >> i) & 1)[None, :] << pos[:, i:i + 1]
+    F = np.zeros((S, rs.shape[1], 1 << w), np.float32)
+    for k in range(z.shape[1]):
+        ck = np.where(rs[:, :, k] < 0, -c[:, k:k + 1], c[:, k:k + 1])
+        odd = (_popcount(pm & z[:, k:k + 1]) & 1).astype(bool)
+        F = F + np.where(odd[:, None, :], -ck[:, :, None], ck[:, :, None])
+    return (F != 0).any(axis=1)
+
+
+def live_cubes(x, z, coef, n: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The live cube (m, v) of each rotation group (x (S,), z (S, K), coef
+    (S, K), its float32 values what the kernels add): see the note above.
+    m is the x bits below the highest on which every pair not proven dead
+    agrees, v their value; under odd-Y a pair is dead at both ends
+    together, and without it a pair counts as live where either end is."""
+    x = np.asarray(x, np.int64)
+    z = np.asarray(z, np.int64).reshape(len(x), -1)
+    c = np.asarray(coef, np.float64).reshape(z.shape).astype(np.float32)
+    m = np.zeros(len(x), np.int64)
+    v = np.zeros(len(x), np.int64)
+    w = _popcount(x)
+    zr = z & ~x[:, None]
+    for wt in range(2, CUBE_MAX_BITS + 1):
+        sel = np.nonzero(w == wt)[0]
+        if not len(sel):
+            continue
+        pos = np.nonzero((x[sel, None] >> np.arange(n)) & 1)[1].reshape(-1, wt)
+        live_k = c[sel] != 0
+        first = zr[sel, np.argmax(live_k, axis=1)]
+        one = np.all((zr[sel] == first[:, None]) | ~live_k, axis=1)
+        live = np.zeros((len(sel), 1 << wt), bool)
+        fast = np.nonzero(one)[0]
+        if len(fast):
+            live[fast] = _live_patterns(pos[fast], z[sel[fast]], c[sel[fast]],
+                                        np.ones((len(fast), 1, z.shape[1])))
+        keep = np.ones(len(sel), bool)
+        for i in np.nonzero(~one)[0]:
+            s = sel[i]
+            rs = _rest_classes(zr[s][c[s] != 0])
+            if rs is None:
+                keep[i] = False
+                continue
+            full = np.ones((len(rs), z.shape[1]), np.int64)
+            full[:, c[s] != 0] = rs
+            live[i] = _live_patterns(pos[i:i + 1], z[s:s + 1], c[s:s + 1],
+                                     full[None])[0]
+        half = 1 << (wt - 1)
+        p = np.arange(half)
+        pair = live[:, :half] | live[:, ((1 << wt) - 1) ^ p]
+        for i in range(wt - 1):
+            bit = ((p >> i) & 1).astype(bool)
+            has1 = np.any(pair & bit, axis=1)
+            agree = ~(has1 & np.any(pair & ~bit, axis=1)) & keep
+            m[sel] |= np.where(agree, np.int64(1) << pos[:, i], 0)
+            v[sel] |= np.where(agree & has1, np.int64(1) << pos[:, i], 0)
+    return m, v
 
 
 def _lay_out(sd: StreamGroupData, buckets: List[np.ndarray], gcap: int,
@@ -479,7 +603,14 @@ class BucketOperands:
     bucketed H kernels B6 and D12 add only those terms), all contiguous on
     one device.  ``op`` stays on the host: angles are built there.
     ``real`` and ``odd_y`` are the host certificates of ``Buckets``,
-    computed once here."""
+    computed once here.  Operands with ``odd_y`` also carry each slot's
+    live cube (``Buckets.live_cubes``: ``cube_m``, ``cube_v`` (B, gcap)
+    int32 on the device), each run's ``run_cube`` (B, 2) int32 on the host
+    (the bits above the chunk on which every live slot of the run agrees,
+    and their value: the chunks A3 and C9 stage, ``run_cube_of``), and
+    ``pairs``, the pairs a sweep visits and the pairs of its live slots'
+    staged chunks (the counters ``sweep_pairs.live`` and
+    ``sweep_pairs.all``)."""
     n: int
     chunk_bits: int
     x_hi: torch.Tensor
@@ -494,6 +625,10 @@ class BucketOperands:
     act_host: np.ndarray
     fmode: int = 0
     odd_y: bool = False       # Buckets.odd_y: kernels A3 and C9 need it
+    cube_m: Optional[torch.Tensor] = None
+    cube_v: Optional[torch.Tensor] = None
+    run_cube: Optional[np.ndarray] = None
+    pairs: Tuple[int, int] = (0, 0)
 
     @property
     def B(self) -> int:
@@ -522,9 +657,19 @@ def bucket_operands(bk: Buckets, device, dtype=torch.float32
                                device=device).contiguous()
 
     cim = bk.coef_im if bk.coef_im is not None else np.zeros_like(bk.coef)
-    real = bk.real
+    real, odd_y = bk.real, bk.odd_y
     live = ((bk.coef != 0) | (cim != 0)) & (bk.act != 0)[..., None]
     k_live = np.where(live.any(-1), bk.K - np.argmax(live[..., ::-1], -1), 0)
+    cubes = {}
+    if odd_y:
+        m, v = bk.live_cubes()
+        act = bk.act != 0
+        half = 1 << (bk.n - 1)
+        cubes = dict(
+            cube_m=dev(m, torch.int32), cube_v=dev(v, torch.int32),
+            run_cube=run_cube_of(m, v, act, cb),
+            pairs=(int(np.sum((half >> _popcount(m))[act])),
+                   int(act.sum()) * half))
     return BucketOperands(
         n=bk.n, chunk_bits=cb, x_hi=dev(bk.x_hi, torch.int32),
         x_lo=dev(bk.x_lo, torch.int32), act=dev(bk.act, torch.int32),
@@ -532,7 +677,21 @@ def bucket_operands(bk: Buckets, device, dtype=torch.float32
         coef_im=dev(np.zeros_like(cim) if real else cim, dtype),
         k_live=dev(k_live, torch.int32), real=real,
         op=bk.op, act_host=np.asarray(bk.act, bool), fmode=bk.fmode,
-        odd_y=bk.odd_y)
+        odd_y=odd_y, **cubes)
+
+
+def run_cube_of(m, v, act, chunk_bits: int) -> np.ndarray:
+    """(B, 2) int32: per run the bits above the chunk on which the live
+    cubes of all its live slots agree, and their value.  A3 and C9 stage
+    only the chunks that match it: in every other chunk each slot of the
+    run is dead."""
+    mh, vh = m >> chunk_bits, v >> chunk_bits
+    first = vh[np.arange(len(vh)), np.argmax(act, axis=1)]
+    agree = np.bitwise_and.reduce(np.where(act, mh, -1), axis=1)
+    agree &= ~np.bitwise_or.reduce(np.where(act, vh ^ first[:, None], 0),
+                                   axis=1)
+    agree = np.where(act.any(axis=1), agree, 0)
+    return np.stack([agree, first & agree], axis=1).astype(np.int32)
 
 
 @dataclass

@@ -40,6 +40,7 @@ from openvqe_tpu_torch.utils import run_logger as rl
 from test_torch_grouped_fields import odd_y_seq
 from test_torch_ham_fields import _complex_set
 from test_torch_stream_group_fields import odd_y_groups
+from test_torch_sweep_fields import _character_group, _cube_runs
 from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.cuda
@@ -656,6 +657,151 @@ def test_sweeps_match_plain_versions_at_each_k(dev, k, cb):
     assert float((g - grf).abs().max()) <= TOL
     assert float((p - psi).abs().max()) <= TOL
     assert torch.equal(g, K.adjoint_fused(a, lam, aa, adj, fm)[2])
+
+
+def _width_runs(cb, w):
+    """Runs at n = cb + 4 of groups live on one pair in 2^(w-1) (w bits of
+    x, 2^(w-1) terms: the compiled K 1, 2, 4, 8, 16 and two tiles of 16
+    for w = 1 .. 6; w = 1 is a single string, live everywhere): three with
+    x_hi = two bits and one cube bit above the chunk (a run cube), one with
+    x_hi one bit, an x_hi = 0 run with a single string, and a run where a
+    single string sits between two groups whose cube bits above the chunk
+    differ.  The weights make F = +-1 on live pairs, so every field mode
+    applies."""
+    n, h0, h1 = cb + 4, cb + 3, cb + 1
+    lo = [cb - 1, cb - 2, 5, 3, 1, 0]
+    c = 0.5 ** (w - 1)
+    if w == 1:
+        top2 = [[h0], [h1], [h0]]
+    else:
+        top2 = [lo[i:i + w - 2] + [h1, h0] for i in (0, 1, 2)]
+    groups = [_character_group(b, 0b1 if w > 1 else 1, 0, c) for b in top2]
+    groups.append(_character_group(lo[:w - 1] + [h0], 0, 0, c))
+    groups.append(_character_group(lo[:w], 1, 1 << 2, c))
+    groups.append((1 << lo[0] | 1 << lo[3], [1 << lo[3]], [1.0]))
+    mix = lo[1:w - 1] + [h1, h0] if w > 1 else [h0]
+    groups.append(_character_group(mix, 1 << max(w - 2, 0), 1 << 4, c))
+    groups.append((1 << h0 | 1 << h1 | 1 << lo[0], [1 << lo[0]], [-1.0]))
+    groups.append(_character_group(mix, 0, 1 << 4, c))
+    K_ = max(len(g[1]) for g in groups)
+    x = np.array([g[0] for g in groups], np.int64)
+    z = np.zeros((len(groups), K_), np.int64)
+    cf = np.zeros((len(groups), K_))
+    for i, (_, zs, cs) in enumerate(groups):
+        z[i, :len(zs)], cf[i, :len(cs)] = zs, cs
+    return st.build_stream_data(n, x, z, cf, op=np.arange(len(x)),
+                                chunk_bits=cb)
+
+
+def _all_pairs(bo):
+    """The same operands with every cube forced to m = 0: every pair, the
+    arithmetic of the kernels before the cubes."""
+    return dataclasses.replace(
+        bo, cube_m=torch.zeros_like(bo.cube_m),
+        cube_v=torch.zeros_like(bo.cube_v),
+        run_cube=np.zeros_like(bo.run_cube), pairs=(bo.pairs[1],) * 2)
+
+
+def _never_live(bo):
+    """(2^n,) bool: the amplitudes that no slot's live cube touches, where
+    every rotation of the sweep is the identity."""
+    idx = np.arange(1 << bo.n, dtype=np.int64)
+    dead = np.ones(len(idx), bool)
+    m, v = bo.cube_m.cpu().numpy(), bo.cube_v.cpu().numpy()
+    xh, xl = bo.x_hi.cpu().numpy(), bo.x_lo.cpu().numpy()
+    for b, g2 in zip(*np.nonzero(bo.act_host)):
+        x = (int(xh[b]) << bo.chunk_bits) | int(xl[b, g2])
+        top = 1 << (x.bit_length() - 1)
+        end = np.where(idx & top, idx ^ x, idx)        # the canonical end
+        dead &= (end & int(m[b, g2])) != int(v[b, g2])
+    return dead
+
+
+def _signed_zero_diff(a, b):
+    """Entries whose bits differ; each must be a zero of either sign in
+    both (a dead pair keeps -0 where every-pair arithmetic wrote +0)."""
+    diff = a.view(torch.int32) != b.view(torch.int32)
+    assert bool((a[diff] == 0).all()) and bool((b[diff] == 0).all())
+    return int(diff.sum())
+
+
+@pytest.mark.parametrize("cb", [8, 12])
+@pytest.mark.parametrize("w", [1, 2, 3, 4, 5, 6, "mixed"])
+def test_sweeps_on_live_cubes_match_every_pair(dev, cb, w):
+    """A3 and C9 on certified operands against the same operands forced to
+    m = 0, at every compiled K instance (w = 1 .. 6) and on a run mixing
+    singles, doubles, a single string and groups of two rest classes
+    (``mixed``): states bit for bit except signed zeros, counted (the first
+    run alone, on a state with -0 entries where no cube reaches, keeps
+    them where every-pair arithmetic turns them +0), gradient entries
+    within 1e-6 and repeated bit for bit, both within TOL of the plain
+    versions, the sweep_pairs counters, and the sweeps' blocks per SM."""
+    sd = _cube_runs(cb) if w == "mixed" else _width_runs(cb, w)
+    fwd, adj = (st.bucket_operands(st.build_seq_buckets(d), dev)
+                for d in (sd, st._reverse_sd(sd)))
+    n = fwd.n
+    assert fwd.odd_y and adj.odd_y
+    if w != 1:
+        assert fwd.pairs[0] < fwd.pairs[1]
+        assert (fwd.run_cube[:, 0] != 0).any()
+    fm = 1 if w in (2, 4, 6) else 0
+    rng = np.random.default_rng(7)
+    af = torch.as_tensor(rng.normal(size=(fwd.B, fwd.gcap)),
+                         dtype=torch.float32, device=dev)
+    aa = torch.as_tensor(rng.normal(size=(adj.B, adj.gcap)),
+                         dtype=torch.float32, device=dev)
+    psi = _state(dev, 3, n)
+    psi[:, ::5] = -0.0
+    lam = _state(dev, 4, n)
+    lam[:, 1::7] = -0.0
+    at = {name: K.sweep_attributes(name, ops)
+          for name, ops in (("rot_fused", fwd), ("adjoint_fused", adj))}
+    if cb == 12:
+        assert at["rot_fused"]["blocks_per_sm"] == 2
+        assert at["adjoint_fused"]["blocks_per_sm"] == 1
+    before = dict(rl.COUNTERS)
+    a = K.rot_fused(psi, af, fwd, fm)
+    a0 = K.rot_fused(psi, af, _all_pairs(fwd), fm)
+    zeros = _signed_zero_diff(a, a0)
+    assert float((a - st.rot_fused_ref(psi, af, fwd, fm)).abs().max()) <= TOL
+    q = psi.clone()
+    K.rot_fused(q, af, fwd, fm, inplace=True)
+    assert torch.equal(q.view(torch.int32), a.view(torch.int32))
+    p, l, g = K.adjoint_fused(a, lam, aa, adj, fm)
+    p0, l0, g0 = K.adjoint_fused(a, lam, aa, _all_pairs(adj), fm)
+    zeros += _signed_zero_diff(p, p0) + _signed_zero_diff(l, l0)
+    assert float((g - g0).abs().max()) <= 1e-6
+    assert torch.equal(g.view(torch.int32),
+                       K.adjoint_fused(a, lam, aa, adj, fm)[2].view(
+                           torch.int32))
+    pr, lr, grf = st.adjoint_fused_ref(a, lam, aa, adj, fm)
+    assert float((p - pr).abs().max()) <= TOL
+    assert float((l - lr).abs().max()) <= TOL
+    assert float((g - grf).abs().max()) <= TOL
+    torch.cuda.synchronize()
+    got = {k: rl.COUNTERS[k] - before.get(k, 0)
+           for k in ("sweep_pairs.live", "sweep_pairs.all")}
+    # certified A3 twice (one in place), C9 twice; m = 0 once each
+    want_live = 2 * fwd.pairs[0] + 2 * adj.pairs[0] + fwd.pairs[1] \
+        + adj.pairs[1]
+    assert got == {"sweep_pairs.live": want_live,
+                   "sweep_pairs.all": 3 * fwd.pairs[1] + 3 * adj.pairs[1]}
+    # the first run alone leaves amplitudes that no cube reaches, where the
+    # kernel keeps a -0 that every-pair arithmetic writes as +0 (over the
+    # whole sequence a live rotation reaches nearly every amplitude)
+    whole = zeros
+    head = st.bucket_operands(st.build_seq_buckets(
+        st._sd_select(sd, np.arange(3))), dev)
+    never = torch.as_tensor(_never_live(head), device=dev)
+    psi[:, never] = -0.0
+    ah = torch.as_tensor(rng.normal(size=(head.B, head.gcap)),
+                         dtype=torch.float32, device=dev)
+    zeros = _signed_zero_diff(K.rot_fused(psi, ah, head, fm),
+                              K.rot_fused(psi, ah, _all_pairs(head), fm))
+    assert (zeros > 0) == bool(never.any()) == (w != 1)
+    print(f"w={w} cb={cb}: signed zeros differ in {whole} entries after "
+          f"the sequence, {zeros} after its first run; "
+          f"{fwd.pairs[0]}/{fwd.pairs[1]} pairs; {at}")
 
 
 def test_streaming_wrappers_reject_what_the_kernels_do_not_take(dev):

@@ -14,7 +14,18 @@ rely on, checked on the CPU:
   reproduces ``sign_field`` term by term at chunk bits 8 and 12, and the
   pairs it enumerates cover the staged chunk pair once;
 * the certificate fails on a hand-made even-Y group, and the sweep wrappers
-  refuse such operands.
+  refuse such operands;
+* each slot's live cube (``streaming.live_cubes``) is sound: the kernels'
+  float32 field (the terms added in order) and ``grouped.sign_field`` are
+  exactly 0.0 on every pair outside it, on these ansatze, H4's QUCCSD and a
+  qubit pool (whose single strings get the all-pairs cube m = 0), and its
+  pair count is ``vqebench/work.py::Group``'s live count except where a
+  float32 sum leaves a residue the float64 model calls zero;
+* the kernels' enumeration of a cube's pairs (chunks of the run cube,
+  deposit into the free bits, a slot skipped in the chunks its cube
+  misses, QP pairs a thread), emulated in numpy at chunk bits 8 and 12,
+  visits each pair of every cube once and its factorised field equals the
+  float32 field bit for bit.
 """
 
 import contextlib
@@ -25,27 +36,36 @@ import pytest
 import torch
 
 from openvqe_tpu_torch.models.molecule_factory import MoleculeFactory
+from openvqe_tpu_torch.ops.qubit_pools import QubitPool
 from openvqe_tpu_torch.sim import grouped as gr
 from openvqe_tpu_torch.sim import kernels as K
 from openvqe_tpu_torch.sim import streaming as st
 from openvqe_tpu_torch.sim.compile import compile_op_sequence
 from torch_threads import one_torch_thread  # noqa: F401
+from vqebench.work import Group
 
 ANSATZE = [("H4", "UCCSD"), ("H4", "spin_complement_gsd"),
            ("H4", "singlet_sd"), ("H4", "sUPCCGSD"), ("H8", "sUPCCGSD")]
+CUBE_SETS = ANSATZE + [("H4", "QUCCSD"), ("H4", "yxxx_pool")]
 PER = K.SWEEP_PER
 
 
 @pytest.fixture(scope="module")
 def ansatze():
-    """Grouped sequences of the ansatze, built once per module."""
+    """Grouped sequences of the ansatze, H4's QUCCSD (its qubit
+    excitations) and a qubit-ADAPT pool at n = 8 (single YXXX / YX
+    strings), built once per module."""
     mf, out = MoleculeFactory(), {}
-    for mol, gen in ANSATZE:
+    for mol, gen in ANSATZE + [("H4", "QUCCSD")]:
         with contextlib.redirect_stdout(io.StringIO()):
             ops = mf.generate_cluster_ops(mol, gen, "JW")[2]
         n = ops[0].nbqbits
         out[mol, gen] = gr.group_op_sequence(
             compile_op_sequence([op * 1j for op in ops], n))
+    with contextlib.redirect_stdout(io.StringIO()):
+        pool = QubitPool().generate_yxxx_pool(8)[1]
+    out["H4", "yxxx_pool"] = gr.group_op_sequence(
+        compile_op_sequence(pool, 8))
     return out
 
 
@@ -191,3 +211,199 @@ def test_certificate_rejects_an_even_y_group():
         K.rot_fused(psi, ang, bo, 0)
     with pytest.raises(ValueError, match="odd-Y"):
         K.adjoint_fused(psi, psi.clone(), ang, bo, 0)
+
+
+# ------------------------------------------------------------ the live cubes
+
+def _f32_field(z, c, idx):
+    """The kernels' float32 field at idx: the terms added in order k."""
+    F = np.zeros(len(idx), np.float32)
+    for zk, ck in zip(np.asarray(z, np.int64), np.float32(c)):
+        F = F + np.where(_parity(idx & zk) == 1, -ck, ck)
+    return F
+
+
+def _top(x):
+    return int(x).bit_length() - 1
+
+
+@pytest.mark.parametrize("mol,gen", CUBE_SETS)
+def test_live_cubes_are_sound_and_count_the_work_model(ansatze, mol, gen):
+    """Outside each group's cube both float32 fields are exactly 0.0 at
+    every canonical end (x's highest bit clear); the cube visits
+    2^(n - 1 - |m|) pairs, 2x that many amplitudes is the work model's
+    live count, and where it is not, the float64 model calls a field zero
+    that the float32 sum leaves at a residue (singlet SD's doubles of two
+    excitations on one x: |F| 1.5e-8), so the cube is right to keep it."""
+    gseq = ansatze[mol, gen]
+    n = gseq.n
+    x, z, s = (np.asarray(a) for a in (gseq.x, gseq.z, gseq.s))
+    assert st.build_seq_buckets(st.stream_seq_data(gseq, n // 2)).odd_y
+    m, v = st.live_cubes(x, z, s, n)
+    idx = np.arange(1 << n, dtype=np.int64)
+    residue = []
+    for g in range(len(x)):
+        h = _top(x[g])
+        assert m[g] & ~x[g] == 0 and m[g] >> h == 0 and v[g] & ~m[g] == 0
+        canon = idx[(idx >> h & 1) == 0]
+        inside = (canon & m[g]) == v[g]
+        pairs = int(inside.sum())
+        assert pairs == 1 << (n - 1 - bin(int(m[g])).count("1"))
+        F = _f32_field(z[g], s[g], canon)
+        assert not F[~inside].any(), (mol, gen, g)
+        sf = gr.sign_field(torch.as_tensor(z[g]),
+                           torch.as_tensor(s[g], dtype=torch.float32),
+                           torch.as_tensor(canon[~inside]))
+        assert not sf.any(), (mol, gen, g)
+        live = Group(x[g], z[g], s[g], n).live
+        if 2 * pairs != live:
+            f64 = (1 - 2 * _parity(canon[:, None] & z[g][None, :])) @ s[g]
+            zero64 = np.abs(f64) <= 1e-9 * np.abs(s[g]).max()
+            assert 2 * pairs > live and np.any(inside & zero64 & (F != 0))
+            residue.append(g)
+    if gen == "yxxx_pool":
+        assert not m.any()
+    assert bool(residue) == (gen == "singlet_sd"), residue
+
+
+def _deposit(r, fix):
+    """``deposit`` of csrc/streaming_kernels.cu: a zero inserted at each
+    set bit of fix, lowest first."""
+    r = np.asarray(r, np.int64)
+    for b in range(int(fix).bit_length()):
+        if fix >> b & 1:
+            r = _insert_zero(r, b)
+    return r
+
+
+def _character_group(bits, p0, rest, c):
+    """A group on the x bits ``bits`` live on one pair only: the odd-sized
+    subsets S of the bits as z (odd-Y), plus the mask ``rest`` outside x,
+    with c (-1)^|S & p0|, whose field is 2^(w-1) c at pattern p0 (and minus
+    that at its complement) and 0 elsewhere; w = 2 is a JW single, w = 4 a
+    JW double (8 terms), w = 6 32 terms."""
+    w = len(bits)
+    zs, cs = [], []
+    for sub in range(1 << w):
+        if bin(sub).count("1") % 2:
+            zs.append(sum(1 << bits[i] for i in range(w) if sub >> i & 1)
+                      | rest)
+            cs.append(-c if bin(sub & p0).count("1") % 2 else c)
+    return sum(1 << b for b in bits), zs, cs
+
+
+def _cube_runs(cb):
+    """Groups at n = cb + 4 (a ``StreamGroupData``) whose runs' cubes take
+    every path of the kernels, in this order: doubles sharing x_hi with a
+    cube bit above the chunk (a run cube: half the chunk pairs launched;
+    QP 2); a double whose cube lies inside the chunk (QP 1, one pair a
+    thread); an x_hi = 0 run of a single and a double with a rest mask; a
+    run where a single string (m = 0, QP 8) sits between doubles whose
+    cube bits above the chunk differ (no run cube: each double skipped in
+    half the blocks); a 6-bit group live on one pair in 32 (fewer pairs
+    than threads; 32 terms, two tiles); a single of x_hi != 0 (QP 4); a
+    group of two rest classes."""
+    n = cb + 4
+    h0, h1 = cb + 3, cb + 1
+    l0, l1, l2, l3, l4, l5 = cb - 1, cb - 2, 5, 3, 1, 0
+    cg = _character_group
+    groups = [cg([l1, l0, h1, h0], 0b0011, 1 << cb, 0.125),
+              cg([l3, l2, h1, h0], 0b0011, 0, 0.125),
+              cg([l5, l4, h1, h0], 0b0011, 1 << cb, 0.125),
+              cg([l3, l1, l0, h0], 0b0101, 0, 0.125),
+              cg([l5, l2], 0b10, 0, 0.5),
+              cg([l5, l4, l2, l0], 0b0110, 1 << 4, 0.125),
+              cg([l3, l1, h1, h0], 0b1010, 0, 0.125),
+              (1 << h0 | 1 << h1 | 1 << l0, [1 << l0 | 1 << 2], [0.7]),
+              cg([l3, l1, h1, h0], 0b0011, 1 << 4, 0.125),
+              cg([l5, l4, l3, l2, l1, l0], 0b101101, 0, 1 / 32),
+              cg([l0, h0], 0b01, 1 << 2, 0.5)]
+    xa, za, ca = cg([l4, l2, l1, l0], 0b0011, 1 << 2, 0.125)
+    _, zb, cb_ = cg([l4, l2, l1, l0], 0b0101, 1 << 4, 0.125)
+    groups.append((xa, za + zb, ca + cb_))
+    K_ = max(len(g[1]) for g in groups)
+    x = np.array([g[0] for g in groups], np.int64)
+    z = np.zeros((len(groups), K_), np.int64)
+    c = np.zeros((len(groups), K_))
+    for i, (_, zs, cs) in enumerate(groups):
+        z[i, :len(zs)], c[i, :len(cs)] = zs, cs
+    return st.build_stream_data(n, x, z, c, op=np.arange(len(x)),
+                                chunk_bits=cb)
+
+
+@pytest.mark.parametrize("cb", [8, 12])
+def test_kernel_enumeration_visits_each_live_pair_once(cb):
+    """The kernels' walk of the live cubes, emulated: per run the launched
+    chunk pairs (the run cube), per slot the skip where its cube misses the
+    block's chunks, the pairs l = loop_bits(q) | deposit(tid, fix) | v_lo of
+    QP = 8 >> popcount(m_lo) pairs a thread (threads past P idle when
+    P < T), and the factorised float32 field at each, which equals the
+    field added in term order at the pair's global index bit for bit.
+    Every canonical end of every slot's cube is visited once, nothing
+    else."""
+    bk = st.build_seq_buckets(_cube_runs(cb))
+    assert bk.odd_y
+    n, C = bk.n, 1 << cb
+    T = C // PER
+    m, v = bk.live_cubes()
+    rc = st.run_cube_of(m, v, bk.act != 0, cb)
+    kinds = set()
+    visited = {}
+    for b in range(bk.B):
+        xh = int(bk.x_hi[b])
+        d = xh or 1
+        mh, vh = int(rc[b, 0]), int(rc[b, 1])
+        nblk = (1 << (n - cb - 1)) >> bin(mh).count("1")
+        kinds.add(("blocks", nblk < 1 << (n - cb - 1)))
+        for blk in range(nblk):
+            cA = int(_deposit(blk, (1 << _top(d)) | mh)) | vh
+            cB = cA ^ d
+            assert (cA & mh) == vh and not cA >> _top(d) & 1
+            for g2 in np.nonzero(bk.act[b])[0]:
+                mg, vg = int(m[b, g2]), int(v[b, g2])
+                if ((cA << cb) ^ vg) & mg & ~(C - 1):
+                    kinds.add("slot skipped")
+                    continue
+                xloc = (C if xh else 0) | int(bk.x_lo[b, g2])
+                mlo = mg & (C - 1)
+                fix = (1 << _top(xloc)) | mlo
+                pm = bin(mlo).count("1")
+                qp, npairs = (PER >> pm if pm < 3 else 1), C >> pm
+                kinds.add(("qp", qp, npairs < T))
+                tid = np.arange(min(T, npairs))
+                lf = _deposit(tid, fix) | (vg & (C - 1))
+                dq = [int(_deposit(T << e, fix)) for e in range(3)]
+                z = bk.z[b, g2].astype(np.int64)
+                c = np.float32(bk.coef[b, g2])
+                ze = (z & (C - 1)) | (_parity((d << cb) & z) << cb)
+                cs = np.where(_parity((cA << cb) & z) == 1, -c, c)
+                for q in range(qp):
+                    lv = sum(dq[e] for e in range(3) if q >> e & 1)
+                    assert lv == int(_deposit(q * T, fix))
+                    tab = np.where(_parity(lv & ze) == 1, -cs, cs)
+                    F = np.zeros(len(tid), np.float32)
+                    for k in range(len(z)):
+                        F = F + np.where(_parity(lf & ze[k]) == 1,
+                                         -tab[k], tab[k])
+                    loc = lv | lf
+                    j = (np.where(loc >> cb, cB, cA) << cb) | (loc & (C - 1))
+                    assert not np.any(loc >> _top(xloc) & 1)
+                    assert np.array_equal(F, _f32_field(z, c, j))
+                    for jj in j.tolist():
+                        key = (b, int(g2), jj)
+                        visited[key] = visited.get(key, 0) + 1
+    assert set(visited.values()) == {1}
+    idx = np.arange(1 << n, dtype=np.int64)
+    for b, g2 in zip(*np.nonzero(bk.act)):
+        x = (int(bk.x_hi[b]) << cb) | int(bk.x_lo[b, g2])
+        want = idx[((idx >> _top(x) & 1) == 0) & ((idx & m[b, g2])
+                                                  == v[b, g2])]
+        got = sorted(j for (bb, gg, j) in visited if (bb, gg) == (b, g2))
+        assert got == want.tolist(), (b, g2)
+    assert {("blocks", True), ("blocks", False), "slot skipped",
+            ("qp", 8, False), ("qp", 4, False), ("qp", 2, False),
+            ("qp", 1, False), ("qp", 1, True)} <= kinds, kinds
+    # the host's pair counts: every slot's cube, and what m = 0 visits
+    bo = st.bucket_operands(bk, "cpu", torch.float32)
+    assert bo.pairs == (len(visited), int(bk.act.sum()) << (n - 1))
+    assert np.array_equal(bo.run_cube, rc)
