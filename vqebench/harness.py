@@ -15,11 +15,20 @@ A run builds the cell's problem through the port (``problem.py``), warms up
 the calls its loop makes, measures for ``seconds``, and then, with the
 program's state freed, holds a sample of the answers drawn from the seed
 against the plain reference.
+
+A cell over c > 1 chips runs this on each of c ranks (``ranks.py``), with
+the same seed and traffic, so every rank makes the same collective calls.
+Rank 0's host clock times the window and only rank 0 is profiled.  After
+the window every rank sends rank 0 its peak and a hash of its answers and
+the ranks' group is destroyed; rank 0 alone then runs the reference and
+reports the largest peak of any rank.  Answers that differ between ranks
+fail the check ``ranks_apart``.
 """
 
 from __future__ import annotations
 
 import gc
+import hashlib
 import importlib
 import importlib.util
 import json
@@ -94,6 +103,27 @@ def forbidden_modules() -> List[str]:
                   & set(FORBIDDEN))
 
 
+def device_peak(device) -> int:
+    """Peak bytes allocated on ``device`` since the run's reset (0 on the
+    CPU)."""
+    import torch
+    if torch.device(device).type != "cuda":
+        return 0
+    torch.cuda.synchronize(device)
+    return int(torch.cuda.max_memory_allocated(device))
+
+
+def answers_digest(window) -> str:
+    """A hash of every point, energy and gradient of the window."""
+    h = hashlib.sha256()
+    for th, e, g in zip(window.thetas, window.energies, window.grads):
+        h.update(np.ascontiguousarray(th, np.float64).tobytes())
+        h.update(np.float64(e).tobytes())
+        if g is not None:
+            h.update(np.ascontiguousarray(g, np.float64).tobytes())
+    return h.hexdigest()
+
+
 @dataclass
 class Run:
     """What the metric readers read."""
@@ -133,9 +163,12 @@ def compare(spec: Spec, window, picks, ref):
 
 
 def run(name: str, seed: int, seconds: float, trace: bool, device,
-        t_start: Optional[float] = None, bench: Optional[dict] = None):
+        t_start: Optional[float] = None, bench: Optional[dict] = None,
+        group=None):
     """(result, exit code): the result line's object, or None where the
-    run may not print one."""
+    run may not print one.  ``group`` is this rank's ``ranks.Group`` on a
+    cell over several chips (None: one chip, one process); ranks other
+    than 0 return no result."""
     import torch
 
     from vqebench import generator, problem, shares, traces, work
@@ -144,6 +177,7 @@ def run(name: str, seed: int, seconds: float, trace: bool, device,
     sp = spec(name, bench)
     device = torch.device(device)
     cuda = device.type == "cuda"
+    lead = group is None or group.rank == 0
     if cuda:
         torch.cuda.set_device(device)
         torch.empty(0, device=device)        # the context, then the reset
@@ -152,7 +186,8 @@ def run(name: str, seed: int, seconds: float, trace: bool, device,
 
     pr = problem.build(sp.config)
     t_bind = time.perf_counter()
-    obj, bound = problem.bind(pr, device)
+    obj, bound = problem.bind(pr, device,
+                              None if group is None else group.mesh)
     call = getattr(bound, loop.CALL)
     call(pr.theta0)
     bind_s = time.perf_counter() - t_bind
@@ -162,9 +197,12 @@ def run(name: str, seed: int, seconds: float, trace: bool, device,
         from torch.profiler import ProfilerActivity, profile, record_function
         acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda
                                          else [])
-        with profile(activities=acts):          # the tracer's own warm-up
-            call(pr.theta0 + 2e-3)
-        prof = profile(activities=acts)
+        if lead:
+            with profile(activities=acts):      # the tracer's own warm-up
+                call(pr.theta0 + 2e-3)
+            prof = profile(activities=acts)
+        else:
+            call(pr.theta0 + 2e-3)              # the ranks' calls stay equal
     if cuda:
         torch.cuda.synchronize(device)
     setup_s = time.perf_counter() - t_start
@@ -188,15 +226,24 @@ def run(name: str, seed: int, seconds: float, trace: bool, device,
             traced["rf"].__enter__()
             traced["t0"] = time.perf_counter()
 
-    span = record_function if trace else None
+    span = record_function if trace and lead else None
     window = generator.run(bound, pr.theta0, sp.traffic, seed, seconds,
-                           boundary, span)
-    if cuda:
-        torch.cuda.synchronize(device)
-        peak = int(torch.cuda.max_memory_allocated(device))
-        kind = torch.cuda.get_device_name(device)
-    else:
-        peak, kind = 0, "cpu"
+                           boundary, span,
+                           None if group is None else group.agree)
+    peak = device_peak(device)
+    kind = torch.cuda.get_device_name(device) if cuda else "cpu"
+    apart = 0
+    if group is not None:
+        group.window = window
+        rows = group.settle(peak, answers_digest(window))
+        if not lead:
+            bad = forbidden_modules()
+            if bad:
+                print(f"vqebench: rank {group.rank} loaded {', '.join(bad)}",
+                      file=sys.stderr)
+            return None, 3 if bad else 0
+        peak = max(p for p, _ in rows)
+        apart = sum(d != rows[0][1] for _, d in rows)
 
     rec = Run(sp, window, setup_s, pr.chem_s, bind_s, peak, kind)
     if prof is not None and traced["t0"] is not None:
@@ -233,6 +280,8 @@ def run(name: str, seed: int, seconds: float, trace: bool, device,
         sp.config, device, torch.float64)
     checks, failed = compare(sp, window, picks, ref)
     del ref
+    if group is not None:
+        checks["ranks_apart"] = {"value": float(apart), "limit": 0.0}
     print(f"reference: {len(picks)} answers compared in "
           f"{time.perf_counter() - t_ref:.1f} s", file=sys.stderr)
     correct = failed == 0 and all(c["value"] <= c["limit"]

@@ -21,10 +21,10 @@ class _Stop(Exception):
     pass
 
 
-def run(objective, theta0, traffic, seed, seconds, boundary, span):
+def run(objective, theta0, traffic, seed, seconds, boundary, span, agree):
     import scipy.optimize
 
-    w, deadline = generator.start(seconds)
+    w = generator.start(seconds, agree)
     inner = objective.energy_and_grad
 
     def timed(x):
@@ -33,7 +33,7 @@ def run(objective, theta0, traffic, seed, seconds, boundary, span):
             e, g = inner(x)
             b = time.perf_counter()
         w.record(a, b, x, e, g)
-        if b >= deadline:
+        if w.over(b):
             raise _Stop
         return e, g
 

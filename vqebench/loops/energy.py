@@ -12,10 +12,10 @@ from vqebench import generator
 CALL = "energy"
 
 
-def run(objective, theta0, traffic, seed, seconds, boundary, span):
+def run(objective, theta0, traffic, seed, seconds, boundary, span, agree):
     rng = np.random.default_rng([seed, 0])
     sd = float(traffic["perturb_sd"])
-    w, deadline = generator.start(seconds)
+    w = generator.start(seconds, agree)
     while True:
         th = theta0 + sd * rng.standard_normal(theta0.shape)
         boundary(time.perf_counter())
@@ -25,5 +25,5 @@ def run(objective, theta0, traffic, seed, seconds, boundary, span):
             b = time.perf_counter()
         w.record(a, b, th, e)
         w.iterations += 1
-        if b >= deadline:
+        if w.over(b):
             return w

@@ -6,7 +6,9 @@ atom list, the spin-orbital integrals and ``to_spin`` of
 ``ops.hamiltonian``, then the ansatz builder that the configuration names
 (``vqebench/ansatze/<builder>.py``), and
 ``sim.objective.VQEObjective(hamiltonian).bind(generators, hf_init)`` on
-the objective's default route.
+the objective's default route.  On a mesh of ranks the objective is the
+one ``algorithms.energy_ucc._objective`` gives a mesh (the port's
+``parallel.sharded_stream.make_sharded_objective``), bound the same way.
 """
 
 from __future__ import annotations
@@ -58,8 +60,14 @@ def build(config: dict) -> Problem:
     return Problem(ham, gens, theta0, hf_init, n, time.perf_counter() - t0)
 
 
-def bind(problem: Problem, device):
-    """(objective, bound ansatz) on ``device``, the port's default route."""
-    from openvqe_tpu_torch.sim.objective import VQEObjective
-    obj = VQEObjective(problem.hamiltonian, device=device)
+def bind(problem: Problem, device, mesh=None):
+    """(objective, bound ansatz) on ``device``, the port's default route,
+    or on ``mesh`` (a ``parallel.sharded.Mesh``), this rank's part of the
+    port's sharded objective."""
+    if mesh is None:
+        from openvqe_tpu_torch.sim.objective import VQEObjective
+        obj = VQEObjective(problem.hamiltonian, device=device)
+    else:
+        from openvqe_tpu_torch.algorithms.energy_ucc import _objective
+        obj = _objective(problem.hamiltonian, mesh)
     return obj, obj.bind(problem.generators, problem.hf_init)

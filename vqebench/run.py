@@ -6,7 +6,10 @@
 From the root of a checkout that holds the port (``openvqe_tpu_torch``), on
 a machine with as many CUDA devices as the cell asks for.  The last line of
 standard output is the result; the numbers compared with the plain
-reference are the last lines of standard error.  The port's nvcc and g++
+reference are the last lines of standard error.  A cell on one chip runs in
+this process on ``cuda:0``; a cell on c > 1 chips runs as c ranks on one
+NCCL group, rank r on ``cuda:r`` (``vqebench/ranks.py``), and this process
+prints rank 0's result.  The port's nvcc and g++
 libraries build into the checkout's ``build/`` (the first run of a cell in
 a checkout builds them; later runs load them), and every other cache a run
 may write is kept under ``build/`` too.
@@ -64,9 +67,25 @@ def main() -> int:
         print("vqebench: openvqe_tpu_torch is not the checkout's own",
               file=sys.stderr)
         return 2
-    result, code = harness.run(args.workload, args.seed, args.seconds,
-                               bool(args.trace), torch.device("cuda", 0),
-                               t_start=T_START)
+    if chips == 1:
+        result, code = harness.run(args.workload, args.seed, args.seconds,
+                                   bool(args.trace), torch.device("cuda", 0),
+                                   t_start=T_START)
+    else:
+        import signal
+
+        from vqebench import ranks
+
+        # a launcher told to stop kills its ranks on the way out
+        signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+        result, code, _ = ranks.launch(
+            args.workload, args.seed, args.seconds, bool(args.trace), "nccl",
+            [f"cuda:{r}" for r in range(chips)], t_start=T_START)
+        bad = harness.forbidden_modules()
+        if bad:
+            print(f"vqebench: the launcher loaded {', '.join(bad)}",
+                  file=sys.stderr)
+            return 3
     if result is not None:
         sys.stderr.flush()
         print(json.dumps(result), flush=True)

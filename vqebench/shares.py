@@ -25,13 +25,23 @@ def traced(run, kind):
     return t
 
 
+def least_seconds(run, function):
+    """The least time of ``function``'s work (``vqebench/work.py``) on the
+    run's chips: the work of the whole ideal call, which the cell's c chips
+    share, at c chips' peaks; None where the table has no peaks for the
+    device.  The count stays the ideal call's whatever implements it, so
+    work done twice across ranks and the exchanges lower the share."""
+    least = work.least_seconds(run.work[function], run.device_kind)
+    return None if least is None else least / int(run.spec.cell["chips"])
+
+
 def call_roofline(run, kind):
-    """Per cent of a whole call's least time over the device's busy time."""
+    """Per cent of a whole call's least time over the device's busy time
+    (rank 0's, on a cell over several chips)."""
     t = traced(run, kind)
     if t is None or t.busy_s <= 0:
         return None
-    least = work.least_seconds(
-        run.work["energy_and_grad" if kind else "energy"], run.device_kind)
+    least = least_seconds(run, "energy_and_grad" if kind else "energy")
     return None if least is None else 100.0 * t.calls * least / t.busy_s
 
 
@@ -51,7 +61,7 @@ def function_lines(run):
         return []
     lines = []
     for fn, heads in FUNCTIONS[kind].items():
-        least = work.least_seconds(run.work[fn], run.device_kind)
+        least = least_seconds(run, fn)
         spent = sum(d for name, d in t.kernels
                     if traces.short(name).startswith(heads))
         if least is None or spent <= 0:
